@@ -1,0 +1,22 @@
+"""strutopy_tpu_torch: the Structural Topic Model on PyTorch and CUDA.
+
+The port of ``strutopy_tpu`` (JAX) to PyTorch, with the E-step's Newton
+stages as hand-written CUDA kernels for Hopper (``csrc/stages.cu``).
+It imports torch and numpy only, never jax or ``strutopy_tpu``.
+
+Precision: every model quantity is true float32.  A float32 matmul or
+convolution on the GPU may otherwise run in TF32 (about three decimal
+digits), so TF32 is turned off here, once, for the process — the
+counterpart of the JAX package's ``Precision.HIGH`` on its finalize and
+linear algebra.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from strutopy_tpu_torch.models.config import STMConfig  # noqa: E402
+from strutopy_tpu_torch.models.stm import STM  # noqa: E402
+
+__all__ = ["STM", "STMConfig"]

@@ -1,0 +1,298 @@
+"""Batched variational E-step (twin of ``strutopy_tpu/ops/estep.py``).
+
+For every document, minimize over the variational mean ``eta`` (K-1
+free coordinates, the K-th pinned to 0)
+
+    f(eta) = 0.5 (eta-mu)ᵀ Σ⁻¹ (eta-mu)
+             - Σ_l c_l log( Σ_k e^{eta_k} beta_{k, w_l} )
+             + N_d · logsumexp(eta~)
+
+by a batched damped Newton solve whose three stages (f/g/H, the CG
+direction, the Armijo sweep) are the kernels of ``ops/stages.py``; then
+finalize at the converged eta: float32 Hessian, PD-repair Cholesky,
+``nu = H⁻¹``, the per-document ELBO and the token-topic statistics phi,
+accumulated as
+
+    sigma_ss += nu        beta_ss[:, w_d] += phi_d      bound += bound_d
+
+Documents go through in chunks of ``batch_size``.  Plain functions on
+tensors: everything runs on the device of its inputs.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from strutopy_tpu_torch.ops import stages
+from strutopy_tpu_torch.ops.linalg import cholesky_checked, make_pd
+
+
+class NewtonConfig(NamedTuple):
+    max_iters: int = 24
+    grad_tol: float = 1e-5
+    max_backtracks: int = 12
+    cg_iters: int = 6  # inner CG steps (capped at K-1)
+    bf16_hessian: bool = True  # bf16 B·Bᵀ operand and CG matvec for the in-loop Hessian
+    # run exactly max_iters Newton steps instead of stopping once every
+    # document is done (done documents are frozen either way)
+    fixed_iters: bool = False
+    # < 1 tempers the likelihood of the eta SEARCH objective; the
+    # finalize always evaluates the true model (see the JAX twin)
+    likelihood_temper: float = 1.0
+
+
+class EStepResult(NamedTuple):
+    beta_ss: torch.Tensor  # (K, V)
+    sigma_ss: torch.Tensor  # (K-1, K-1)
+    bound: torch.Tensor  # scalar
+    eta: torch.Tensor  # (N, K-1)
+    theta: torch.Tensor  # (N, K)
+    newton_iters: torch.Tensor  # (N,) int32
+    # unconverged docs the two-pass straggler budget could not admit
+    # (left at their pass-1 eta); 0 on the single-pass path
+    straggler_overflow: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Newton solve
+# ---------------------------------------------------------------------------
+
+
+def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
+                    done0: Optional[torch.Tensor] = None):
+    """Damped Newton for a chunk.
+
+    Returns (eta (B, K-1), n_iters (B,) int32, done (B,) bool).  ``done``
+    is False only for documents that hit ``max_iters`` while still
+    improving; each step is a pure per-document function of eta, so such
+    documents resume exactly in a later call (the two-pass schedule),
+    with ``done0`` carrying the earlier call's flags.
+
+    The loop stops once every document is done, which costs a host sync
+    per iteration (the JAX ``while_loop`` condition).
+    """
+    B, K, _ = beta_doc.shape
+    if cfg.likelihood_temper != 1.0:
+        # f, g, H and the sweep are linear in counts: scaling them once
+        # tempers the whole search objective
+        counts = counts * cfg.likelihood_temper
+    cg_iters = min(cfg.cg_iters, K - 1)
+    ts = torch.exp2(-torch.arange(cfg.max_backtracks, dtype=eta0.dtype,
+                                  device=eta0.device))
+    eta = eta0
+    done = (torch.zeros(B, dtype=torch.bool, device=eta0.device)
+            if done0 is None else done0)
+    n_iters = torch.zeros(B, dtype=torch.int32, device=eta0.device)
+    for _ in range(cfg.max_iters):
+        if not cfg.fixed_iters and bool(torch.all(done)):
+            break
+        f, g, H = stages.fgh(eta, beta_doc, counts, mu, siginv, bf16=cfg.bf16_hessian)
+        conv = torch.amax(torch.abs(g), dim=1) <= cfg.grad_tol
+        p = stages.cg(H, g, cg_iters, bf16=cfg.bf16_hessian)
+        gTp = torch.sum(g * p, dim=1)
+        bad = gTp >= 0
+        p = torch.where(bad[:, None], -g, p)
+        gTp = torch.where(bad, -torch.sum(g * g, dim=1), gTp)
+
+        # parallel Armijo sweep: the first (largest) acceptable step
+        fs = stages.linesearch(eta, p, ts, beta_doc, counts, mu, siginv)
+        ok = fs <= f[:, None] + 1e-4 * ts[None, :] * gTp[:, None]
+        any_ok = torch.any(ok, dim=1)
+        t = torch.amax(torch.where(ok, ts[None, :], 0.0), dim=1)
+
+        advance = ~done & ~conv
+        step = advance & any_ok
+        eta = torch.where(step[:, None], eta + t[:, None] * p, eta)
+        n_iters = n_iters + advance.to(torch.int32)
+        done = done | conv | ~any_ok
+    return eta, n_iters, done
+
+
+# ---------------------------------------------------------------------------
+# finalize
+# ---------------------------------------------------------------------------
+
+
+def _chol_pd_batched(H, jitter: float = 1e-5, rel_jitter: float = 1e-3):
+    """Batched PD-repair Cholesky ladder -> (L, rung (B,) int8).
+
+    Rungs: 1 the raw factor, 2 the make_pd repair, 3 the repair plus a
+    fixed ``jitter``, 4 the repair plus ``rel_jitter`` x max|H| (the
+    JAX package's scale-aware terminal rung).  A rung is taken when its
+    factorization reports ``info == 0`` with a finite factor, which is
+    the JAX ladder's ``isfinite`` test: ``cholesky_ex`` may leave finite
+    garbage behind a failure.  A document that fails all four rungs gets
+    a NaN factor, as in JAX.  The repair rungs run only when some
+    document fails rung 1 (one host sync, the JAX ``lax.cond``).
+    """
+    B, P, _ = H.shape
+    L1, ok1 = cholesky_checked(H)
+    rung = torch.ones(B, dtype=torch.int8, device=H.device)
+    if bool(torch.all(ok1)):
+        return L1, rung
+    eye = torch.eye(P, dtype=H.dtype, device=H.device)[None]
+    H2 = make_pd(H)
+    L2, ok2 = cholesky_checked(H2)
+    L3, ok3 = cholesky_checked(H2 + jitter * eye)
+    j4 = rel_jitter * torch.amax(torch.abs(H2), dim=(1, 2))
+    L4, ok4 = cholesky_checked(H2 + j4[:, None, None] * eye)
+    L4 = torch.where(ok4[:, None, None], L4, float("nan"))
+    fixed = torch.where(ok2[:, None, None], L2, torch.where(ok3[:, None, None], L3, L4))
+    L = torch.where(ok1[:, None, None], L1, fixed)
+    rung = torch.where(ok1, 1, torch.where(ok2, 2, torch.where(ok3, 3, 4))).to(torch.int8)
+    return L, rung
+
+
+def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd):
+    """Per-document theta, nu, bound and phi at the converged eta, all
+    float32 (reference lower_bound / optimize_nu)."""
+    _f, _g, H, theta, phi_hat = stages.f_g_H_batched(
+        eta, beta_doc, counts, mu, siginv, Nd, bf16=False)
+    L, _rung = _chol_pd_batched(H)
+    nu = torch.cholesky_inverse(L)
+
+    eta_full = stages.pad_eta(eta)
+    m = torch.amax(eta_full, dim=1, keepdim=True)
+    e = torch.exp(eta_full - m)
+    t_l = torch.bmm((theta * e)[:, None, :], beta_doc)[:, 0]
+    t_l = torch.clamp_min(t_l, 1e-35)
+    cmask = counts > 0
+    loglik = torch.sum(torch.where(cmask, counts * (torch.log(t_l) + m), 0.0), dim=1)
+    detTerm = -torch.sum(torch.log(torch.diagonal(L, dim1=1, dim2=2)), dim=1)
+    diff = eta - mu
+    quad = 0.5 * torch.sum((diff @ siginv) * diff, dim=1)
+    bound = loglik + detTerm - quad - sigmaentropy
+
+    phi = phi_hat * counts[:, None, :]
+    nu = doc_w[:, None, None] * nu
+    bound = doc_w * bound
+    phi = doc_w[:, None, None] * phi
+    return theta, nu, bound, phi
+
+
+# ---------------------------------------------------------------------------
+# chunked E-step
+# ---------------------------------------------------------------------------
+
+
+def _gather_beta(beta, words):
+    """beta (K, V), words (B, L) -> per-document slices (B, K, L)."""
+    K = beta.shape[0]
+    B, L = words.shape
+    cols = torch.index_select(beta, 1, words.reshape(-1).long())
+    return cols.reshape(K, B, L).permute(1, 0, 2).contiguous()
+
+
+def _scatter_phi(beta_ss, phi, words):
+    """beta_ss[:, words] += phi for a whole chunk (in place).  Padding
+    slots carry phi = 0 (zero counts), so they add nothing."""
+    B, K, L = phi.shape
+    beta_ss.index_add_(1, words.reshape(-1).long(), phi.permute(1, 0, 2).reshape(K, B * L))
+    return beta_ss
+
+
+def _chunks(n: int, B: int):
+    return [slice(i, i + B) for i in range(0, n, B)]
+
+
+def _finalize_all(beta, eta, mu, siginv, sigmaentropy, words, counts, doc_ok, B):
+    """Finalize every document in storage order, chunk by chunk."""
+    K = beta.shape[0]
+    beta_ss = torch.zeros_like(beta)
+    sigma_ss = torch.zeros(K - 1, K - 1, dtype=beta.dtype, device=beta.device)
+    bound = torch.zeros((), dtype=beta.dtype, device=beta.device)
+    thetas = []
+    for sl in _chunks(words.shape[0], B):
+        w, c = words[sl], counts[sl]
+        bd = _gather_beta(beta, w)
+        theta, nu, bound_d, phi = _finalize_chunk(
+            eta[sl], bd, c, mu[sl], doc_ok[sl].to(beta.dtype), siginv,
+            sigmaentropy, torch.sum(c, dim=1))
+        _scatter_phi(beta_ss, phi, w)
+        sigma_ss = sigma_ss + torch.sum(nu, dim=0)
+        bound = bound + torch.sum(bound_d)
+        thetas.append(theta)
+    return beta_ss, sigma_ss, bound, torch.cat(thetas)
+
+
+def _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B, done0=None):
+    """Newton over every chunk: (eta, n_iters, done) for all documents."""
+    etas, iters, dones = [], [], []
+    for sl in _chunks(words.shape[0], B):
+        eta, it, done = _batched_newton(
+            _gather_beta(beta, words[sl]), counts[sl], mu[sl], eta0[sl], siginv,
+            cfg, done0=None if done0 is None else done0[sl])
+        etas.append(eta)
+        iters.append(it)
+        dones.append(done)
+    return torch.cat(etas), torch.cat(iters), torch.cat(dones)
+
+
+def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
+                    cfg: NewtonConfig, B: int, pass1_iters: int,
+                    straggler_frac: float) -> EStepResult:
+    """Two-pass difficulty schedule (twin of ``_two_pass_estep``).
+
+      pass 1  caps every chunk at ``pass1_iters`` Newton steps;
+      pass 2  packs the unconverged documents densely (a budget of
+              ``straggler_frac`` x N, rounded up to whole chunks) and
+              runs them on with the remaining iteration budget;
+      pass 3  finalizes every document in storage order.
+
+    Each Newton step is a pure per-document function of eta, so the
+    trajectories equal the single-pass ones; documents beyond the budget
+    keep their pass-1 eta and are counted in ``straggler_overflow``.
+    """
+    N = words.shape[0]
+    cfg1 = cfg._replace(max_iters=min(pass1_iters, cfg.max_iters))
+    eta, iters, done = _newton_all(beta, mu, eta0, siginv, words, counts, cfg1, B)
+
+    rest = cfg.max_iters - cfg1.max_iters
+    M = min(max(-(-int(straggler_frac * N) // B) * B, B), N)
+    overflow = torch.zeros((), dtype=torch.int32, device=words.device)
+    if rest > 0 and M > 0:
+        # stable ascending sort: unconverged (False) documents pack to the
+        # front in storage order, as jnp.argsort does
+        idx = torch.argsort(done.to(torch.int32), stable=True)[:M]
+        selected = torch.zeros(N, dtype=torch.bool, device=words.device)
+        selected[idx] = True
+        overflow = torch.sum(~done & ~selected & doc_ok).to(torch.int32)
+        eta2, it2, _ = _newton_all(
+            beta, mu[idx], eta[idx], siginv, words[idx], counts[idx],
+            cfg._replace(max_iters=rest), B, done0=done[idx])
+        eta[idx] = eta2  # eta and iters are fresh tensors (torch.cat)
+        iters[idx] += it2
+
+    beta_ss, sigma_ss, bound, theta = _finalize_all(
+        beta, eta, mu, siginv, sigmaentropy, words, counts, doc_ok, B)
+    return EStepResult(beta_ss, sigma_ss, bound, eta, theta, iters, overflow)
+
+
+def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
+              cfg: NewtonConfig = NewtonConfig(), batch_size: int = 1024,
+              pass1_iters: int = 0, straggler_frac: float = 0.3) -> EStepResult:
+    """E-step over a corpus (twin of ``strutopy_tpu/ops/estep.py::run_estep``).
+
+    Args:
+      beta: (K, V) topic-word distributions.
+      mu: (N, K-1) prior means; eta0: (N, K-1) warm starts.
+      siginv, sigmaentropy: from :func:`~strutopy_tpu_torch.ops.linalg.precompute_sigma`.
+      words/counts: (N, L) padded corpus arrays (int32 / float32).
+      doc_ok: (N,) bool mask; False rows are padding documents.
+      batch_size: documents per chunk; N must be a multiple.
+      pass1_iters: > 0 enables the two-pass schedule.
+    """
+    N = words.shape[0]
+    B = min(batch_size, N)
+    if N % B != 0:
+        raise ValueError(f"N={N} must be a multiple of batch_size={B}; pad the corpus")
+    if pass1_iters:
+        return _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts,
+                               doc_ok, cfg, B, pass1_iters, straggler_frac)
+    eta, iters, _ = _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B)
+    beta_ss, sigma_ss, bound, theta = _finalize_all(
+        beta, eta, mu, siginv, sigmaentropy, words, counts, doc_ok, B)
+    overflow = torch.zeros((), dtype=torch.int32, device=words.device)
+    return EStepResult(beta_ss, sigma_ss, bound, eta, theta, iters, overflow)

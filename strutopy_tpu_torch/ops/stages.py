@@ -1,0 +1,275 @@
+"""The three stages of one damped-Newton iteration of the E-step.
+
+Each stage has a plain PyTorch version and a CUDA kernel
+(``csrc/stages.cu``), with the same signature:
+
+  =========  ===========================  ===============================
+  stage      plain version                kernel wrapper (launch counter)
+  =========  ===========================  ===============================
+  f, g, H    :func:`fgh_plain`            :func:`fgh` (``LAUNCHES["fgh"]``)
+  CG         :func:`cg_plain`             :func:`cg` (``LAUNCHES["cg"]``)
+  Armijo     :func:`linesearch_plain`     :func:`linesearch` (``"ls"``)
+  =========  ===========================  ===============================
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors
+it launches the kernel or raises.  There is no fallback from one to the
+other.  Each launch adds one to its counter, so a run can show that its
+main path went through the kernels.
+
+The plain versions carry the math of ``strutopy_tpu/ops/estep.py``'s
+``_f_g_H_batched``, ``_f_multi`` and of the Pallas ``_cg_kernel``; the
+finalize pass reuses :func:`f_g_H_batched` at float32 for the model
+quantities.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from strutopy_tpu_torch.ops import build
+
+LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0}
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch math
+# ---------------------------------------------------------------------------
+
+
+def pad_eta(eta: torch.Tensor) -> torch.Tensor:
+    """(B, K-1) -> (B, K) with the pinned last coordinate."""
+    return torch.cat([eta, eta.new_zeros(eta.shape[0], 1)], dim=1)
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    # round the operand and multiply in float32: on the CPU a bf16
+    # matmul would also return bf16, which the JAX code never does
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16: bool):
+    """Objective, gradient, Hessian for a chunk of documents (twin of
+    ``strutopy_tpu/ops/estep.py::_f_g_H_batched``).
+
+    eta/mu (B, K-1); beta_doc (B, K, L); counts (B, L); Nd (B,).
+    Returns (f (B,), g (B, K-1), H (B, K-1, K-1), theta (B, K),
+    phi_hat (B, K, L)).  With ``bf16`` the B·Bᵀ operand is rounded to
+    bfloat16 and the product accumulates in float32.
+    """
+    K = beta_doc.shape[1]
+    eta_full = pad_eta(eta)
+    m = torch.amax(eta_full, dim=1, keepdim=True)
+    e = torch.exp(eta_full - m)
+    sum_e = torch.sum(e, dim=1, keepdim=True)
+    theta = e / sum_e
+
+    a = e[:, :, None] * beta_doc
+    s = torch.sum(a, dim=1)
+    s_safe = torch.clamp_min(s, 1e-35)
+    cmask = counts > 0
+    ll = torch.sum(torch.where(cmask, counts * (torch.log(s_safe) + m), 0.0), dim=1)
+    lse = (m + torch.log(sum_e))[:, 0]
+    diff = eta - mu
+    sdiff = diff @ siginv
+    f = 0.5 * torch.sum(diff * sdiff, dim=1) - ll + Nd * lse
+
+    phi_hat = a / s_safe[:, None, :]
+    phi_hat = torch.where(cmask[:, None, :], phi_hat, 0.0)
+    q = torch.sum(phi_hat * counts[:, None, :], dim=2)
+    g_full = Nd[:, None] * theta - q
+    g = sdiff + g_full[:, :-1]
+
+    # H = B Bᵀ - Nd θθᵀ + diag(Nd θ - q) + Σ⁻¹ on the free coordinates
+    Bmat = phi_hat * torch.sqrt(torch.clamp_min(counts, 0.0))[:, None, :]
+    if bf16:
+        Bmat = _bf16_round(Bmat)
+    Hll = torch.bmm(Bmat, Bmat.transpose(1, 2))
+    Hll = Hll - (Nd[:, None, None] * theta[:, :, None]) * theta[:, None, :]
+    Hll = Hll + torch.diag_embed(g_full)
+    H = Hll[:, : K - 1, : K - 1] + siginv[None]
+    return f, g, H, theta, phi_hat
+
+
+def linesearch_plain(eta, p, ts, beta_doc, counts, mu, siginv):
+    """Plain version of :func:`linesearch`: f(eta + t p) for all T step
+    sizes at once -> (B, T) (twin of ``strutopy_tpu/ops/estep.py::_f_multi``)."""
+    Nd = torch.sum(counts, dim=1)
+    cand = eta[:, None, :] + ts[None, :, None] * p[:, None, :]
+    B, T, P = cand.shape
+    cand_full = torch.cat([cand, cand.new_zeros(B, T, 1)], dim=2)
+    m = torch.amax(cand_full, dim=2, keepdim=True)
+    e = torch.exp(cand_full - m)
+    s = torch.clamp_min(torch.bmm(e, beta_doc), 1e-35)
+    cmask = counts > 0
+    ll = torch.sum(
+        torch.where(cmask[:, None, :], counts[:, None, :] * (torch.log(s) + m), 0.0),
+        dim=2,
+    )
+    lse = m[:, :, 0] + torch.log(torch.sum(e, dim=2))
+    diff = cand - mu[:, None, :]
+    dsig = (diff.reshape(B * T, P) @ siginv).reshape(B, T, P)
+    quad = 0.5 * torch.sum(diff * dsig, dim=2)
+    return quad - ll + Nd[:, None] * lse
+
+
+def cg_plain(H, g, iters: int, bf16: bool):
+    """Plain version of :func:`cg`: Jacobi-preconditioned Steihaug CG
+    for H x = -g, ``iters`` steps.
+
+    Twin of ``strutopy_tpu/ops/pallas_stages.py::_cg_kernel``: with
+    ``bf16`` the Hessian is rounded to bfloat16 and the search vector p
+    stays float32.  (The XLA path ``estep._cg_batched`` also rounds p;
+    the port follows the kernel it ports.)  Each document freezes at its
+    first direction with pᵀHp <= 1e-30.
+    """
+    dinv = 1.0 / torch.clamp_min(torch.abs(torch.diagonal(H, dim1=1, dim2=2)), 1e-20)
+    Hm = _bf16_round(H) if bf16 else H
+    r = -g
+    z = dinv * r
+    p = z
+    rz = torch.sum(r * z, dim=1)
+    x = torch.zeros_like(g)
+    active = torch.ones(g.shape[0], dtype=torch.bool, device=g.device)
+    for _ in range(iters):
+        Ap = torch.bmm(p[:, None, :], Hm)[:, 0]
+        pAp = torch.sum(p * Ap, dim=1)
+        pos = pAp > 1e-30
+        active = active & pos
+        alpha = rz / torch.where(pos, pAp, 1.0)
+        am = active[:, None]
+        x = torch.where(am, x + alpha[:, None] * p, x)
+        r = torch.where(am, r - alpha[:, None] * Ap, r)
+        z = dinv * r
+        rz_new = torch.sum(r * z, dim=1)
+        beta = rz_new / torch.clamp_min(rz, 1e-30)
+        p = torch.where(am, z + beta[:, None] * p, p)
+        rz = torch.where(active, rz_new, rz)
+    return x
+
+
+def fgh_plain(eta, beta_doc, counts, mu, siginv, bf16: bool):
+    """Plain version of :func:`fgh`: (f (B,), g (B, K-1), H (B, K-1, K-1))."""
+    f, g, H, _, _ = f_g_H_batched(
+        eta, beta_doc, counts, mu, siginv, torch.sum(counts, dim=1), bf16)
+    return f, g, H
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _use_plain(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CPU inputs; False for CUDA inputs that the kernel takes.
+
+    Raises on any other device, on mixed devices, and on CUDA inputs
+    that are not contiguous float32.
+    """
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: inputs on several devices")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous float32, got "
+                             f"{t.dtype} contiguous={t.is_contiguous()}")
+    return False
+
+
+def _expect(name: str, **shapes) -> None:
+    for arg, (t, shape) in shapes.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fgh(eta, beta_doc, counts, mu, siginv, bf16: bool = True):
+    """Objective, gradient and Hessian of every document in the chunk.
+
+    Replaces ``strutopy_tpu/ops/pallas_stages.py::_fgh_kernel`` (wrapper
+    ``pallas_fgh_impl``).  On the H100 the kernel is bound by the
+    float32 B·Bᵀ product on the CUDA cores, 2·(K-1)²·L flops a document
+    (1.3 GFLOP for B=256, K=100, L=256), against ~36 MB of beta_doc read
+    and H written.  Design: one block per document; the softmax, s_l, the
+    log-likelihood, q and g in one pass over L; then H in 32x32 output
+    tiles (upper triangle, mirrored) with the B·Bᵀ operand rebuilt from
+    beta_doc tile by tile, so no (K, L) intermediate reaches device
+    memory and shared memory stays ~13 KB at any K.  bf16 rounds the
+    operand with ``__float2bfloat16`` and accumulates in float32.
+    """
+    if _use_plain("fgh", eta, beta_doc, counts, mu, siginv):
+        return fgh_plain(eta, beta_doc, counts, mu, siginv, bf16)
+    B, K, L = beta_doc.shape
+    _expect("fgh", eta=(eta, (B, K - 1)), mu=(mu, (B, K - 1)),
+            counts=(counts, (B, L)), siginv=(siginv, (K - 1, K - 1)))
+    f = torch.empty(B, dtype=torch.float32, device=eta.device)
+    g = torch.empty(B, K - 1, dtype=torch.float32, device=eta.device)
+    H = torch.empty(B, K - 1, K - 1, dtype=torch.float32, device=eta.device)
+    lib = build.load()
+    with torch.cuda.device(eta.device):
+        rc = lib.stm_fgh(*(t.data_ptr() for t in (siginv, eta, mu, beta_doc, counts, f, g, H)),
+                         B, K, L, int(bool(bf16)), _stream(eta))
+    build.check(rc, "stm_fgh")
+    LAUNCHES["fgh"] += 1
+    return f, g, H
+
+
+def cg(H, g, iters: int, bf16: bool = True):
+    """Newton direction x ≈ -H⁻¹g by ``iters`` steps of Steihaug CG.
+
+    Replaces ``strutopy_tpu/ops/pallas_stages.py::_cg_kernel`` (wrapper
+    ``pallas_cg_impl``).  On the H100 it is bound by latency, not bytes:
+    H is read once (39 KB a document at K=100), then each step is a
+    (K-1)² matvec from shared memory and two block-wide reductions.
+    Design: one block per document; H (bf16-rounded when ``bf16``, kept
+    as float32 values) stays in shared memory for all steps when it fits
+    (K up to ~238), else the matvecs read it from L2; the recurrences
+    run in float32 with p unrounded, as in the TPU kernel.
+    """
+    if _use_plain("cg", H, g):
+        return cg_plain(H, g, iters, bf16)
+    B, Km1 = g.shape
+    _expect("cg", H=(H, (B, Km1, Km1)))
+    x = torch.empty(B, Km1, dtype=torch.float32, device=g.device)
+    lib = build.load()
+    with torch.cuda.device(g.device):
+        rc = lib.stm_cg(H.data_ptr(), g.data_ptr(), x.data_ptr(), B, Km1, int(iters),
+                        int(bool(bf16)), _stream(g))
+    build.check(rc, "stm_cg")
+    LAUNCHES["cg"] += 1
+    return x
+
+
+def linesearch(eta, p, ts, beta_doc, counts, mu, siginv):
+    """Armijo sweep objectives fs[b, t] = f_b(eta_b + ts[t] p_b), (B, T).
+
+    Replaces ``strutopy_tpu/ops/pallas_stages.py::_ls_kernel`` (wrapper
+    ``pallas_linesearch_impl``).  On the H100 it is bound by reading
+    beta_doc (K·L·4 bytes a document, 26 MB for B=256, K=100, L=256)
+    and by T·L logarithms a document.  Design: one block per document;
+    the T candidate softmax rows and siginv (when it fits) sit in shared
+    memory, and one thread per word slot reads its beta_doc column once
+    and forms all T mixtures in registers (T <= 16).
+    """
+    if _use_plain("ls", eta, p, ts, beta_doc, counts, mu, siginv):
+        return linesearch_plain(eta, p, ts, beta_doc, counts, mu, siginv)
+    B, K, L = beta_doc.shape
+    T = ts.shape[0]
+    _expect("ls", eta=(eta, (B, K - 1)), p=(p, (B, K - 1)), mu=(mu, (B, K - 1)),
+            counts=(counts, (B, L)), siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)))
+    if not 1 <= T <= 16:
+        raise ValueError(f"ls: the kernel takes 1 to 16 step sizes, got {T}")
+    fs = torch.empty(B, T, dtype=torch.float32, device=eta.device)
+    lib = build.load()
+    with torch.cuda.device(eta.device):
+        rc = lib.stm_ls(*(t.data_ptr() for t in (siginv, ts, eta, p, mu, beta_doc, counts, fs)),
+                        B, K, L, T, _stream(eta))
+    build.check(rc, "stm_ls")
+    LAUNCHES["ls"] += 1
+    return fs
