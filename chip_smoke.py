@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build, check and drive the PyTorch/CUDA port of the STM fit on one GPU.
+"""Build, check and drive the PyTorch/CUDA port of the STM on one GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,20 +9,31 @@ Phases (any failure is reported and the script exits non-zero at the
 end, without the final result line):
 
   1. device: the card's name and power limit (nvidia-smi), then the
-     stage kernels built from strutopy_tpu_torch/csrc with nvcc for
-     sm_90a, with ptxas' register and shared-memory report;
+     kernels built from strutopy_tpu_torch/csrc with nvcc for sm_90a,
+     with ptxas' register and shared-memory report;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card at the main path's shapes (B=256, K=100, L = the bench
      corpus's bucket width, T=12, 6 CG steps), bf16 on and off, then
-     kernel and plain timed in turns with CUDA events; then the same
-     checks at K=200 and K=400, the kernels' large-K branches;
+     kernel and plain timed in turns with CUDA events: the stage kernels
+     (fgh, cg, ls) on random inputs, the fused Newton kernels (iter: one
+     iteration; newton: the whole loop) on the bench chunk with the
+     recipe's true beta, the row gather (gather) on the chunk's words;
+     2b. the same checks at K=200 and K=400, the kernels' large-K
+     branches;
   3. the CUDA fit against the CPU fit of the same small corpus from the
      same numpy beta (3 EM iterations, float32 Hessian);
-  4. the main path at full width: the bench.py corpus recipe (K=100,
+  4. the fit at full width: the bench.py corpus recipe (K=100,
      V=10,000, N=8,192, 300 tokens a document) and configuration
      (batch 256, two-pass schedule with pass-1 cap 6 and straggler
      fraction 0.25), 2 cold and 3 two-pass EM iterations through
-     ``STM.expectation_maximization``, with every kernel's launch count.
+     ``STM.expectation_maximization``, with every kernel's launch count;
+     4b. 2 EM iterations on each fused Newton path, bounds against 4's;
+  5. serving at full width: phase 4's model saved with ``save_model``,
+     loaded by ``ThetaServer``, 2,048 new documents of the recipe served
+     on the stage, fused-iteration and whole-loop paths (theta on the
+     simplex, eta against the stage path's, launch counts), then requests
+     of 1, 16, 256 and 2,048 documents timed on each;
+     5b. the repo's wiki model (K=50, V=13,852) through the same server.
 
 The last three lines of standard output are the card line, one JSON
 object of per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -32,6 +43,7 @@ It needs torch built for CUDA and nvcc; it imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,8 +55,12 @@ REPLACES = {
     "fgh": "strutopy_tpu/ops/pallas_stages.py:52",
     "cg": "strutopy_tpu/ops/pallas_stages.py:172",
     "ls": "strutopy_tpu/ops/pallas_stages.py:249",
+    "iter": "strutopy_tpu/ops/pallas_stages.py:285",
+    "newton": "strutopy_tpu/ops/pallas_estep.py:77",
+    "gather": "strutopy_tpu/ops/pallas_stages.py:504",
 }
-SOURCE = "strutopy_tpu_torch/csrc/stages.cu"
+SOURCES = {k: "strutopy_tpu_torch/csrc/" + ("stages.cu" if k in ("fgh", "cg", "ls") else "newton.cu")
+           for k in REPLACES}
 # Kernel against plain on the card, element by element:
 #     |kernel - plain| <= RTOL[output] * scale + allowance.
 # ``scale`` is, per element, the sum of the magnitudes of the float32
@@ -67,8 +83,9 @@ DISCRIMINATE = 0.05
 FIT_RTOL = 1e-4  # CUDA vs CPU bound per EM iteration (the f64-oracle invariant)
 
 
-def make_corpus(K, V, N, n_words, seed=0):
-    """bench.py's synthetic STM-DGP corpus recipe (bench.py:38-55)."""
+def make_corpus(K, V, N, n_words, seed=0, return_beta=False):
+    """bench.py's synthetic STM-DGP corpus recipe (bench.py:38-55); with
+    ``return_beta`` also the true beta (K, V) the documents come from."""
     rng = np.random.default_rng(seed)
     beta_true = rng.dirichlet(np.full(V, 0.05), size=K)
     eta_true = rng.normal(0.0, 1.0, (N, K - 1))
@@ -82,7 +99,7 @@ def make_corpus(K, V, N, n_words, seed=0):
         draw = rng.multinomial(n_words, p[d])
         ids = np.nonzero(draw)[0]
         docs.append(list(zip(ids.tolist(), draw[ids].tolist())))
-    return docs, X
+    return (docs, X, beta_true) if return_beta else (docs, X)
 
 
 def random_beta(K, V, seed):
@@ -312,6 +329,445 @@ def phase_small_fit(torch, fails):
                 f"CUDA fit vs CPU fit: max rel bound diff {rel.max():.3e} (tol {FIT_RTOL:.0e})")
 
 
+# ---------------------------------------------------------------------------
+# B4 (one fused Newton iteration), B5 (the whole loop), B6 (row gather)
+# ---------------------------------------------------------------------------
+#
+# B4 runs the bodies of B1-B3 and makes the step's discrete choices:
+# converged or not (max|g| <= grad_tol), the -g fallback (gᵀp >= 0) and
+# the largest step size that passes the Armijo test.  A document is ON
+# THE MARGIN when rounding alone could flip one of them: |max|g| −
+# grad_tol| within g's bound, |gᵀp| within its bound, or for some t at
+# or above the chosen one |fs_t − (f + 1e-4·t·gᵀp)| within the sweep's
+# bound (below it the test is at rounding level as t -> 0, but cannot
+# change the choice).  On the margin only
+# finiteness is required, and such documents are counted.  Off it, the
+# flags must be equal, a done document must keep its eta bit for bit,
+# and every eta element must lie within t · dir_bound + 2^-22 |eta| of
+# plain, where dir_bound is the CG direction's own per-document bound:
+# RTOL["cg"] · max|x| for CG's rounding plus, because B4's H may differ
+# from plain's by the fgh bound (with its bf16 allowance), twice the
+# largest move of the plain direction under two random symmetric
+# perturbations of H of that size.  That bound is loose for one wrong
+# rounding mode, so the eta of the stepping documents must besides sit
+# far closer to plain than the other bf16 mode's plain step does
+# (DISCRIMINATE, in Frobenius norm).
+GRAD_TOL = 1e-5
+N_STEPS = 12
+# B5's whole loop against plain from the same eta0.  The two paths' etas
+# follow trajectories that part by rounding, so the loop is held to
+# their end points: f per document within LOOP_F_RTOL; no more documents
+# left clearly unconverged, with max|g| above STALL_G, than plain leaves
+# plus LOOP_STALL_FRAC of B (rounded up); and eta within LOOP_ETA_ATOL
+# (tests/test_pallas.py:43's bound between two Newton paths) on every
+# document both bring below STALL_G — where a path stops short of that,
+# at the float32 floor or the iteration cap, its end point depends on
+# the path (1.2e-2 apart at K=200 on the card with f equal to 1e-7).
+# STALL_G is 10 grad_tol: grad_tol itself sits at the float32 floor of g
+# (~1e-5 at Nd = 300), where each path leaves a few different documents
+# just above it (ROADMAP Queue C), so a count at grad_tol is noise; a
+# loop that stops early leaves most documents far above STALL_G.
+LOOP_ETA_ATOL = 5e-3
+LOOP_F_RTOL = 1e-5
+STALL_G = 10 * GRAD_TOL
+LOOP_STALL_FRAC = 0.01
+
+
+def step_sizes(torch, device):
+    return torch.exp2(-torch.arange(N_STEPS, dtype=torch.float32, device=device))
+
+
+def iter_plain_parts(torch, stages, inputs, done, bf16):
+    """The plain Newton step's intermediate values and its result."""
+    eta, bd, c, mu, siginv = inputs
+    ts = step_sizes(torch, eta.device)
+    cg_iters = min(6, bd.shape[1] - 1)
+    f, g, H = stages.fgh_plain(eta, bd, c, mu, siginv, bf16=bf16)
+    x = stages.cg_plain(H, g, cg_iters, bf16=bf16)
+    gTx = torch.sum(g * x, 1)
+    bad = gTx >= 0
+    p = torch.where(bad[:, None], -g, x)
+    gTp = torch.where(bad, -torch.sum(g * g, 1), gTx)
+    fs = stages.linesearch_plain(eta, p, ts, bd, c, mu, siginv)
+    rhs = f[:, None] + 1e-4 * ts[None, :] * gTp[:, None]
+    t = torch.amax(torch.where(fs <= rhs, ts[None, :], 0.0), dim=1)
+    want = stages.newton_iter_plain(eta, bd, c, mu, siginv, ts, done, GRAD_TOL, cg_iters, bf16)
+    other = stages.newton_iter_plain(eta, bd, c, mu, siginv, ts, done, GRAD_TOL, cg_iters,
+                                     not bf16)
+    return dict(f=f, g=g, H=H, x=x, gTx=gTx, p=p, fs=fs, rhs=rhs, t=t, ts=ts,
+                cg_iters=cg_iters, done=done, want=want, other=other, bf16=bf16)
+
+
+def direction_bound(torch, stages, parts, H_bound):
+    """RTOL["cg"] · max|x| plus twice the largest move of the plain CG
+    direction under two random symmetric perturbations of H within
+    ``H_bound``, per document (B,)."""
+    H, g, x = parts["H"], parts["g"], parts["x"]
+    move = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for seed in (1, 2):
+        gen = torch.Generator(device=H.device).manual_seed(seed)
+        E = (torch.rand(H.shape, generator=gen, device=H.device) * 2 - 1) * H_bound
+        E = 0.5 * (E + E.transpose(1, 2))
+        x2 = stages.cg_plain(H + E, g, parts["cg_iters"], bf16=parts["bf16"])
+        move = torch.maximum(move, (x2 - x).abs().amax(1))
+    return RTOL["cg"] * x.abs().amax(1) + 2 * move
+
+
+def judge_iter(torch, stages, inputs, parts, got):
+    """B4 (or B5 after one step) against the plain step.  ``got`` is
+    (eta, done, advance); done may be None (B5 reports no flags).
+    Returns (worst error / bound, margin documents, flags equal off the
+    margin, done documents unchanged, every value finite)."""
+    eta, bd, c, mu, siginv = inputs
+    eta_k, done_k, adv_k = got
+    eta_p, done_p, adv_p = parts["want"]
+    g, p, ts, t = parts["g"], parts["p"], parts["ts"], parts["t"]
+    done0 = parts["done"]
+    f_sc = f_scale(torch, eta[:, None, :], bd, c, mu, siginv)[:, 0]
+    fs_sc = f_scale(torch, eta[:, None, :] + ts[None, :, None] * p[:, None, :], bd, c, mu, siginv)
+    g_sc, H_sc, u = gh_scales(torch, stages, eta, bd, c, mu, siginv)
+    H_bound = RTOL["fgh.H"] * H_sc
+    if parts["bf16"]:
+        H_bound = H_bound + BF16_FLIPS * u[:, :, None] * u[:, None, :]
+    dir_b = direction_bound(torch, stages, parts, H_bound)
+    g_b = RTOL["fgh.g"] * g_sc
+    abs_g = g.abs()
+    # the three discrete choices and the rounding each could see
+    conv_m = (abs_g.amax(1) - GRAD_TOL).abs() <= g_b.amax(1)
+    gTp_err = torch.sum(abs_g, 1) * dir_b + torch.sum(g_b * parts["x"].abs(), 1)
+    bad_m = parts["gTx"].abs() <= gTp_err
+    # a direction off by dir_b moves f(eta + t p) by about t g_tᵀΔp, g_t
+    # the gradient at the candidate (small near the optimum)
+    g1_t = torch.stack([
+        torch.sum(stages.fgh_plain(eta + tt * p, bd, c, mu, siginv, bf16=False)[1].abs(), 1)
+        for tt in ts.tolist()], dim=1)
+    lhs_err = RTOL["ls"] * fs_sc + ts[None, :] * g1_t * dir_b[:, None]
+    rhs_err = RTOL["fgh.f"] * f_sc[:, None] + 1e-4 * ts[None, :] * gTp_err[:, None]
+    # only the test at the chosen step size and above decides the choice
+    near = (parts["fs"] - parts["rhs"]).abs() <= lhs_err + rhs_err
+    armijo_m = (near & (ts[None, :] >= t[:, None])).any(1)
+    margin = (conv_m | bad_m | armijo_m) & ~done0
+    off = ~margin & ~done0
+
+    flags_ok = bool(torch.equal(adv_k[off], adv_p[off]))
+    if done_k is not None:
+        flags_ok = flags_ok and bool(torch.equal(done_k[off], done_p[off]))
+        flags_ok = flags_ok and bool(done_k[done0].all()) and not bool(adv_k[done0].any())
+    kept = bool(torch.equal(eta_k[done0], eta[done0]))
+    bound = t[:, None] * dir_b[:, None] + 2.0 ** -22 * eta_p.abs()
+    err = (eta_k - eta_p).abs()
+    worst = float((err[off] / torch.clamp_min(bound[off], 1e-30)).max()) if off.any() else 0.0
+    step = off & (t > 0) & adv_p & (parts["other"][0] != eta).any(1)
+    if step.any():
+        gap = float(torch.linalg.vector_norm(parts["other"][0][step] - eta_p[step]))
+        e = float(torch.linalg.vector_norm(eta_k[step] - eta_p[step]))
+        worst = max(worst, e / max(DISCRIMINATE * gap, 1e-30))
+    finite = bool(torch.isfinite(eta_k).all())
+    return worst, int(margin.sum()), flags_ok, kept, finite
+
+
+def loop_stats(torch, stages, inputs_loop, eta):
+    """f (B,) and max|g| (B,) at eta, float32 Hessian-free plain math."""
+    bd, c, mu, siginv = inputs_loop
+    f, g, _H = stages.fgh_plain(eta, bd, c, mu, siginv, bf16=False)
+    return f, g.abs().amax(1)
+
+
+def judge_loop(torch, stages, inputs_loop, got, want):
+    """B5's whole loop against plain from the same eta0: (max |Δeta| over
+    the documents both converge, worst per-document |Δf| / (rtol |f|),
+    documents above STALL_G kernel and plain, share of equal Newton
+    counts, every value finite)."""
+    (eta_k, n_k), (eta_p, n_p) = got, want
+    f_k, gm_k = loop_stats(torch, stages, inputs_loop, eta_k)
+    f_p, gm_p = loop_stats(torch, stages, inputs_loop, eta_p)
+    both = (gm_k <= STALL_G) & (gm_p <= STALL_G)
+    d_eta = float((eta_k - eta_p)[both].abs().max()) if both.any() else 0.0
+    f_ratio = float(((f_k - f_p).abs() / (LOOP_F_RTOL * f_p.abs())).max())
+    stalls = (int((gm_k > STALL_G).sum()), int((gm_p > STALL_G).sum()))
+    same_n = float((n_k == n_p).float().mean())
+    return d_eta, f_ratio, stalls, same_n, bool(torch.isfinite(eta_k).all())
+
+
+def loop_ok(verdict, B):
+    d_eta, f_ratio, (s_k, s_p), _same, finite = verdict
+    return (finite and d_eta <= LOOP_ETA_ATOL and f_ratio <= 1.0
+            and s_k <= s_p + math.ceil(LOOP_STALL_FRAC * B))
+
+
+def dgp_chunk(torch, K, B, seed, device="cuda"):
+    """B documents of the bench recipe (300 tokens) and the true beta they
+    come from, padded to one bucket: (bd, counts, mu = 0, siginv = I),
+    the prior the recipe draws eta from."""
+    from strutopy_tpu_torch.corpus.bow import pad_corpus
+
+    docs, _X, beta = make_corpus(K, V_BENCH, B, WORDS_BENCH, seed=seed, return_beta=True)
+    return dgp_inputs(torch, pad_corpus(docs, V=V_BENCH), beta, device)
+
+
+def dgp_inputs(torch, corpus, beta, device="cuda"):
+    from strutopy_tpu_torch.ops.estep import _gather_beta
+
+    dev = torch.device(device)
+    K = beta.shape[0]
+    bd = _gather_beta(torch.tensor(beta, dtype=torch.float32, device=dev),
+                      torch.as_tensor(corpus.words, device=dev))
+    c = torch.as_tensor(corpus.counts, device=dev)
+    mu = torch.zeros(corpus.N, K - 1, dtype=torch.float32, device=dev)
+    siginv = torch.eye(K - 1, dtype=torch.float32, device=dev)
+    return bd, c, mu, siginv
+
+
+def midway(torch, stages, inputs_loop, bf16, n_steps=2, every=7):
+    """A Newton iterate part-way along plain's trajectory from mu, with
+    every ``every``-th document also marked done: (eta, done)."""
+    bd, c, mu, siginv = inputs_loop
+    ts = step_sizes(torch, mu.device)
+    eta, done = mu.clone(), torch.zeros(mu.shape[0], dtype=torch.bool, device=mu.device)
+    for _ in range(n_steps):
+        eta, done, _ = stages.newton_iter_plain(eta, bd, c, mu, siginv, ts, done, GRAD_TOL,
+                                                min(6, bd.shape[1] - 1), bf16)
+    done = done.clone()
+    done[::every] = True
+    return eta.contiguous(), done
+
+
+def check_fused(torch, stages, fails, inputs_loop, label):
+    """B4 and B5 against their plain versions on one chunk, bf16 off and
+    on: B4 from a point part-way along the trajectory, B5 with one step
+    (held to B4's check) and with the whole loop from eta0 = mu.  Returns
+    max |kernel - plain| of each (bf16 on)."""
+    bd, c, mu, siginv = inputs_loop
+    B, K = mu.shape[0], bd.shape[1]
+    ts = step_sizes(torch, mu.device)
+    cg_iters = min(6, K - 1)
+    errs = {}
+    for bf16 in (False, True):
+        eta, done = midway(torch, stages, inputs_loop, bf16)
+        inputs = (eta, bd, c, mu, siginv)
+        parts = iter_plain_parts(torch, stages, inputs, done, bf16)
+        got = stages.newton_iter(eta, bd, c, mu, siginv, ts, done, GRAD_TOL, cg_iters, bf16)
+        torch.cuda.synchronize()
+        worst, n_margin, flags_ok, kept, finite = judge_iter(torch, stages, inputs, parts, got)
+        fails.check(finite and flags_ok and kept and worst <= 1.0,
+                    f"{label} iter bf16={bf16}: max_abs_err="
+                    f"{float((got[0] - parts['want'][0]).abs().max()):.3e}, worst error/bound="
+                    f"{worst:.3e}, flags equal off the margin {flags_ok}, done documents "
+                    f"kept {kept}; {n_margin} of {B} documents on the margin")
+        errs["iter"] = float((got[0] - parts["want"][0]).abs().max())
+
+        inputs1 = (mu, bd, c, mu, siginv)
+        no_done = torch.zeros(B, dtype=torch.bool, device=mu.device)
+        parts1 = iter_plain_parts(torch, stages, inputs1, no_done, bf16)
+        e1, n1 = stages.newton_loop(bd, c, mu, mu.clone(), siginv, ts, 1, GRAD_TOL, cg_iters, bf16)
+        torch.cuda.synchronize()
+        worst, n_margin, flags_ok, _kept, finite = judge_iter(
+            torch, stages, inputs1, parts1, (e1, None, n1 > 0))
+        same = bool(torch.equal(e1, stages.newton_iter(mu, bd, c, mu, siginv, ts, no_done,
+                                                       GRAD_TOL, cg_iters, bf16)[0]))
+        fails.check(finite and flags_ok and worst <= 1.0,
+                    f"{label} newton max_iters=1 bf16={bf16}: worst error/bound {worst:.3e}, "
+                    f"advance equal off the margin {flags_ok}; {n_margin} on the margin; "
+                    f"eta bit-equal to iter's from the same start {same}")
+
+        got5 = stages.newton_loop(bd, c, mu, mu.clone(), siginv, ts, 24, GRAD_TOL, cg_iters, bf16)
+        want5 = stages.newton_loop_plain(bd, c, mu, mu.clone(), siginv, ts, 24, GRAD_TOL,
+                                         cg_iters, bf16)
+        torch.cuda.synchronize()
+        v = judge_loop(torch, stages, inputs_loop, got5, want5)
+        fails.check(loop_ok(v, B),
+                    f"{label} newton bf16={bf16}: max |eta - plain| {v[0]:.3e} where both "
+                    f"converge (tol "
+                    f"{LOOP_ETA_ATOL:.0e}), worst |f - plain| / (rtol |f|) {v[1]:.3e} (<= 1), "
+                    f"documents above {STALL_G:.0e} {v[2][0]} vs plain {v[2][1]} (at most "
+                    f"{math.ceil(LOOP_STALL_FRAC * B)} more), equal Newton counts {v[3]:.3f}")
+        errs["newton"] = v[0]
+    return errs
+
+
+def phase_fused(torch, stages, fails, words, counts, beta_true):
+    """Phase 2, B4-B6 at the main path's shapes: the bench chunk of
+    documents with the bench recipe's true beta (mu = 0, sigma = I, the
+    recipe's prior), then timed in turns."""
+    from strutopy_tpu_torch.corpus.bow import PaddedCorpus
+    from strutopy_tpu_torch.ops.estep import NewtonConfig, _batched_newton
+
+    corpus = PaddedCorpus(words, counts, counts.sum(1) > 0, V_BENCH)
+    inputs_loop = dgp_inputs(torch, corpus, beta_true)
+    bd, c, mu, siginv = inputs_loop
+    B, K, L = bd.shape
+    print(f"phase 2: fused kernels vs plain, B={B} K={K} L={L} T={N_STEPS}, true beta")
+    errs = check_fused(torch, stages, fails, inputs_loop, f"K={K}")
+
+    beta_T = torch.tensor(beta_true.T.copy(), dtype=torch.float32, device="cuda")
+    w = torch.as_tensor(words, device="cuda")
+    got, want = stages.gather_rows(beta_T, w), stages.gather_rows_plain(beta_T, w)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    fails.check(same, f"K={K} gather ({B}, {L}) rows of ({V_BENCH}, {K}): equal to "
+                      f"index_select bit for bit {same}")
+    errs["gather"] = float((got - want).abs().max())
+
+    ts = step_sizes(torch, mu.device)
+    eta, done = midway(torch, stages, inputs_loop, True)
+    results = {k: {"max_abs_err": v} for k, v in errs.items()}
+    ms, pms = time_pair(
+        torch, lambda: stages.newton_iter(eta, bd, c, mu, siginv, ts, done, GRAD_TOL, 6, True),
+        lambda: stages.newton_iter_plain(eta, bd, c, mu, siginv, ts, done, GRAD_TOL, 6, True))
+    results["iter"].update(ms=ms, plain_ms=pms)
+    ms, pms = time_pair(
+        torch, lambda: stages.newton_loop(bd, c, mu, mu, siginv, ts, 24, GRAD_TOL, 6, True),
+        lambda: stages.newton_loop_plain(bd, c, mu, mu, siginv, ts, 24, GRAD_TOL, 6, True),
+        reps=3)
+    results["newton"].update(ms=ms, plain_ms=pms)
+    ms, pms = time_pair(torch, lambda: stages.gather_rows(beta_T, w),
+                        lambda: stages.gather_rows_plain(beta_T, w))
+    results["gather"].update(ms=ms, plain_ms=pms)
+    for name, r in results.items():
+        print(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+              f"(bf16 on; median of 3 rounds)")
+    # the default path's whole loop on the same chunk, for comparison with
+    # newton: the stage kernels, the PyTorch glue and a host sync a step
+    stage_ms, newton_ms = time_pair(
+        torch, lambda: _batched_newton(bd, c, mu, mu, siginv, NewtonConfig()),
+        lambda: stages.newton_loop(bd, c, mu, mu, siginv, ts, 24, GRAD_TOL, 6, True), reps=3)
+    print(f"  time of the loop on the same chunk: stage kernels (estep._batched_newton) "
+          f"{stage_ms:.4f} ms, newton {newton_ms:.4f} ms (timed in turns)")
+    return results
+
+
+def phase_fused_widths(torch, stages, fails, B=32):
+    """Phase 2b: B4 and B5 at K=200 and K=400, their large-K branches
+    (siginv read from L2 at K=200; siginv and H, in a global scratch, at
+    K=400), on 32 documents of the bench recipe at that K."""
+    for K in (200, 400):
+        inputs_loop = dgp_chunk(torch, K, B, seed=K)
+        print(f"phase 2b: fused kernels vs plain, B={B} K={K} L={inputs_loop[0].shape[2]}, "
+              f"true beta")
+        check_fused(torch, stages, fails, inputs_loop, f"K={K}")
+
+
+# ---------------------------------------------------------------------------
+# phases 4b, 5, 5b: the fused paths in the fit, and serving
+# ---------------------------------------------------------------------------
+
+FUSED_PATHS = {  # Newton path -> STMConfig changes that select it
+    "stage": {},
+    "iter": {"pallas_iter": True},
+    "newton": {"use_pallas": True, "newton_pass1_iters": 0},
+}
+PATH_KERNELS = {"stage": ("fgh", "cg", "ls"), "iter": ("iter",), "newton": ("newton",)}
+
+
+def reset(stages):
+    for k in stages.LAUNCHES:
+        stages.LAUNCHES[k] = 0
+
+
+def phase_fused_fit(fails, stages, docs, X, cfg, stage_bounds, card):
+    """Phase 4b: 2 EM iterations of the bench fit on each fused path,
+    their bounds against the stage path's first 2 (both cold, single
+    pass on the stage and B4 paths, as B5 always is)."""
+    from strutopy_tpu_torch import STM
+
+    for path in ("iter", "newton"):
+        c = cfg.replace(max_em_iter=2, **FUSED_PATHS[path])
+        model = STM(docs, K=K_BENCH, X=X, config=c, device="cuda")
+        reset(stages)
+        model.expectation_maximization()
+        launches = {k: stages.LAUNCHES[k] for k in PATH_KERNELS[path]}
+        b = np.asarray(model.last_bounds)
+        rel = np.abs(b - stage_bounds[:2]) / np.abs(stage_bounds[:2])
+        for it, (bb, sec) in enumerate(zip(b, model.iter_seconds)):
+            print(f"phase 4b: {path} EM {it}: bound {bb:.6f}, {sec:.4f} s, "
+                  f"{model.N / sec:.1f} docs/s [{card}]")
+        fails.check(len(b) == 2 and bool(np.isfinite(b).all()) and float(rel.max()) <= FIT_RTOL
+                    and all(v > 0 for v in launches.values()),
+                    f"{path} fit: 2 bounds finite, max rel diff to the stage path "
+                    f"{rel.max():.3e} (tol {FIT_RTOL:.0e}); launches {launches}")
+
+
+def simplex_ok(theta, n, K):
+    return (theta.shape == (n, K) and bool(np.isfinite(theta).all())
+            and bool((theta >= 0).all()) and bool(np.allclose(theta.sum(1), 1, atol=1e-4)))
+
+
+def phase_serve(torch, stages, fails, model, card, n_docs=2048):
+    """Phase 5: save phase 4's model, load it with ThetaServer and serve
+    new documents of the bench recipe on the three Newton paths; then
+    time requests of 1, 16, 256 and 2,048 documents on each.  Returns
+    each fused kernel's launches on its path."""
+    import tempfile
+
+    from strutopy_tpu_torch import ThetaServer
+    from strutopy_tpu_torch.ops import build
+
+    docs, X = make_corpus(K_BENCH, V_BENCH, n_docs, WORDS_BENCH, seed=11)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as model_dir:
+        model.save_model(model_dir)
+        srv = ThetaServer(model_dir, device="cuda")
+        saved = srv.cfg
+        print(f"phase 5: serving {n_docs} new documents from {model_dir} (K={srv.K}, "
+              f"V={srv.V}; saved config: pass-1 cap {saved.newton_pass1_iters}, batch "
+              f"{saved.batch_size}); {card}")
+        etas, launches = {}, {}
+        for path, change in FUSED_PATHS.items():
+            srv.cfg = saved.replace(**change)
+            srv.warmup()
+            reset(stages)
+            theta, eta = srv.infer(docs, X=X)
+            launches[path] = dict(stages.LAUNCHES)
+            etas[path] = eta
+            used = PATH_KERNELS[path]
+            fails.check(simplex_ok(theta, n_docs, K_BENCH)
+                        and all(launches[path][k] > 0 for k in used)
+                        and all(v == 0 for k, v in launches[path].items() if k not in used),
+                        f"serve {path}: theta finite on the simplex; launches {launches[path]}")
+            if path != "stage":
+                d = float(np.abs(eta - etas["stage"]).max())
+                fails.check(d <= LOOP_ETA_ATOL,
+                            f"serve {path}: max |eta - stage path's| {d:.3e} (tol "
+                            f"{LOOP_ETA_ATOL:.0e})")
+            for n in (1, 16, 256, n_docs):
+                srv.infer(docs[:n], X=X[:n])  # warm this request's shapes
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    srv.infer(docs[:n], X=X[:n])
+                    times.append(time.perf_counter() - t0)
+                ms = 1e3 * float(np.median(times))
+                print(f"  serve {path} {n} docs: {ms:.3f} ms, {1e3 * n / ms:.1f} docs/s "
+                      f"(median of 3) [{card}]")
+    # each fused kernel's launches on its own path; the gather is on none
+    return {"iter": launches["iter"]["iter"], "newton": launches["newton"]["newton"],
+            "gather": sum(n["gather"] for n in launches.values())}
+
+
+def phase_wiki(torch, stages, fails, n_docs=64,
+               model_dir="artifacts/wiki_reference_model/50"):
+    """Phase 5b: the repo's wiki model (K=50, V=13,852), whose
+    stm_config.json the port does not read (the foreign-config fallback),
+    on documents drawn from its own beta."""
+    from strutopy_tpu_torch import ThetaServer
+
+    srv = ThetaServer(model_dir, device="cuda")
+    beta = np.load(f"{model_dir}/beta_hat.npy").astype(np.float64)
+    beta /= beta.sum(1, keepdims=True)
+    rng = np.random.default_rng(50)
+    docs = []
+    for _ in range(n_docs):
+        draw = rng.multinomial(200, rng.dirichlet(np.full(srv.K, 0.1)) @ beta)
+        ids = np.nonzero(draw)[0]
+        docs.append(list(zip(ids.tolist(), draw[ids].tolist())))
+    X = rng.integers(0, 2, n_docs).astype(np.float64)
+    reset(stages)
+    theta, _eta = srv.infer(docs, X=X)
+    print(f"phase 5b: {model_dir} (K={srv.K}, V={srv.V}, config "
+          f"{'the fallback' if srv.cfg == type(srv.cfg)(K=srv.K) else 'read'}), "
+          f"{n_docs} documents; launches {dict(stages.LAUNCHES)}")
+    fails.check(simplex_ok(theta, n_docs, srv.K), "wiki model: theta finite on the simplex")
+
+
 def main() -> int:
     import torch
 
@@ -329,7 +785,7 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"phase 1: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
-          f"{torch.cuda.device_count()} device(s)")
+          f"{torch.cuda.device_count()} device(s), using 1")
     t0 = time.time()
     lib_path = build.build()
     build.load()
@@ -337,7 +793,7 @@ def main() -> int:
     print("\n".join("    " + ln for ln in build.ptxas_report().strip().splitlines()))
 
     t0 = time.time()
-    docs, X = make_corpus(K_BENCH, V_BENCH, N_BENCH, WORDS_BENCH)
+    docs, X, beta_true = make_corpus(K_BENCH, V_BENCH, N_BENCH, WORDS_BENCH, return_beta=True)
     corpus = pad_corpus(docs, V=V_BENCH)
     plan = make_bucket_plan(corpus, 256)
     buckets = split_corpus_by_plan(corpus, plan)
@@ -345,12 +801,14 @@ def main() -> int:
     print(f"bench corpus in {time.time() - t0:.1f} s: buckets L={plan.Ls} "
           f"docs={[len(i) for i in plan.doc_ids]} batch={plan.batch_sizes}")
 
-    kernels = phase_kernels(torch, stages, fails, buckets[big].words[:256],
-                            buckets[big].counts[:256], K_BENCH)
+    words, counts = buckets[big].words[:256], buckets[big].counts[:256]
+    kernels = phase_kernels(torch, stages, fails, words, counts, K_BENCH)
+    kernels.update(phase_fused(torch, stages, fails, words, counts, beta_true))
     phase_widths(torch, stages, fails)
+    phase_fused_widths(torch, stages, fails)
     phase_small_fit(torch, fails)
 
-    # ----- phase 4: the main path at full width -----
+    # ----- phase 4: the fit at full width -----
     cfg = STMConfig(K=K_BENCH, init_type="random", batch_size=256, newton_pass1_iters=6,
                     newton_straggler_frac=0.25, max_em_iter=5, convergence_threshold=0.0)
     t0 = time.time()
@@ -358,8 +816,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"phase 4: K={K_BENCH} V={V_BENCH} N={N_BENCH}, STM built in "
           f"{time.time() - t0:.1f} s; {card}")
-    for k in stages.LAUNCHES:
-        stages.LAUNCHES[k] = 0
+    reset(stages)
     model.expectation_maximization()
     launches = dict(stages.LAUNCHES)
     for it, (b, s) in enumerate(zip(model.last_bounds, model.iter_seconds)):
@@ -378,6 +835,11 @@ def main() -> int:
                 and np.allclose(theta.sum(1), 1, atol=1e-4)
                 and np.allclose(beta.sum(1), 1, atol=1e-4),
                 "theta (N, K) and beta (K, V) finite, rows on the simplex")
+    phase_fused_fit(fails, stages, docs, X, cfg, np.asarray(model.last_bounds), card)
+
+    # ----- phase 5: serving -----
+    launches.update(phase_serve(torch, stages, fails, model, card))
+    phase_wiki(torch, stages, fails)
 
     print(f"total {time.time() - t_start:.1f} s")
     if fails:
@@ -385,12 +847,11 @@ def main() -> int:
         return 1
     print(card_line())
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
+        {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": kernels[k]["max_abs_err"],
          "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
-        for k in ("fgh", "cg", "ls")]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+        for k in REPLACES]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

@@ -1,7 +1,8 @@
 """strutopy_tpu_torch: the Structural Topic Model on PyTorch and CUDA.
 
 The port of ``strutopy_tpu`` (JAX) to PyTorch, with the E-step's Newton
-stages as hand-written CUDA kernels for Hopper (``csrc/stages.cu``).
+solve as hand-written CUDA kernels for Hopper (``csrc/``): the fit, and
+serving from saved artifacts.
 It imports torch and numpy only, never jax or ``strutopy_tpu``.
 
 Precision: every model quantity is true float32.  A float32 matmul or
@@ -17,6 +18,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from strutopy_tpu_torch.models.config import STMConfig  # noqa: E402
+from strutopy_tpu_torch.models.serving import (  # noqa: E402
+    ThetaServer,
+    infer_from_artifacts,
+    infer_theta,
+)
 from strutopy_tpu_torch.models.stm import STM  # noqa: E402
 
-__all__ = ["STM", "STMConfig"]
+__all__ = ["STM", "STMConfig", "ThetaServer", "infer_from_artifacts", "infer_theta"]

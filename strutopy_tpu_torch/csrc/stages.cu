@@ -23,69 +23,14 @@
 // strutopy_tpu_torch/ops/stages.py operation for operation (the same
 // divisions, the same bf16 rounding points); only the order of the
 // float32 sums differs.  expf/logf/sqrtf are the accurate versions (no
-// fast-math).
+// fast-math).  The per-document bodies live in newton_doc.cuh, shared
+// with the fused kernels of newton.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "newton_doc.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;        // H output tile edge and L depth per step
-constexpr int kTilePad = kTile + 1;
-constexpr int kMaxT = 16;        // most step sizes stm_ls takes
-constexpr float kTiny = 1e-35f;  // floor of the per-word mixture s_l
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Sum over the block, returned to every thread.  `red` holds kWarps
-// floats; the leading barrier lets consecutive calls reuse it, and the
-// barriers also publish shared-memory writes made before the call.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  return warp_sum(lane < kWarps ? red[lane] : 0.f);
-}
-
-__device__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  return warp_max(lane < kWarps ? red[lane] : -INFINITY);
-}
-
-// ---------------------------------------------------------------------------
-// B1: f, g, H
-// ---------------------------------------------------------------------------
-//
-// Shared memory (floats): e[K] | diff[Km1] | sdiff[Km1] | q[Km1] |
-// s[L] | c[L] | A[kTile*kTilePad] | Bt[kTile*kTilePad] | red[32].
-//
-// H's likelihood term is Bmat·Bmatᵀ with Bmat[k,l] = phi_hat[k,l]·sqrt(c_l):
-// it is accumulated one 32x32 output tile at a time (upper triangle,
-// mirrored), walking L in steps of 32.  Bmat is rebuilt from beta_doc for
-// each tile rather than stored, so shared memory does not grow with K or
-// L; the document's beta_doc block (K·L·4 bytes, 100 KB at K=100, L=256)
-// is re-read from L2 once per tile row.
+// B1: f, g, H of document blockIdx.x; scratch fgh_scratch(K, L) floats.
 __global__ void __launch_bounds__(kThreads)
 fgh_kernel(const float* __restrict__ siginv, const float* __restrict__ eta,
            const float* __restrict__ mu, const float* __restrict__ beta_doc,
@@ -94,235 +39,36 @@ fgh_kernel(const float* __restrict__ siginv, const float* __restrict__ eta,
            int K, int L, int bf16) {
   extern __shared__ float smem[];
   const int Km1 = K - 1;
-  const int d = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  float* e = smem;
-  float* diff = e + K;
-  float* sdiff = diff + Km1;
-  float* q = sdiff + Km1;
-  float* s = q + Km1;
-  float* c = s + L;
-  float* At = c + L;
-  float* Bt = At + kTile * kTilePad;
-  float* red = Bt + kTile * kTilePad;
-
-  const float* eta_d = eta + (size_t)d * Km1;
-  const float* mu_d = mu + (size_t)d * Km1;
-  const float* beta_d = beta_doc + (size_t)d * K * L;
-  const float* cnt_d = counts + (size_t)d * L;
-
-  // softmax of the padded eta (last coordinate pinned to 0)
-  float mloc = -INFINITY;
-  for (int k = tid; k < K; k += kThreads) {
-    const float v = k < Km1 ? eta_d[k] : 0.f;
-    e[k] = v;
-    mloc = fmaxf(mloc, v);
-  }
-  const float m = block_max(mloc, red);
-  float se = 0.f;
-  for (int k = tid; k < K; k += kThreads) {
-    const float v = expf(e[k] - m);
-    e[k] = v;
-    se += v;
-  }
-  const float sum_e = block_sum(se, red);
-
-  float nd = 0.f;
-  for (int l = tid; l < L; l += kThreads) {
-    const float v = cnt_d[l];
-    c[l] = v;
-    nd += v;
-  }
-  for (int i = tid; i < Km1; i += kThreads) diff[i] = eta_d[i] - mu_d[i];
-  const float Nd = block_sum(nd, red);  // its barriers publish c and diff
-
-  // prior term: sdiff = diff · siginv, quad = ½ diffᵀ siginv diff
-  float qd = 0.f;
-  for (int j = tid; j < Km1; j += kThreads) {
-    float acc = 0.f;
-    for (int i = 0; i < Km1; ++i) acc += diff[i] * siginv[(size_t)i * Km1 + j];
-    sdiff[j] = acc;
-    qd += diff[j] * acc;
-  }
-  const float quad = 0.5f * block_sum(qd, red);
-
-  // per-word mixture s_l = Σ_k e_k β_kl and the log-likelihood
-  float llp = 0.f;
-  for (int l = tid; l < L; l += kThreads) {
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) acc += e[k] * beta_d[(size_t)k * L + l];
-    acc = fmaxf(acc, kTiny);
-    s[l] = acc;
-    if (c[l] > 0.f) llp += c[l] * (logf(acc) + m);
-  }
-  const float ll = block_sum(llp, red);  // publishes s
-
-  // q_k = Σ_l phi_hat[k,l] c_l, one warp per topic
-  for (int k = warp; k < Km1; k += kWarps) {
-    float acc = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      if (c[l] > 0.f) acc += (e[k] * beta_d[(size_t)k * L + l] / s[l]) * c[l];
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) q[k] = acc;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < Km1; i += kThreads) {
-    const float th = e[i] / sum_e;
-    g_out[(size_t)d * Km1 + i] = sdiff[i] + (Nd * th - q[i]);
-  }
-  if (tid == 0) f_out[d] = quad - ll + Nd * (m + logf(sum_e));
-
-  // Hessian tiles
-  float* H_d = H_out + (size_t)d * Km1 * Km1;
-  const int tx = tid & 31, ty = tid >> 5;  // ty in [0, 8): rows ty + 8r
-  const int nT = (Km1 + kTile - 1) / kTile;
-  for (int ti = 0; ti < nT; ++ti) {
-    for (int tj = ti; tj < nT; ++tj) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int l0 = 0; l0 < L; l0 += kTile) {
-        __syncthreads();  // the previous step's tiles are consumed
-        const int l = l0 + tx;
-        const float cl = l < L ? c[l] : 0.f;
-        const bool live = cl > 0.f;
-        const float sl = live ? s[l] : 1.f;
-        const float rc = live ? sqrtf(cl) : 0.f;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = ty + 8 * r;
-          const int i = ti * kTile + row, j = tj * kTile + row;
-          float va = 0.f, vb = 0.f;
-          if (live && i < Km1) va = (e[i] * beta_d[(size_t)i * L + l] / sl) * rc;
-          if (live && j < Km1) vb = (e[j] * beta_d[(size_t)j * L + l] / sl) * rc;
-          if (bf16) {
-            va = bf16_round(va);
-            vb = bf16_round(vb);
-          }
-          At[tx * kTilePad + row] = va;
-          Bt[tx * kTilePad + row] = vb;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int ll2 = 0; ll2 < kTile; ++ll2) {
-          const float bv = Bt[ll2 * kTilePad + tx];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r] += At[ll2 * kTilePad + ty + 8 * r] * bv;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = ti * kTile + ty + 8 * r, j = tj * kTile + tx;
-        if (i < Km1 && j < Km1) {
-          const float thi = e[i] / sum_e, thj = e[j] / sum_e;
-          float h = acc[r] - (Nd * thi) * thj;
-          if (i == j) h += Nd * thi - q[i];
-          h += siginv[(size_t)i * Km1 + j];
-          H_d[(size_t)i * Km1 + j] = h;
-          if (ti != tj) H_d[(size_t)j * Km1 + i] = h;
-        }
-      }
-    }
-  }
+  const size_t d = blockIdx.x;
+  doc_fgh(siginv, eta + d * Km1, mu + d * Km1, beta_doc + d * K * L, counts + d * L,
+          f_out + d, g_out + d * Km1, H_out + d * Km1 * Km1, K, L, bf16, smem);
 }
 
-// ---------------------------------------------------------------------------
-// B2: Steihaug CG
-// ---------------------------------------------------------------------------
-//
-// Shared memory (floats): red[32] | p | r | z | x | dinv | Ap (Km1 each)
-// | Hs[Km1*Km1] when h_smem.  With h_smem the (bf16-rounded) Hessian is
-// read from device memory once and every matvec reads shared memory;
+// B2: Steihaug CG of document blockIdx.x; scratch cg_scratch(Km1) floats,
+// then Hs[Km1*Km1] when h_smem.  With h_smem the (bf16-rounded) Hessian
+// is read from device memory once and every matvec reads shared memory;
 // without it (K above ~238, where Km1² floats exceed a block's shared
 // memory) the matvecs read H from device memory/L2 and round on the fly.
 __global__ void __launch_bounds__(kThreads)
 cg_kernel(const float* __restrict__ H, const float* __restrict__ g,
           float* __restrict__ x_out, int Km1, int iters, int bf16, int h_smem) {
   extern __shared__ float smem[];
-  const int d = blockIdx.x;
-  const int tid = threadIdx.x;
-  float* red = smem;
-  float* p = red + 32;
-  float* r = p + Km1;
-  float* z = r + Km1;
-  float* x = z + Km1;
-  float* dinv = x + Km1;
-  float* Ap = dinv + Km1;
-  float* Hs = Ap + Km1;
-
-  const float* H_d = H + (size_t)d * Km1 * Km1;
-  const float* g_d = g + (size_t)d * Km1;
+  const size_t d = blockIdx.x;
+  float* Hs = smem + cg_scratch(Km1);
+  const float* H_d = H + d * Km1 * Km1;
   if (h_smem) {
-    for (int idx = tid; idx < Km1 * Km1; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < Km1 * Km1; idx += kThreads) {
       const float v = H_d[idx];
       Hs[idx] = bf16 ? bf16_round(v) : v;
     }
   }
-  const float* Hm = h_smem ? Hs : H_d;
-  const bool round_load = bf16 && !h_smem;
-
-  // Jacobi preconditioner from the unrounded diagonal
-  float part = 0.f;
-  for (int i = tid; i < Km1; i += kThreads) {
-    dinv[i] = 1.f / fmaxf(fabsf(H_d[(size_t)i * Km1 + i]), 1e-20f);
-    const float ri = -g_d[i];
-    r[i] = ri;
-    const float zi = dinv[i] * ri;
-    z[i] = zi;
-    p[i] = zi;
-    x[i] = 0.f;
-    part += ri * zi;
-  }
-  float rz = block_sum(part, red);  // also publishes Hs and p
-  bool active = true;
-
-  for (int it = 0; it < iters; ++it) {
-    // Ap = p · H (H symmetric), one output coordinate per thread
-    part = 0.f;
-    for (int j = tid; j < Km1; j += kThreads) {
-      float acc = 0.f;
-      for (int i = 0; i < Km1; ++i) {
-        float h = Hm[(size_t)i * Km1 + j];
-        if (round_load) h = bf16_round(h);
-        acc += p[i] * h;
-      }
-      Ap[j] = acc;
-      part += p[j] * acc;
-    }
-    const float pAp = block_sum(part, red);
-    active = active && (pAp > 1e-30f);
-    const float alpha = rz / (pAp > 1e-30f ? pAp : 1.f);
-    part = 0.f;
-    for (int i = tid; i < Km1; i += kThreads) {
-      if (active) {
-        x[i] += alpha * p[i];
-        r[i] -= alpha * Ap[i];
-      }
-      z[i] = dinv[i] * r[i];
-      part += r[i] * z[i];
-    }
-    const float rz_new = block_sum(part, red);
-    const float beta = rz_new / fmaxf(rz, 1e-30f);
-    if (active) {
-      for (int i = tid; i < Km1; i += kThreads) p[i] = z[i] + beta * p[i];
-      rz = rz_new;
-    }
-    __syncthreads();  // p is read whole by the next matvec
-  }
-  for (int i = tid; i < Km1; i += kThreads) x_out[(size_t)d * Km1 + i] = x[i];
+  // doc_cg's first barrier publishes Hs
+  doc_cg(H_d, h_smem ? Hs : H_d, bf16 && !h_smem, g + d * Km1, x_out + d * Km1, Km1, iters,
+         smem);
 }
 
-// ---------------------------------------------------------------------------
-// B3: Armijo sweep
-// ---------------------------------------------------------------------------
-//
-// Shared memory (floats): red[32] | m[kMaxT] | lse[kMaxT] | llw[kWarps*kMaxT]
-// | ts[kMaxT] | eta | p | mu (Km1 each) | et[T*K] | dq[T*Km1]
-// | sig[Km1*Km1] when sig_smem.
-// beta_doc is read once: one thread per word slot l forms all T
-// candidate mixtures s[t,l] = Σ_k e[t,k] β_kl in registers.
+// B3: Armijo sweep of document blockIdx.x; scratch sweep_scratch(K, T)
+// floats, then sig[Km1*Km1] when sig_smem.
 __global__ void __launch_bounds__(kThreads)
 ls_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
           const float* __restrict__ eta, const float* __restrict__ pdir,
@@ -331,128 +77,13 @@ ls_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
           int K, int L, int T, int sig_smem) {
   extern __shared__ float smem[];
   const int Km1 = K - 1;
-  const int d = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  float* red = smem;
-  float* mt = red + 32;
-  float* lse = mt + kMaxT;
-  float* llw = lse + kMaxT;
-  float* tsv = llw + kWarps * kMaxT;
-  float* eta_s = tsv + kMaxT;
-  float* p_s = eta_s + Km1;
-  float* mu_s = p_s + Km1;
-  float* et = mu_s + Km1;
-  float* dq = et + T * K;
-  float* sig_s = dq + T * Km1;
-
-  const float* beta_d = beta_doc + (size_t)d * K * L;
-  const float* cnt_d = counts + (size_t)d * L;
-
-  for (int i = tid; i < Km1; i += kThreads) {
-    eta_s[i] = eta[(size_t)d * Km1 + i];
-    p_s[i] = pdir[(size_t)d * Km1 + i];
-    mu_s[i] = mu[(size_t)d * Km1 + i];
-  }
-  if (tid < T) tsv[tid] = ts[tid];
+  const size_t d = blockIdx.x;
+  float* sig_s = smem + sweep_scratch(K, T);
   if (sig_smem) {
-    for (int idx = tid; idx < Km1 * Km1; idx += kThreads) sig_s[idx] = siginv[idx];
+    for (int idx = threadIdx.x; idx < Km1 * Km1; idx += kThreads) sig_s[idx] = siginv[idx];
   }
-  const float* sig = sig_smem ? sig_s : siginv;
-  __syncthreads();
-
-  // candidates (padded with the pinned 0) and their softmax numerators
-  for (int idx = tid; idx < T * K; idx += kThreads) {
-    const int t = idx / K, k = idx - t * K;
-    et[idx] = k < Km1 ? eta_s[k] + tsv[t] * p_s[k] : 0.f;
-  }
-  __syncthreads();
-  for (int t = warp; t < T; t += kWarps) {
-    float mx = -INFINITY;
-    for (int k = lane; k < K; k += 32) mx = fmaxf(mx, et[t * K + k]);
-    mx = warp_max(mx);
-    float se = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float v = expf(et[t * K + k] - mx);
-      et[t * K + k] = v;
-      se += v;
-    }
-    se = warp_sum(se);
-    if (lane == 0) {
-      mt[t] = mx;
-      lse[t] = mx + logf(se);
-    }
-  }
-
-  // prior term of every candidate: dq[t, j] = diff_j · (diff · siginv)_j
-  for (int idx = tid; idx < T * Km1; idx += kThreads) {
-    const int t = idx / Km1, j = idx - t * Km1;
-    const float step = tsv[t];
-    float acc = 0.f;
-    for (int i = 0; i < Km1; ++i) {
-      const float di = (eta_s[i] + step * p_s[i]) - mu_s[i];
-      acc += di * sig[(size_t)i * Km1 + j];
-    }
-    dq[idx] = ((eta_s[j] + step * p_s[j]) - mu_s[j]) * acc;
-  }
-
-  float nd = 0.f;
-  for (int l = tid; l < L; l += kThreads) nd += cnt_d[l];
-  const float Nd = block_sum(nd, red);  // publishes et, mt, lse, dq
-
-  float llp[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) llp[t] = 0.f;
-  for (int l = tid; l < L; l += kThreads) {
-    float acc[kMaxT];
-#pragma unroll
-    for (int t = 0; t < kMaxT; ++t) acc[t] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float b = beta_d[(size_t)k * L + l];
-#pragma unroll
-      for (int t = 0; t < kMaxT; ++t)
-        if (t < T) acc[t] += et[t * K + k] * b;
-    }
-    const float cl = cnt_d[l];
-    if (cl > 0.f) {
-#pragma unroll
-      for (int t = 0; t < kMaxT; ++t)
-        if (t < T) llp[t] += cl * (logf(fmaxf(acc[t], kTiny)) + mt[t]);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) {
-    const float v = warp_sum(llp[t]);
-    if (lane == 0) llw[warp * kMaxT + t] = v;
-  }
-  __syncthreads();
-
-  for (int t = warp; t < T; t += kWarps) {
-    float qs = 0.f;
-    for (int j = lane; j < Km1; j += 32) qs += dq[t * Km1 + j];
-    qs = warp_sum(qs);
-    if (lane == 0) {
-      float ll = 0.f;
-      for (int w = 0; w < kWarps; ++w) ll += llw[w * kMaxT + t];
-      fs[(size_t)d * T + t] = 0.5f * qs - ll + Nd * lse[t];
-    }
-  }
-}
-
-int max_optin_smem() {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return v;
-}
-
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  doc_sweep(sig_smem ? sig_s : siginv, ts, eta + d * Km1, pdir + d * Km1, mu + d * Km1,
+            beta_doc + d * K * L, counts + d * L, fs + d * T, K, L, T, smem);
 }
 
 }  // namespace
@@ -465,8 +96,7 @@ int stm_fgh(const void* siginv, const void* eta, const void* mu, const void* bet
             const void* counts, void* f, void* g, void* H, int B, int K, int L, int bf16,
             void* stream) {
   if (B == 0) return 0;
-  const size_t bytes =
-      sizeof(float) * ((size_t)K + 3 * (size_t)(K - 1) + 2 * (size_t)L + 2 * kTile * kTilePad + 32);
+  const size_t bytes = sizeof(float) * fgh_scratch(K, L);
   if ((int)bytes > max_optin_smem()) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(fgh_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -479,7 +109,7 @@ int stm_fgh(const void* siginv, const void* eta, const void* mu, const void* bet
 int stm_cg(const void* H, const void* g, void* x, int B, int Km1, int iters, int bf16,
            void* stream) {
   if (B == 0) return 0;
-  const size_t base = sizeof(float) * (32 + 6 * (size_t)Km1);
+  const size_t base = sizeof(float) * cg_scratch(Km1);
   const size_t with_h = base + sizeof(float) * (size_t)Km1 * Km1;
   const int h_smem = (int)with_h <= max_optin_smem();
   const size_t bytes = h_smem ? with_h : base;
@@ -496,8 +126,7 @@ int stm_ls(const void* siginv, const void* ts, const void* eta, const void* p,
   if (B == 0) return 0;
   if (T < 1 || T > kMaxT) return (int)cudaErrorInvalidValue;
   const size_t Km1 = (size_t)K - 1;
-  const size_t base = sizeof(float) * (32 + 3 * kMaxT + kWarps * kMaxT + 3 * Km1 +
-                                       (size_t)T * K + (size_t)T * Km1);
+  const size_t base = sizeof(float) * sweep_scratch(K, T);
   const size_t with_sig = base + sizeof(float) * Km1 * Km1;
   const int optin = max_optin_smem();
   if ((int)base > optin) return (int)cudaErrorInvalidValue;

@@ -1,18 +1,23 @@
 """Typed configuration for STM fits.
 
 Same field names, defaults and validation as
-``strutopy_tpu/models/config.py``, so a configuration written by the JAX
-package (``STMConfig.to_json``) loads here with :meth:`STMConfig.from_json`.
+``strutopy_tpu/models/config.py``, so a configuration written by either
+package (``STMConfig.to_json``) loads in the other with ``from_json``.
 
 Differences, all explicit:
 
-  * knobs that steer the TPU compiler or the TPU-only kernels
-    (:data:`TPU_ONLY`) are fields with their JAX defaults and raise when
-    set to anything else — a configuration tuned for the TPU must not be
-    silently reinterpreted;
-  * ``pallas_fgh``/``pallas_cg``/``pallas_ls`` have no fields: on CUDA the
-    three stage kernels are the only Newton path, so they are always on
-    (``from_json`` drops the keys);
+  * the Newton path: by default each iteration runs the three CUDA stage
+    kernels (f/g/H, CG, the Armijo sweep); ``pallas_iter`` runs each
+    iteration as one fused kernel, ``use_pallas`` the whole loop of a
+    chunk as one kernel (single pass: it excludes ``newton_pass1_iters``,
+    as in JAX).  The names are the JAX package's;
+  * ``pallas_fgh``/``pallas_cg``/``pallas_ls`` have no fields: the stage
+    kernels are the default path here (``from_json`` drops the keys,
+    ``to_json`` writes them False, the JAX defaults);
+  * knobs that steer the TPU compiler or its kernels (:data:`TPU_ONLY`)
+    are fields with their JAX defaults and raise when set to anything
+    else — a configuration tuned for the TPU must not be silently
+    reinterpreted;
   * the content model (``content=True`` / ``lda_beta=False``) and
     ``debug_checks`` are not ported yet and raise ``NotImplementedError``.
 """
@@ -24,8 +29,6 @@ import json
 
 # field -> the only accepted value (the JAX default)
 TPU_ONLY = {
-    "use_pallas": False,
-    "pallas_iter": False,
     "pallas_block": 8,
     "cg_chunk_docs": 0,
     "scan_unroll": 1,
@@ -34,7 +37,7 @@ TPU_ONLY = {
     "chol_block": 0,
 }
 # JAX fields the port accepts in from_json and drops: the stage kernels
-# always run here
+# are the default path here
 STAGE_FLAGS = ("pallas_fgh", "pallas_cg", "pallas_ls")
 
 
@@ -83,8 +86,8 @@ class STMConfig:
     newton_warmup_iters: int = 2
     # execution
     batch_size: int = 256
-    use_pallas: bool = False  # TPU only
-    pallas_iter: bool = False  # TPU only
+    use_pallas: bool = False  # the whole Newton loop as one kernel (single pass)
+    pallas_iter: bool = False  # each Newton iteration as one fused kernel
     pallas_block: int = 8  # TPU only
     cg_chunk_docs: int = 0  # TPU only
     newton_bf16_beta: bool = False  # TPU only
@@ -125,6 +128,11 @@ class STMConfig:
             raise ValueError("newton_warmup_iters must be >= 0")
         if not 0.0 < self.likelihood_temper <= 1.0:
             raise ValueError("likelihood_temper must be in (0, 1]")
+        if self.newton_pass1_iters and self.use_pallas:
+            raise ValueError(
+                "the two-pass schedule is incompatible with the whole-loop "
+                "kernel (use_pallas); the stage kernels are fine"
+            )
         for name, default in TPU_ONLY.items():
             if getattr(self, name) != default:
                 raise ValueError(
@@ -148,7 +156,14 @@ class STMConfig:
             )
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        """The JAX package's JSON: its keys in its order, the stage flags
+        (which have no fields here) written False."""
+        d = {}
+        for k, v in dataclasses.asdict(self).items():
+            d[k] = v
+            if k == "use_pallas":
+                d.update(dict.fromkeys(STAGE_FLAGS, False))
+        return json.dumps(d, indent=2)
 
     @classmethod
     def from_json(cls, s: str) -> "STMConfig":

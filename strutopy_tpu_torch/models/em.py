@@ -54,6 +54,7 @@ def _newton_cfg(cfg: STMConfig) -> NewtonConfig:
         cg_iters=cfg.newton_cg_iters,
         bf16_hessian=cfg.newton_bf16_hessian,
         fixed_iters=cfg.newton_fixed_iters,
+        pallas_iter=cfg.pallas_iter,
         likelihood_temper=cfg.likelihood_temper,
     )
 
@@ -98,7 +99,7 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
         res = run_estep(
             state.beta, mu_b, eta_b, siginv, sigmaentropy, words_b, counts_b, ok_b,
             cfg=ncfg, batch_size=B_b, pass1_iters=cfg.newton_pass1_iters,
-            straggler_frac=cfg.newton_straggler_frac,
+            straggler_frac=cfg.newton_straggler_frac, use_pallas=cfg.use_pallas,
         )
         eta_out, theta_out, iters_out = res.eta, res.theta, res.newton_iters
         if perm is not None:

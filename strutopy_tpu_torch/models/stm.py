@@ -1,15 +1,18 @@
 """The user-facing STM estimator (twin of ``strutopy_tpu/models/stm.py``).
 
-Same construction and fitting surface as the JAX ``STM``, on one
-device that the caller names (``device="cuda"`` or ``"cpu"``; nothing
-is detected).  Not ported yet: spectral init (ROADMAP.md Queue A item
-10), the content model (item 11), meshes and streaming (items 12 and
-14), checkpoints, artifacts and serving.
+Same construction, fitting, inference (``transform``) and artifact
+(``save_model``) surface as the JAX ``STM``, on one device that the
+caller names (``device="cuda"`` or ``"cpu"``; nothing is detected).
+Not ported yet: spectral init (ROADMAP.md Queue A item 10), the content
+model (item 11), meshes and streaming (items 12 and 14), checkpoints.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import pickle
 import time
 from typing import Optional
 
@@ -104,6 +107,7 @@ class STM:
         self.V = max(corpus.V, len(dictionary))
         if corpus.V < self.V:
             corpus = PaddedCorpus(corpus.words, corpus.counts, corpus.doc_ok, self.V)
+        self._corpus = corpus  # user order (transform's CTM prior mean)
         if corpus.n_docs == 0:
             raise ValueError("corpus contains no non-empty documents; nothing to fit")
         self.N = corpus.n_docs
@@ -256,12 +260,13 @@ class STM:
     fit = expectation_maximization
 
     # ------------------------------------------------------------------
-    # fitted parameters (padding documents trimmed, user order)
+    # fitted parameters (padding documents trimmed, user order; C-order
+    # arrays, as the JAX package's, so save_model writes the same files)
     # ------------------------------------------------------------------
 
     @property
     def beta(self) -> np.ndarray:
-        return self._state.beta.cpu().numpy()
+        return np.ascontiguousarray(self._state.beta.cpu().numpy())
 
     @property
     def theta(self) -> np.ndarray:
@@ -277,11 +282,11 @@ class STM:
 
     @property
     def sigma(self) -> np.ndarray:
-        return self._state.sigma.cpu().numpy()
+        return np.ascontiguousarray(self._state.sigma.cpu().numpy())
 
     @property
     def gamma(self) -> np.ndarray:
-        return self._state.gamma.cpu().numpy()
+        return np.ascontiguousarray(self._state.gamma.cpu().numpy())
 
     @property
     def bound(self) -> float:
@@ -292,3 +297,82 @@ class STM:
         """Docs the last E-step's two-pass straggler budget could not
         admit (left at their pass-1 eta); 0 when the schedule is off."""
         return int(self._state.straggler_overflow)
+
+    # ------------------------------------------------------------------
+    # inference on new documents (serving)
+    # ------------------------------------------------------------------
+
+    def transform(self, documents, X=None, beta_index=None):
+        """Infer (theta, eta) for NEW documents under the fitted model, in
+        the documents' order: one batched E-step with the fitted beta and
+        sigma and the prevalence prior mu = [1, X_new] @ gamma^T (or, for
+        a CTM or a fit without covariates, the mean fitted eta).  Without
+        an STM instance, see
+        :func:`strutopy_tpu_torch.models.serving.infer_from_artifacts`.
+        ``beta_index`` is read only by the content model (not ported).
+        """
+        from strutopy_tpu_torch.models.serving import infer_theta
+
+        cfg = self.config
+        N_new = documents.N if isinstance(documents, PaddedCorpus) else len(documents)
+        if cfg.model_type == "CTM" or self.X is None:
+            # mean over REAL documents only (the fitted mu divides by
+            # doc_ok.sum()); self.eta is in user order with corpus.N rows
+            ok = self._corpus.doc_ok
+            mu_row = self.eta[ok].mean(axis=0) if ok.any() else self.eta.mean(axis=0)
+            mu_user = np.tile(mu_row, (N_new, 1))
+        else:
+            if X is None:
+                raise ValueError(
+                    "the model was fit with prevalence covariates; pass X "
+                    "for the new documents"
+                )
+            Xa = np.asarray(X, np.float64)
+            if Xa.ndim == 1:
+                Xa = Xa[:, None]
+            # a 1-D categorical covariate was one-hot encoded at fit time:
+            # encode the new values with the TRAINING levels
+            enc = mstep.encode_new_covariates(Xa, self.X, self._corpus.doc_ok)
+            if enc is not None:
+                Xa = enc
+            D_new = np.c_[np.ones(N_new), Xa] if cfg.fit_intercept else Xa
+            if D_new.shape[1] != self.gamma.shape[1]:
+                raise ValueError(
+                    f"X has {Xa.shape[1]} column(s) but the fitted gamma "
+                    f"expects a {self.gamma.shape[1]}-column design; "
+                    "multi-column covariates must be passed with the same "
+                    "encoding used at training"
+                )
+            mu_user = D_new @ np.asarray(self.gamma, np.float64).T
+        return infer_theta(self._state.beta, self._state.sigma, mu_user.astype(np.float32),
+                           documents, cfg, device=self.device)
+
+    # ------------------------------------------------------------------
+    # persistence (the JAX package's save_model artifact set)
+    # ------------------------------------------------------------------
+
+    def save_model(self, output_dir):
+        """Write the ``*_hat.npy`` artifact set, ``lower_bound.pickle``,
+        ``fit_health.json``, ``stm_config.json`` and ``vocab.json``,
+        file for file as the JAX package's ``STM.save_model`` writes
+        them; either package's loader reads them."""
+        os.makedirs(output_dir, exist_ok=True)
+        np.save(os.path.join(output_dir, "beta_hat"), self.beta)
+        np.save(os.path.join(output_dir, "theta_hat"), self.theta)
+        np.save(os.path.join(output_dir, "sigma_hat"), self.sigma)
+        np.save(os.path.join(output_dir, "eta_hat"), self.eta)
+        np.save(os.path.join(output_dir, "mu_hat"), self.mu)
+        if self.X is not None:
+            np.save(os.path.join(output_dir, "X"), self.X)
+        if self.config.model_type == "STM":
+            np.save(os.path.join(output_dir, "gamma_hat"), self.gamma)
+        with open(os.path.join(output_dir, "lower_bound.pickle"), "wb") as f:
+            pickle.dump(self.last_bounds, f)
+        # non-finite bounds propagate into the artifact set
+        nfi = list(self.nonfinite_bound_iters)
+        with open(os.path.join(output_dir, "fit_health.json"), "w") as f:
+            json.dump({"bound_finite": not nfi, "nonfinite_bound_iters": nfi}, f)
+        with open(os.path.join(output_dir, "stm_config.json"), "w") as f:
+            f.write(self.config.to_json())
+        with open(os.path.join(output_dir, "vocab.json"), "w") as f:
+            json.dump(list(self.dictionary), f)

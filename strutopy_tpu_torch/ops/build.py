@@ -1,11 +1,11 @@
-"""Build and load the CUDA stage kernels (``csrc/stages.cu``).
+"""Build and load the CUDA kernels (``csrc/stages.cu``, ``csrc/newton.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface and loaded with ``ctypes``.  The build
 runs at first use, into ``build/kernels/`` at the root of the checkout
-(listed in ``.gitignore``), and is cached by a hash of the source and
-the flags.  Nothing here runs at import: the CPU tests import every
-module on machines without ``nvcc``.
+(listed in ``.gitignore``), and is cached by a hash of every file under
+``csrc/`` (headers included) and the flags.  Nothing here runs at
+import: the CPU tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,21 +19,25 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "stages.cu",)
+SOURCES = (CSRC / "stages.cu", CSRC / "newton.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _lib = None
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "stm_fgh": [_P] * 8 + [_I] * 4 + [_P],
     "stm_cg": [_P] * 3 + [_I] * 4 + [_P],
     "stm_ls": [_P] * 8 + [_I] * 4 + [_P],
+    "stm_newton_h_global": [_I] * 3,
+    "stm_iter": [_P] * 11 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+    "stm_newton": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    "stm_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 
@@ -45,14 +49,17 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError(
-        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA stage "
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
         "kernels are compiled from strutopy_tpu_torch/csrc at first use"
     )
 
 
 def _digest() -> str:
+    """Hash of the flags and of every file under ``csrc/`` with its name,
+    so an edit to a header the sources include rebuilds the library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(src.relative_to(CSRC).as_posix().encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
@@ -64,6 +71,7 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless a library for this source exists.
 
+    One ``nvcc -c`` per source, all started together, then one link.
     ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills
     per kernel) is kept beside the library; :func:`ptxas_report` reads it.
     """
@@ -73,14 +81,27 @@ def build() -> Path:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objs)]
+    cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+    report = []
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds[:-1]]
+        results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(cmds, procs)]
+        if all(rc == 0 for *_, rc in results):
+            link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            results.append((cmds[-1], link.stdout, link.returncode))
+        for cmd, text, rc in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+            report.append(text)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".ptxas.txt").write_text("".join(report))
     os.replace(tmp, out)
     return out
 

@@ -7,9 +7,16 @@ free coordinates, the K-th pinned to 0)
              - Σ_l c_l log( Σ_k e^{eta_k} beta_{k, w_l} )
              + N_d · logsumexp(eta~)
 
-by a batched damped Newton solve whose three stages (f/g/H, the CG
-direction, the Armijo sweep) are the kernels of ``ops/stages.py``; then
-finalize at the converged eta: float32 Hessian, PD-repair Cholesky,
+by a batched damped Newton solve, on one of three paths, all CUDA
+kernels of ``ops/stages.py``:
+
+  * the default: each iteration runs the three stage kernels (f/g/H, the
+    CG direction, the Armijo sweep) with the step glue in PyTorch;
+  * ``NewtonConfig.pallas_iter``: each iteration is one fused kernel;
+  * ``run_estep(use_pallas=True)``: the whole loop is one kernel per
+    chunk (single pass only);
+
+then finalize at the converged eta: float32 Hessian, PD-repair Cholesky,
 ``nu = H⁻¹``, the per-document ELBO and the token-topic statistics phi,
 accumulated as
 
@@ -38,6 +45,9 @@ class NewtonConfig(NamedTuple):
     # run exactly max_iters Newton steps instead of stopping once every
     # document is done (done documents are frozen either way)
     fixed_iters: bool = False
+    # one fused kernel per Newton iteration (stages.newton_iter) in place
+    # of the three stage kernels and their PyTorch glue
+    pallas_iter: bool = False
     # < 1 tempers the likelihood of the eta SEARCH objective; the
     # finalize always evaluates the true model (see the JAX twin)
     likelihood_temper: float = 1.0
@@ -60,9 +70,21 @@ class EStepResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _search_counts(counts, cfg: NewtonConfig):
+    """The counts the Newton search sees: f, g, H and the sweep are
+    linear in counts, so scaling them once tempers the whole search
+    objective (``likelihood_temper``)."""
+    return counts * cfg.likelihood_temper if cfg.likelihood_temper != 1.0 else counts
+
+
+def _step_sizes(cfg: NewtonConfig, like: torch.Tensor):
+    """The Armijo ladder 1, 1/2, 1/4, ... (``max_backtracks`` sizes)."""
+    return torch.exp2(-torch.arange(cfg.max_backtracks, dtype=like.dtype, device=like.device))
+
+
 def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
                     done0: Optional[torch.Tensor] = None):
-    """Damped Newton for a chunk.
+    """Damped Newton for a chunk, one iteration per kernel call(s).
 
     Returns (eta (B, K-1), n_iters (B,) int32, done (B,) bool).  ``done``
     is False only for documents that hit ``max_iters`` while still
@@ -74,13 +96,10 @@ def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
     per iteration (the JAX ``while_loop`` condition).
     """
     B, K, _ = beta_doc.shape
-    if cfg.likelihood_temper != 1.0:
-        # f, g, H and the sweep are linear in counts: scaling them once
-        # tempers the whole search objective
-        counts = counts * cfg.likelihood_temper
+    counts = _search_counts(counts, cfg)
+    step = stages.newton_iter if cfg.pallas_iter else stages.stage_iter
     cg_iters = min(cfg.cg_iters, K - 1)
-    ts = torch.exp2(-torch.arange(cfg.max_backtracks, dtype=eta0.dtype,
-                                  device=eta0.device))
+    ts = _step_sizes(cfg, eta0)
     eta = eta0
     done = (torch.zeros(B, dtype=torch.bool, device=eta0.device)
             if done0 is None else done0)
@@ -88,26 +107,19 @@ def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
     for _ in range(cfg.max_iters):
         if not cfg.fixed_iters and bool(torch.all(done)):
             break
-        f, g, H = stages.fgh(eta, beta_doc, counts, mu, siginv, bf16=cfg.bf16_hessian)
-        conv = torch.amax(torch.abs(g), dim=1) <= cfg.grad_tol
-        p = stages.cg(H, g, cg_iters, bf16=cfg.bf16_hessian)
-        gTp = torch.sum(g * p, dim=1)
-        bad = gTp >= 0
-        p = torch.where(bad[:, None], -g, p)
-        gTp = torch.where(bad, -torch.sum(g * g, dim=1), gTp)
-
-        # parallel Armijo sweep: the first (largest) acceptable step
-        fs = stages.linesearch(eta, p, ts, beta_doc, counts, mu, siginv)
-        ok = fs <= f[:, None] + 1e-4 * ts[None, :] * gTp[:, None]
-        any_ok = torch.any(ok, dim=1)
-        t = torch.amax(torch.where(ok, ts[None, :], 0.0), dim=1)
-
-        advance = ~done & ~conv
-        step = advance & any_ok
-        eta = torch.where(step[:, None], eta + t[:, None] * p, eta)
+        eta, done, advance = step(eta, beta_doc, counts, mu, siginv, ts, done,
+                                  cfg.grad_tol, cg_iters, cfg.bf16_hessian)
         n_iters = n_iters + advance.to(torch.int32)
-        done = done | conv | ~any_ok
     return eta, n_iters, done
+
+
+def _newton_loop(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig):
+    """The whole Newton loop of a chunk in one kernel (``use_pallas``):
+    (eta, n_iters).  Each document leaves the loop when it is done, so
+    ``fixed_iters`` changes nothing."""
+    return stages.newton_loop(beta_doc, _search_counts(counts, cfg), mu, eta0, siginv,
+                              _step_sizes(cfg, eta0), cfg.max_iters, cfg.grad_tol,
+                              min(cfg.cg_iters, beta_doc.shape[1] - 1), cfg.bf16_hessian)
 
 
 # ---------------------------------------------------------------------------
@@ -217,17 +229,24 @@ def _finalize_all(beta, eta, mu, siginv, sigmaentropy, words, counts, doc_ok, B)
     return beta_ss, sigma_ss, bound, torch.cat(thetas)
 
 
-def _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B, done0=None):
-    """Newton over every chunk: (eta, n_iters, done) for all documents."""
+def _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B, done0=None,
+                use_pallas: bool = False):
+    """Newton over every chunk: (eta, n_iters, done) for all documents;
+    with ``use_pallas`` the whole-loop kernel reports no flags (done is
+    None), as ``pallas_newton_impl`` does."""
     etas, iters, dones = [], [], []
     for sl in _chunks(words.shape[0], B):
-        eta, it, done = _batched_newton(
-            _gather_beta(beta, words[sl]), counts[sl], mu[sl], eta0[sl], siginv,
-            cfg, done0=None if done0 is None else done0[sl])
+        bd = _gather_beta(beta, words[sl])
+        if use_pallas:
+            eta, it = _newton_loop(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
+        else:
+            eta, it, done = _batched_newton(
+                bd, counts[sl], mu[sl], eta0[sl], siginv, cfg,
+                done0=None if done0 is None else done0[sl])
+            dones.append(done)
         etas.append(eta)
         iters.append(it)
-        dones.append(done)
-    return torch.cat(etas), torch.cat(iters), torch.cat(dones)
+    return torch.cat(etas), torch.cat(iters), torch.cat(dones) if dones else None
 
 
 def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
@@ -272,7 +291,8 @@ def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
 
 def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
               cfg: NewtonConfig = NewtonConfig(), batch_size: int = 1024,
-              pass1_iters: int = 0, straggler_frac: float = 0.3) -> EStepResult:
+              pass1_iters: int = 0, straggler_frac: float = 0.3,
+              use_pallas: bool = False) -> EStepResult:
     """E-step over a corpus (twin of ``strutopy_tpu/ops/estep.py::run_estep``).
 
     Args:
@@ -283,15 +303,23 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
       doc_ok: (N,) bool mask; False rows are padding documents.
       batch_size: documents per chunk; N must be a multiple.
       pass1_iters: > 0 enables the two-pass schedule.
+      use_pallas: the whole Newton loop of a chunk as one kernel
+        (``stages.newton_loop``); incompatible with ``pass1_iters``.
     """
     N = words.shape[0]
     B = min(batch_size, N)
     if N % B != 0:
         raise ValueError(f"N={N} must be a multiple of batch_size={B}; pad the corpus")
+    if pass1_iters and use_pallas:
+        raise ValueError(
+            "pass1_iters (two-pass schedule) is incompatible with "
+            "use_pallas (the whole-loop kernel owns its iteration control)"
+        )
     if pass1_iters:
         return _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts,
                                doc_ok, cfg, B, pass1_iters, straggler_frac)
-    eta, iters, _ = _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B)
+    eta, iters, _ = _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B,
+                                use_pallas=use_pallas)
     beta_ss, sigma_ss, bound, theta = _finalize_all(
         beta, eta, mu, siginv, sigmaentropy, words, counts, doc_ok, B)
     overflow = torch.zeros((), dtype=torch.int32, device=words.device)

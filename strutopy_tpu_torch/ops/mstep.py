@@ -1,5 +1,6 @@
 """M-step: global parameter updates from the E-step's sufficient
-statistics (twin of ``strutopy_tpu/ops/mstep.py:37-348``, LDA-beta path).
+statistics (twin of ``strutopy_tpu/ops/mstep.py:37-348``, LDA-beta path),
+and the serving-time covariate encoder.
 
 Every update works on small dense moments (Dᵀeta, DᵀD, the residual
 moment, beta_ss, sigma_ss), so the M-step is a handful of (K|P)-sized
@@ -71,6 +72,56 @@ def build_design(
     D = np.concatenate(cols, axis=1)
     D = D * doc_ok[:, None].astype(np.float64)
     return D
+
+
+def encode_new_covariates(
+    X_new: np.ndarray,
+    X_train: Optional[np.ndarray],
+    doc_ok_train: np.ndarray,
+) -> Optional[np.ndarray]:
+    """Encode NEW documents' covariates as :func:`build_design` encoded
+    the training X (numpy copy of the JAX ``encode_new_covariates``), or
+    None when training used no one-hot encoding (binary, numeric or
+    multi-column X passes through unchanged).
+
+    A model fit on a 1-D categorical covariate has one gamma column per
+    training level; levels inferred from the new batch alone would
+    misalign them whenever a level is absent from it.
+    """
+    if X_train is None:
+        return None
+    Xt = np.asarray(X_train, np.float64)
+    if Xt.ndim == 1:
+        Xt = Xt[:, None]
+    if Xt.ndim > 2:
+        Xt = Xt.reshape(Xt.shape[0], -1)
+    if Xt.shape[1] != 1 or np.all((Xt == 0) | (Xt == 1)):
+        return None  # build_design passed it through unencoded
+    real = np.asarray(doc_ok_train, bool)
+    levels = np.unique(Xt[real, 0]) if real.any() else np.unique(Xt[:, 0])
+    if not (0 < len(levels) <= 32):
+        return None  # too many levels: build_design kept it numeric
+    Xn = np.asarray(X_new, np.float64)
+    if Xn.ndim == 1:
+        Xn = Xn[:, None]
+    if Xn.shape[1] == len(levels):
+        return Xn  # the caller passed the one-hot encoding already
+    if Xn.shape[1] != 1:
+        raise ValueError(
+            f"the model was fit on a 1-column categorical covariate "
+            f"({len(levels)} levels); pass new X as the raw 1-column "
+            f"values or as the {len(levels)}-column one-hot encoding, "
+            f"got {Xn.shape[1]} columns"
+        )
+    unseen = ~np.isin(Xn[:, 0], levels)
+    if unseen.any():
+        raise ValueError(
+            f"new documents carry covariate value(s) "
+            f"{np.unique(Xn[unseen, 0]).tolist()} not among the training "
+            f"levels {levels.tolist()}; the fitted gamma has no "
+            "coefficient for them"
+        )
+    return (Xn[:, :1] == levels[None, :]).astype(np.float64)
 
 
 def make_prevalence_design(

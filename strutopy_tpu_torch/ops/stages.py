@@ -1,15 +1,21 @@
-"""The three stages of one damped-Newton iteration of the E-step.
+"""The damped-Newton iteration of the E-step, and the beta row gather.
 
-Each stage has a plain PyTorch version and a CUDA kernel
-(``csrc/stages.cu``), with the same signature:
+Each function has a plain PyTorch version and a CUDA kernel
+(``csrc/stages.cu``, ``csrc/newton.cu``), with the same signature:
 
-  =========  ===========================  ===============================
-  stage      plain version                kernel wrapper (launch counter)
-  =========  ===========================  ===============================
-  f, g, H    :func:`fgh_plain`            :func:`fgh` (``LAUNCHES["fgh"]``)
-  CG         :func:`cg_plain`             :func:`cg` (``LAUNCHES["cg"]``)
-  Armijo     :func:`linesearch_plain`     :func:`linesearch` (``"ls"``)
-  =========  ===========================  ===============================
+  ===========  ===========================  ==================================
+  function     plain version                kernel wrapper (launch counter)
+  ===========  ===========================  ==================================
+  f, g, H      :func:`fgh_plain`            :func:`fgh` (``LAUNCHES["fgh"]``)
+  CG           :func:`cg_plain`             :func:`cg` (``LAUNCHES["cg"]``)
+  Armijo       :func:`linesearch_plain`     :func:`linesearch` (``"ls"``)
+  iteration    :func:`newton_iter_plain`    :func:`newton_iter` (``"iter"``)
+  Newton loop  :func:`newton_loop_plain`    :func:`newton_loop` (``"newton"``)
+  row gather   :func:`gather_rows_plain`    :func:`gather_rows` (``"gather"``)
+  ===========  ===========================  ==================================
+
+:func:`stage_iter` is the default Newton iteration: the step glue of
+:func:`newton_iter_plain` around the three stage kernels.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.  There is no fallback from one to the
@@ -28,7 +34,7 @@ import torch
 
 from strutopy_tpu_torch.ops import build
 
-LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0}
+LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -154,16 +160,87 @@ def fgh_plain(eta, beta_doc, counts, mu, siginv, bf16: bool):
     return f, g, H
 
 
+def _newton_step(fgh_fn, cg_fn, ls_fn, eta, beta_doc, counts, mu, siginv, ts, done,
+                 grad_tol: float, cg_iters: int, bf16: bool):
+    """One damped-Newton iteration of a chunk on the given stage functions
+    (the body of ``strutopy_tpu/ops/estep.py::_batched_newton``).
+
+    Returns (eta, done, advance): done documents keep their eta; a
+    document advances unless it was done or has converged (max|g| <=
+    grad_tol), and is done after a step when no step size passes the
+    Armijo test.
+    """
+    f, g, H = fgh_fn(eta, beta_doc, counts, mu, siginv, bf16=bf16)
+    conv = torch.amax(torch.abs(g), dim=1) <= grad_tol
+    p = cg_fn(H, g, cg_iters, bf16=bf16)
+    gTp = torch.sum(g * p, dim=1)
+    bad = gTp >= 0
+    p = torch.where(bad[:, None], -g, p)
+    gTp = torch.where(bad, -torch.sum(g * g, dim=1), gTp)
+
+    # parallel Armijo sweep: the first (largest) acceptable step
+    fs = ls_fn(eta, p, ts, beta_doc, counts, mu, siginv)
+    ok = fs <= f[:, None] + 1e-4 * ts[None, :] * gTp[:, None]
+    any_ok = torch.any(ok, dim=1)
+    t = torch.amax(torch.where(ok, ts[None, :], 0.0), dim=1)
+
+    advance = ~done & ~conv
+    step = advance & any_ok
+    eta = torch.where(step[:, None], eta + t[:, None] * p, eta)
+    done = done | conv | ~any_ok
+    return eta, done, advance
+
+
+def newton_iter_plain(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
+                      cg_iters: int, bf16: bool = True):
+    """Plain version of :func:`newton_iter`: the step on the plain stages."""
+    return _newton_step(fgh_plain, cg_plain, linesearch_plain, eta, beta_doc, counts, mu,
+                        siginv, ts, done, grad_tol, cg_iters, bf16)
+
+
+def stage_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
+               cg_iters: int, bf16: bool = True):
+    """One Newton iteration on the three stage kernels (:func:`fgh`,
+    :func:`cg`, :func:`linesearch`) with the step glue in PyTorch: the
+    default path.  On CPU tensors it is :func:`newton_iter_plain`."""
+    return _newton_step(fgh, cg, linesearch, eta, beta_doc, counts, mu, siginv, ts, done,
+                        grad_tol, cg_iters, bf16)
+
+
+def newton_loop_plain(beta_doc, counts, mu, eta0, siginv, ts, max_iters: int,
+                      grad_tol: float, cg_iters: int, bf16: bool = True):
+    """Plain version of :func:`newton_loop`: :func:`newton_iter_plain` from
+    ``eta0`` until every document is done or ``max_iters`` iterations ran.
+    Returns (eta (B, K-1), n_iters (B,) int32), n_iters counting advances."""
+    eta = eta0
+    done = torch.zeros(eta0.shape[0], dtype=torch.bool, device=eta0.device)
+    n_iters = torch.zeros(eta0.shape[0], dtype=torch.int32, device=eta0.device)
+    for _ in range(max_iters):
+        if bool(torch.all(done)):
+            break
+        eta, done, advance = newton_iter_plain(eta, beta_doc, counts, mu, siginv, ts, done,
+                                               grad_tol, cg_iters, bf16)
+        n_iters = n_iters + advance.to(torch.int32)
+    return eta, n_iters
+
+
+def gather_rows_plain(beta_T, words):
+    """Plain version of :func:`gather_rows`: beta_T[words] -> (B, L, K)."""
+    B, L = words.shape
+    return torch.index_select(beta_T, 0, words.reshape(-1).long()).reshape(B, L, -1)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _use_plain(name: str, *tensors: torch.Tensor) -> bool:
+def _use_plain(name: str, *tensors: torch.Tensor, dtypes=None) -> bool:
     """True for CPU inputs; False for CUDA inputs that the kernel takes.
 
     Raises on any other device, on mixed devices, and on CUDA inputs
-    that are not contiguous float32.
+    that are not contiguous or not of their dtype (``dtypes``, one per
+    tensor; float32 by default).
     """
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
@@ -172,9 +249,9 @@ def _use_plain(name: str, *tensors: torch.Tensor) -> bool:
         return True
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    for t in tensors:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous float32, got "
+    for t, dt in zip(tensors, dtypes or [torch.float32] * len(tensors)):
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous {dt}, got "
                              f"{t.dtype} contiguous={t.is_contiguous()}")
     return False
 
@@ -273,3 +350,116 @@ def linesearch(eta, p, ts, beta_doc, counts, mu, siginv):
     build.check(rc, "stm_ls")
     LAUNCHES["ls"] += 1
     return fs
+
+
+def _h_scratch(lib, B: int, K: int, L: int, T: int, device):
+    """The (B, K-1, K-1) global scratch the fused kernels need for H where
+    it does not fit in shared memory (K above ~238), else None."""
+    need = lib.stm_newton_h_global(K, L, T)
+    if need < 0:
+        raise ValueError(f"fused Newton kernels: K={K}, L={L}, T={T} exceed a block's "
+                         "shared memory")
+    return torch.empty(B, K - 1, K - 1, dtype=torch.float32, device=device) if need else None
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def newton_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
+                cg_iters: int, bf16: bool = True):
+    """One fused damped-Newton iteration: (eta, done, advance).
+
+    Replaces ``strutopy_tpu/ops/pallas_stages.py::_iter_kernel`` (wrapper
+    ``pallas_iter_impl``).  On the H100 it is bound, like :func:`fgh`, by
+    the float32 B·Bᵀ product on the CUDA cores.  Design: one block per
+    document runs the bodies of the three stage kernels in turn
+    (``csrc/newton_doc.cuh``) with H (when it fits), g, the direction and
+    the sweep values in shared memory, then chooses the step as
+    :func:`newton_iter_plain` does and updates eta; a done document keeps
+    its eta.  ``done`` is a bool (B,) tensor.
+    """
+    if _use_plain("iter", eta, beta_doc, counts, mu, siginv, ts, done,
+                  dtypes=[torch.float32] * 6 + [torch.bool]):
+        return newton_iter_plain(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol,
+                                 cg_iters, bf16)
+    B, K, L = beta_doc.shape
+    T = ts.shape[0]
+    _expect("iter", eta=(eta, (B, K - 1)), mu=(mu, (B, K - 1)), counts=(counts, (B, L)),
+            siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)), done=(done, (B,)))
+    if not 1 <= T <= 16:
+        raise ValueError(f"iter: the kernel takes 1 to 16 step sizes, got {T}")
+    lib = build.load()
+    scratch = _h_scratch(lib, B, K, L, T, eta.device)
+    eta_out = torch.empty_like(eta)
+    done_out = torch.empty_like(done)
+    adv_out = torch.empty_like(done)
+    with torch.cuda.device(eta.device):
+        rc = lib.stm_iter(*(_ptr(t) for t in (siginv, ts, eta, mu, done, beta_doc, counts,
+                                              scratch, eta_out, done_out, adv_out)),
+                          B, K, L, T, float(grad_tol), int(cg_iters), int(bool(bf16)),
+                          _stream(eta))
+    build.check(rc, "stm_iter")
+    LAUNCHES["iter"] += 1
+    return eta_out, done_out, adv_out
+
+
+def newton_loop(beta_doc, counts, mu, eta0, siginv, ts, max_iters: int, grad_tol: float,
+                cg_iters: int, bf16: bool = True):
+    """The whole damped-Newton loop of a chunk: (eta, n_iters int32).
+
+    Replaces ``strutopy_tpu/ops/pallas_estep.py::_newton_kernel`` (wrapper
+    ``pallas_newton_impl``).  Bound like :func:`newton_iter`, per
+    iteration; besides, the loop needs no host synchronisation.  Design:
+    the :func:`newton_iter` block body in a loop of at most ``max_iters``
+    steps that each block leaves once its document is done (a done
+    document is frozen and counts no iteration, so this is exact), so
+    every document gets its full Newton budget without a chunk-wide
+    stopping test.
+    """
+    if _use_plain("newton", beta_doc, counts, mu, eta0, siginv, ts):
+        return newton_loop_plain(beta_doc, counts, mu, eta0, siginv, ts, max_iters, grad_tol,
+                                 cg_iters, bf16)
+    B, K, L = beta_doc.shape
+    T = ts.shape[0]
+    _expect("newton", eta0=(eta0, (B, K - 1)), mu=(mu, (B, K - 1)), counts=(counts, (B, L)),
+            siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)))
+    if not 1 <= T <= 16:
+        raise ValueError(f"newton: the kernel takes 1 to 16 step sizes, got {T}")
+    lib = build.load()
+    scratch = _h_scratch(lib, B, K, L, T, eta0.device)
+    eta = torch.empty_like(eta0)
+    n_iters = torch.empty(B, dtype=torch.int32, device=eta0.device)
+    with torch.cuda.device(eta0.device):
+        rc = lib.stm_newton(*(_ptr(t) for t in (siginv, ts, beta_doc, counts, mu, eta0,
+                                                scratch, eta, n_iters)),
+                            B, K, L, T, int(max_iters), float(grad_tol), int(cg_iters),
+                            int(bool(bf16)), _stream(eta0))
+    build.check(rc, "stm_newton")
+    LAUNCHES["newton"] += 1
+    return eta, n_iters
+
+
+def gather_rows(beta_T, words):
+    """Row gather beta_T[words]: (V, K) float32 and (B, L) int32 -> (B, L, K).
+
+    Replaces ``strutopy_tpu/ops/pallas_stages.py::_gather_rows_kernel``
+    (wrapper ``pallas_gather_beta``).  A pure copy, bound by device-memory
+    bandwidth: B·L·K·4 bytes written (39 MB for B=256, L=384, K=100).
+    Design: one warp per output row reads its own word id, then copies
+    the row with 16-byte loads and stores where K % 4 == 0.  Bit for bit
+    the same as :func:`gather_rows_plain`; an id outside [0, V) gives a
+    row of NaN.  Not wired into the E-step (as in the JAX package).
+    """
+    if _use_plain("gather", beta_T, words, dtypes=[torch.float32, torch.int32]):
+        return gather_rows_plain(beta_T, words)
+    V, K = beta_T.shape
+    B, L = words.shape
+    out = torch.empty(B, L, K, dtype=torch.float32, device=beta_T.device)
+    lib = build.load()
+    with torch.cuda.device(beta_T.device):
+        rc = lib.stm_gather_rows(beta_T.data_ptr(), words.data_ptr(), out.data_ptr(), B * L,
+                                 V, K, _stream(beta_T))
+    build.check(rc, "stm_gather_rows")
+    LAUNCHES["gather"] += 1
+    return out

@@ -1,8 +1,8 @@
-"""The element-by-element checks that chip_smoke.py holds each CUDA
-kernel to, run on the CPU: an independent implementation of the same
-stages (the JAX Pallas kernels in interpret mode) passes them, and
-kernels that are wrong in small ways fail them.  Each wrong kernel is
-simulated by the plain versions with the fault put in."""
+"""The checks that chip_smoke.py holds each CUDA kernel to, run on the
+CPU: an independent implementation of the same functions (the JAX Pallas
+kernels in interpret mode) passes them, and kernels that are wrong in
+small ways fail them.  Each wrong kernel is simulated by the plain
+versions with the fault put in."""
 
 import numpy as np
 import pytest
@@ -11,9 +11,12 @@ import torch
 
 import chip_smoke as cs
 from strutopy_tpu.ops import estep as jax_estep
+from strutopy_tpu.ops.pallas_estep import pallas_newton
 from strutopy_tpu.ops.pallas_stages import (
     pallas_cg_impl,
     pallas_fgh_impl,
+    pallas_gather_beta,
+    pallas_iter_impl,
     pallas_linesearch_impl,
 )
 from strutopy_tpu_torch.ops import stages
@@ -97,3 +100,146 @@ def test_smoke_checks_fail_a_wrong_kernel(mutant, bf16):
     worst = _worst(inputs, {**want, **wrong}, want, aux, bf16)
     assert all(worst[name] > 1.0 for name in wrong), worst
     assert all(worst[name] == 0.0 for name in worst if name not in wrong), worst
+
+
+# ---------------------------------------------------------------------------
+# B4 (fused iteration), B5 (whole loop), B6 (row gather)
+# ---------------------------------------------------------------------------
+
+
+def _fused(bf16, K=9, B=32, seed=3):
+    """A chunk of the bench recipe's documents with its true beta, as
+    chip_smoke.py checks the fused kernels, and the plain step's parts
+    from a point part-way along the trajectory."""
+    inputs_loop = cs.dgp_chunk(torch, K, B, seed, device="cpu")
+    eta, done = cs.midway(torch, stages, inputs_loop, bf16)
+    bd, c, mu, siginv = inputs_loop
+    inputs = (eta, bd, c, mu, siginv)
+    return inputs_loop, inputs, cs.iter_plain_parts(torch, stages, inputs, done, bf16)
+
+
+def _jnp(*ts):
+    return [jnp.asarray(t.numpy()) for t in ts]
+
+
+def _iter_verdict(inputs, parts, got):
+    worst, n_margin, flags_ok, kept, finite = cs.judge_iter(torch, stages, inputs, parts, got)
+    assert finite and n_margin < len(parts["t"]) // 4
+    return worst, flags_ok, kept
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pallas_iter_kernel_passes_the_iter_check(bf16):
+    _loop, inputs, parts = _fused(bf16)
+    eta, bd, c, mu, siginv = _jnp(*inputs)
+    e, d, a = pallas_iter_impl(eta, bd, c, mu, siginv, jnp.asarray(parts["ts"].numpy()),
+                               jnp.asarray(parts["done"].numpy()), grad_tol=cs.GRAD_TOL,
+                               cg_iters=parts["cg_iters"], bf16=bf16, interpret=True)
+    got = tuple(torch.tensor(np.asarray(v)) for v in (e, d, a))
+    worst, flags_ok, kept = _iter_verdict(inputs, parts, got)
+    assert flags_ok and kept and worst <= 1.0, worst
+
+
+def _pallas_newton(inputs_loop, bf16, max_iters=24):
+    bd, c, mu, siginv = _jnp(*inputs_loop)
+    eta, n = pallas_newton(bd, c, mu, mu, siginv, block_docs=16, interpret=True,
+                           cfg=jax_estep.NewtonConfig(bf16_hessian=bf16, max_iters=max_iters))
+    return torch.tensor(np.asarray(eta)), torch.tensor(np.asarray(n))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pallas_newton_kernel_passes_the_loop_checks(bf16):
+    inputs_loop, _inputs, _parts = _fused(bf16)
+    bd, c, mu, siginv = inputs_loop
+    B = mu.shape[0]
+    # one step, held to the iteration check from eta = mu
+    parts1 = cs.iter_plain_parts(torch, stages, (mu, bd, c, mu, siginv),
+                                 torch.zeros(B, dtype=torch.bool), bf16)
+    e1, n1 = _pallas_newton(inputs_loop, bf16, max_iters=1)
+    worst, flags_ok, _kept = _iter_verdict((mu, bd, c, mu, siginv), parts1, (e1, None, n1 > 0))
+    assert flags_ok and worst <= 1.0, worst
+    # the whole loop
+    ts = cs.step_sizes(torch, "cpu")
+    want = stages.newton_loop_plain(bd, c, mu, mu, siginv, ts, 24, cs.GRAD_TOL, 6, bf16)
+    verdict = cs.judge_loop(torch, stages, inputs_loop, _pallas_newton(inputs_loop, bf16), want)
+    assert cs.loop_ok(verdict, B), verdict
+
+
+def test_pallas_gather_kernel_passes_the_gather_check():
+    rng = np.random.default_rng(7)
+    beta_T = rng.random((500, 12)).astype(np.float32)
+    words = rng.integers(0, 500, (16, 40)).astype(np.int32)
+    got = pallas_gather_beta(jnp.asarray(beta_T), jnp.asarray(words), rows_per_program=64,
+                             interpret=True)
+    want = stages.gather_rows_plain(torch.tensor(beta_T), torch.tensor(words))
+    assert torch.equal(torch.tensor(np.asarray(got)), want)
+
+
+def _iter_advances_done_documents(inputs, parts, bf16):
+    eta, bd, c, mu, siginv = inputs
+    done = parts["done"]
+    free = stages.newton_iter_plain(eta, bd, c, mu, siginv, parts["ts"], torch.zeros_like(done),
+                                    cs.GRAD_TOL, parts["cg_iters"], bf16)
+    return tuple(torch.where(done[:, None] if w.dim() == 2 else done, f, w)
+                 for f, w in zip(free, parts["want"]))
+
+
+def _iter_takes_the_smallest_acceptable_step(inputs, parts, bf16):
+    eta = inputs[0]
+    ok = parts["fs"] <= parts["rhs"]
+    t_min = torch.amin(torch.where(ok, parts["ts"][None, :], 2.0), dim=1)
+    _e, done, adv = parts["want"]
+    step = adv & ok.any(1)
+    return torch.where(step[:, None], eta + t_min[:, None] * parts["p"], eta), done, adv
+
+
+def _iter_rounds_p_in_cg(inputs, parts, bf16):
+    # the XLA twin's CG (ROADMAP Queue C), not the kernel's
+    def cg_xla(H, g, iters, bf16):
+        x = jax_estep._cg_batched(jnp.asarray(H.numpy()), jnp.asarray(g.numpy()), iters,
+                                  bf16=bf16)
+        return torch.tensor(np.asarray(x))
+
+    eta, bd, c, mu, siginv = inputs
+    return stages._newton_step(stages.fgh_plain, cg_xla, stages.linesearch_plain, eta, bd, c,
+                               mu, siginv, parts["ts"], parts["done"], cs.GRAD_TOL,
+                               parts["cg_iters"], bf16)
+
+
+@pytest.mark.parametrize("mutant, bf16", [
+    (_iter_advances_done_documents, False),
+    (_iter_takes_the_smallest_acceptable_step, False),
+    (_iter_takes_the_smallest_acceptable_step, True),
+    (_iter_rounds_p_in_cg, True),
+], ids=lambda v: v.__name__.strip("_") if callable(v) else f"bf16={v}")
+def test_iter_check_fails_a_wrong_kernel(mutant, bf16):
+    _loop, inputs, parts = _fused(bf16)
+    worst, flags_ok, kept = _iter_verdict(inputs, parts, mutant(inputs, parts, bf16))
+    assert worst > 1.0 or not flags_ok or not kept, worst
+
+
+def test_loop_check_fails_a_loop_that_stops_one_step_early():
+    """Each document's eta before its last advancing step, one count less."""
+    inputs_loop, _inputs, _parts = _fused(True)
+    bd, c, mu, siginv = inputs_loop
+    ts = cs.step_sizes(torch, "cpu")
+    eta, prev = mu.clone(), mu.clone()
+    done = torch.zeros(mu.shape[0], dtype=torch.bool)
+    n = torch.zeros(mu.shape[0], dtype=torch.int32)
+    for _ in range(24):
+        new, done, adv = stages.newton_iter_plain(eta, bd, c, mu, siginv, ts, done,
+                                                  cs.GRAD_TOL, 6, True)
+        prev = torch.where(adv[:, None], eta, prev)
+        eta, n = new, n + adv.to(torch.int32)
+    verdict = cs.judge_loop(torch, stages, inputs_loop, (prev, n - 1), (eta, n))
+    assert not cs.loop_ok(verdict, mu.shape[0]), verdict
+
+
+def test_gather_check_fails_a_gather_that_drops_the_last_row():
+    rng = np.random.default_rng(8)
+    beta_T = torch.tensor(rng.random((300, 8)).astype(np.float32))
+    words = torch.tensor(rng.integers(0, 300, (4, 16)).astype(np.int32))
+    want = stages.gather_rows_plain(beta_T, words)
+    wrong = want.clone()
+    wrong[-1, -1] = 0.0
+    assert not torch.equal(wrong, want)

@@ -137,13 +137,14 @@ def test_ctypes_signatures_match_the_cuda_source():
     card could show it."""
     import re
 
-    src = build.SOURCES[0].read_text()
+    src = "\n".join(p.read_text() for p in build.SOURCES)
+    kind = {build.ctypes.c_void_p: "p", build.ctypes.c_int: "i", build.ctypes.c_float: "f"}
     found = {}
     for name, params in re.findall(r"^int (stm_\w+)\(([^)]*)\)", src, flags=re.M):
         kinds = [p.strip().rsplit(" ", 1)[0] for p in params.split(",")]
-        found[name] = ["p" if k.endswith("*") else "i" for k in kinds]
-    declared = {name: ["p" if t is build.ctypes.c_void_p else "i" for t in types]
-                for name, types in build._SIGNATURES.items()}
+        found[name] = ["p" if k.endswith("*") else "f" if k == "float" else "i"
+                       for k in kinds]
+    declared = {name: [kind[t] for t in types] for name, types in build._SIGNATURES.items()}
     assert found == declared
 
 
