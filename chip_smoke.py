@@ -10,7 +10,8 @@ end, without the final result line):
 
   1. device: the card's name and power limit (nvidia-smi), then the
      kernels built from strutopy_tpu_torch/csrc with nvcc for sm_90a,
-     with ptxas' register and shared-memory report;
+     with ptxas' register and shared-memory report, and the stage
+     kernels' shared memory per block at K = 3 to 400;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card at the main path's shapes (B=256, K=100, L = the bench
      corpus's bucket width, T=12, 6 CG steps), bf16 on and off, then
@@ -18,7 +19,11 @@ end, without the final result line):
      (fgh, cg, ls) on random inputs, the fused Newton kernels (iter: one
      iteration; newton: the whole loop) on the bench chunk with the
      recipe's true beta, the row gather (gather) on the chunk's words;
-     2b. the same checks at K=200 and K=400, the kernels' large-K
+     each beside its least time on the card (bound) and its share of it;
+     fgh and ls on a permuted half of the chunk, each document's outputs
+     bit-equal to its outputs in the whole chunk;
+     2b. the same checks at K=50 with L=200 (a partial slab) and L=201
+     (not a multiple of 4), and at K=200 and K=400, the kernels' large-K
      branches;
   3. the CUDA fit against the CPU fit of the same small corpus from the
      same numpy beta (3 EM iterations, float32 Hessian);
@@ -27,11 +32,14 @@ end, without the final result line):
      (batch 256, two-pass schedule with pass-1 cap 6 and straggler
      fraction 0.25), 2 cold and 3 two-pass EM iterations through
      ``STM.expectation_maximization``, with every kernel's launch count;
-     4b. 2 EM iterations on each fused Newton path, bounds against 4's;
+     4b. the first 2 EM iterations on the stage path, then each on both
+     fused Newton paths from the same state, bounds against the stage
+     path's;
   5. serving at full width: phase 4's model saved with ``save_model``,
      loaded by ``ThetaServer``, 2,048 new documents of the recipe served
      on the stage, fused-iteration and whole-loop paths (theta on the
-     simplex, eta against the stage path's, launch counts), then requests
+     simplex, eta against the stage path's where both converge, launch
+     counts), then requests
      of 1, 16, 256 and 2,048 documents timed on each;
      5b. the repo's wiki model (K=50, V=13,852) through the same server.
 
@@ -81,6 +89,11 @@ RTOL = {"fgh.f": 1e-5, "fgh.g": 1e-5, "fgh.H": 1e-5, "cg": 1e-4, "ls": 1e-5}
 BF16_FLIPS = 4 * 2.0 ** -7
 DISCRIMINATE = 0.05
 FIT_RTOL = 1e-4  # CUDA vs CPU bound per EM iteration (the f64-oracle invariant)
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
+# dense): device-memory bytes/s, and operations/s by type.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may opt in to
 
 
 def make_corpus(K, V, N, n_words, seed=0, return_beta=False):
@@ -114,6 +127,9 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+CARD = ""  # the card line, set by main()
+
+
 class Failures(list):
     def check(self, ok: bool, what: str):
         print(("  ok   " if ok else "  FAIL ") + what, flush=True)
@@ -127,24 +143,91 @@ def worst_ratio(got, want, bound):
     return float(err.max()), float((err / bound).max())
 
 
-def time_pair(torch, kernel_fn, plain_fn, reps=20):
-    """ms per call of kernel and plain, timed in turns (plain, kernel,
-    kernel, plain) with CUDA events; the median of each side's rounds."""
-    for _ in range(3):
-        kernel_fn()
-        plain_fn()
-    torch.cuda.synchronize()
-    times = {"kernel": [], "plain": []}
-    for side in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
-        fn = kernel_fn if side == "kernel" else plain_fn
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+def graphed(torch, fn, reps):
+    """``fn`` called ``reps`` times, captured in one CUDA graph: replaying it
+    runs the same launches without the host's per-call cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the wrappers query the device (opt-in shared memory) as they launch
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
+    return graph.replay
+
+
+def time_pair(torch, kernel_fn, plain_fn, reps=20, graph=True):
+    """ms per call of kernel and plain, timed in turns (plain, kernel,
+    kernel, plain) with CUDA events; the median of each side's rounds.
+    With ``graph`` each round replays a CUDA graph of ``reps`` calls, so
+    the time is the device's; without it (a function that synchronises
+    with the host) the calls are made one by one.  A ``plain_fn`` of None
+    times ``kernel_fn`` alone (its plain time is then nan)."""
+    fns = {"kernel": kernel_fn, "plain": plain_fn}
+    fns = {k: f for k, f in fns.items() if f is not None}
+    for _ in range(3):
+        for f in fns.values():
+            f()
+    torch.cuda.synchronize()
+    calls = reps
+    if graph:
+        fns = {k: graphed(torch, f, reps) for k, f in fns.items()}
+        calls = 1
+    times = {"kernel": [], "plain": []}
+    for side in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+        if side not in fns:
+            continue
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fns[side]()
         end.record()
         torch.cuda.synchronize()
         times[side].append(start.elapsed_time(end) / reps)
-    return float(np.median(times["kernel"])), float(np.median(times["plain"]))
+    return (float(np.median(times["kernel"])),
+            float(np.median(times["plain"])) if times["plain"] else float("nan"))
+
+
+def roofline(n_bytes, ops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their types' peaks."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def stage_bounds(inputs, aux):
+    """Each stage kernel's least time at phase 2's inputs: its inputs read
+    once, its outputs written once; fgh's product B·Bᵀ in bf16 (2(K-1)²L a
+    document) and its s, phi and operand in float32 (~6KL); cg's matvecs
+    (2(K-1)² a step); the sweep's T mixtures (2TKL) and prior terms
+    (2T(K-1)²) in float32."""
+    eta, bd, c, mu, siginv = inputs
+    B, K, L = bd.shape
+    Km1, T, it = K - 1, aux["ts"].shape[0], aux["iters"]
+    out = {"fgh": roofline(nbytes(eta, bd, c, mu, siginv) + 4 * B * (1 + Km1 + Km1 * Km1),
+                           {"bf16": 2 * B * Km1 * Km1 * L, "f32": 6 * B * K * L}),
+           "cg": roofline(nbytes(aux["H"], aux["g"]) + 4 * B * Km1,
+                          {"f32": 2 * B * it * Km1 * Km1}),
+           "ls": roofline(nbytes(eta, aux["p"], aux["ts"], bd, c, mu, siginv) + 4 * B * T,
+                          {"f32": 2 * B * T * (K * L + Km1 * Km1)})}
+    return out
+
+
+def step_ops(B, K, L, T, cg_iters, fgh_only=0):
+    """Operations of B full Newton steps (f/g/H, CG, sweep) and of
+    ``fgh_only`` f/g/H evaluations that end a converged document's loop."""
+    Km1 = K - 1
+    return {"bf16": 2 * (B + fgh_only) * Km1 * Km1 * L,
+            "f32": (B + fgh_only) * 6 * K * L
+            + B * (2 * cg_iters * Km1 * Km1 + 2 * T * (K * L + Km1 * Km1))}
 
 
 def stage_inputs(torch, words, counts, K, seed, device="cuda"):
@@ -288,24 +371,78 @@ def phase_kernels(torch, stages, fails, words, counts, K, seed=1):
     ms, pms = time_pair(torch, lambda: stages.linesearch(eta, p, ts, bd, c, mu, siginv),
                         lambda: stages.linesearch_plain(eta, p, ts, bd, c, mu, siginv))
     results["ls"].update(ms=ms, plain_ms=pms)
+    for name, (bound_ms, bound_by) in stage_bounds(inputs, aux).items():
+        results[name].update(bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print_times(results, "bf16 on, median of 3 rounds of a CUDA graph of 20 calls")
+    return results, inputs, aux
+
+
+def print_times(results, how):
     for name, r in results.items():
-        print(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-              f"(bf16 on, median of 3 rounds of 20)")
-    return results
+        print(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+              f"{r['bound_ms'] / r['ms']:.3f}"
+              + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+              + f" ({how}) [{CARD}]")
 
 
-def phase_widths(torch, stages, fails, B=32, L=256):
-    """Phase 2b: the same checks at K=200 and K=400, where the kernels take
-    their other branches — shared memory above the 48 KB default, and cg's
-    Hessian and ls's siginv read from L2 once they no longer fit (K=400)."""
+WIDTHS = ((50, 200), (50, 201), (200, 256), (400, 256))  # (K, L) of phase 2b
+
+
+def phase_widths(torch, stages, fails, B=32):
+    """Phase 2b: the same checks where the kernels take their other
+    branches: K=50 (K-1 = 49 rows, padded to 64 for the tensor cores) with
+    an L that ends in a partial slab (200) and one that is not a multiple
+    of 4 (201, 4-byte copies); K=200 and K=400, with fgh's tile groups,
+    smaller ls slabs, cg's Hessian read from L2 (K=400) and shared memory
+    above the 48 KB default."""
     rng = np.random.default_rng(5)
-    words = np.stack([rng.choice(V_BENCH, L, replace=False) for _ in range(B)]).astype(np.int32)
-    counts = np.zeros((B, L), np.float32)
-    counts[:, :200] = rng.integers(1, 5, (B, 200))
-    for K in (200, 400):
+    for K, L in WIDTHS:
+        words = np.stack([rng.choice(V_BENCH, L, replace=False)
+                          for _ in range(B)]).astype(np.int32)
+        counts = np.zeros((B, L), np.float32)
+        live = min(200, L - 7)
+        counts[:, :live] = rng.integers(1, 5, (B, live))
         print(f"phase 2b: kernels vs plain, B={B} K={K} L={L}")
         check_stages(torch, stages, fails, stage_inputs(torch, words, counts, K, seed=K),
-                     f"K={K}")
+                     f"K={K} L={L}")
+
+
+def phase_determinism(torch, stages, fails, inputs, aux, seed=9):
+    """fgh (both bf16 modes) and the sweep on a permuted half of phase 2's
+    chunk: each document's outputs must equal, bit for bit, its outputs in
+    the whole chunk, since a document's results may depend on nothing but
+    its own inputs (the two-pass schedule repacks documents into chunks)."""
+    eta, bd, c, mu, siginv = inputs
+    B = eta.shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    idx = torch.randperm(B, generator=gen)[: B // 2].to(eta.device)
+    sub = [t[idx].contiguous() for t in (eta, bd, c, mu)]
+    p = aux["p"]
+    for bf16 in (False, True):
+        whole = stages.fgh(eta, bd, c, mu, siginv, bf16=bf16)
+        half = stages.fgh(sub[0], sub[1], sub[2], sub[3], siginv, bf16=bf16)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(w[idx], h)) for w, h in zip(whole, half))
+        fails.check(same, f"fgh bf16={bf16}: f, g, H of {B // 2} permuted documents equal "
+                          f"their values in the whole chunk bit for bit {same}")
+    whole = stages.linesearch(eta, p, aux["ts"], bd, c, mu, siginv)
+    half = stages.linesearch(sub[0], p[idx].contiguous(), aux["ts"], sub[1], sub[2], sub[3],
+                             siginv)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(whole[idx], half))
+    fails.check(same, f"ls: the sweep of {B // 2} permuted documents equals its values in "
+                      f"the whole chunk bit for bit {same}")
+
+
+def check_smem_plans(fails, lib):
+    """The stage kernels' shared memory per block at every K the port
+    takes: within what a block may opt in to (it does not depend on L)."""
+    for K in (3, 10, 50, 100, 200, 400):
+        plan = {"fgh bf16": lib.stm_fgh_smem(K, 1), "fgh f32": lib.stm_fgh_smem(K, 0),
+                "ls": lib.stm_ls_smem(K)}
+        fails.check(all(0 < v <= SMEM_LIMIT for v in plan.values()),
+                    f"K={K}: shared memory per block {plan} bytes (<= {SMEM_LIMIT:,})")
 
 
 def phase_small_fit(torch, fails):
@@ -610,7 +747,27 @@ def phase_fused(torch, stages, fails, words, counts, beta_true):
 
     ts = step_sizes(torch, mu.device)
     eta, done = midway(torch, stages, inputs_loop, True)
-    results = {k: {"max_abs_err": v} for k, v in errs.items()}
+    results = {k: {"max_abs_err": v, "library_ms": None} for k, v in errs.items()}
+    # least times: inputs read once, outputs written once; the work of the
+    # documents that step (B4), of every step the loop takes (B5, from its
+    # Newton counts), and the distinct beta_T rows the gather reads (B6)
+    T, Km1 = N_STEPS, K - 1
+    io = nbytes(bd, c, mu, siginv, ts)
+    adv = stages.newton_iter_plain(eta, bd, c, mu, siginv, ts, done, GRAD_TOL, 6, True)[2]
+    n_step, n_conv = int(adv.sum()), int((~done & ~adv).sum())
+    results["iter"]["bound_ms"], results["iter"]["bound_by"] = roofline(
+        io + nbytes(eta, done) + B * (4 * Km1 + 2),
+        step_ops(n_step, K, L, T, 6, fgh_only=n_conv))
+    _eta, n_it = stages.newton_loop(bd, c, mu, mu, siginv, ts, 24, GRAD_TOL, 6, True)
+    torch.cuda.synchronize()
+    n_total, n_short = int(n_it.sum()), int((n_it < 24).sum())
+    results["newton"]["bound_ms"], results["newton"]["bound_by"] = roofline(
+        io + nbytes(mu) + B * 4 * (Km1 + 1), step_ops(n_total, K, L, T, 6, fgh_only=n_short))
+    rows = int(torch.unique(w).numel())
+    results["gather"]["bound_ms"], results["gather"]["bound_by"] = roofline(
+        nbytes(w) + 4 * rows * K + 4 * B * L * K, {})
+    print(f"  B5's loop takes {n_total} Newton steps on the chunk ({n_short} documents end "
+          f"converged); the gather reads {rows} distinct rows")
     ms, pms = time_pair(
         torch, lambda: stages.newton_iter(eta, bd, c, mu, siginv, ts, done, GRAD_TOL, 6, True),
         lambda: stages.newton_iter_plain(eta, bd, c, mu, siginv, ts, done, GRAD_TOL, 6, True))
@@ -618,19 +775,22 @@ def phase_fused(torch, stages, fails, words, counts, beta_true):
     ms, pms = time_pair(
         torch, lambda: stages.newton_loop(bd, c, mu, mu, siginv, ts, 24, GRAD_TOL, 6, True),
         lambda: stages.newton_loop_plain(bd, c, mu, mu, siginv, ts, 24, GRAD_TOL, 6, True),
-        reps=3)
+        reps=3, graph=False)
     results["newton"].update(ms=ms, plain_ms=pms)
     ms, pms = time_pair(torch, lambda: stages.gather_rows(beta_T, w),
                         lambda: stages.gather_rows_plain(beta_T, w))
     results["gather"].update(ms=ms, plain_ms=pms)
-    for name, r in results.items():
-        print(f"  time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-              f"(bf16 on; median of 3 rounds)")
+    flat = w.reshape(-1).long()
+    results["gather"]["library_ms"] = time_pair(
+        torch, lambda: torch.index_select(beta_T, 0, flat), None)[0]
+    print_times(results, "bf16 on; median of 3 rounds of a CUDA graph of 20 calls, newton's "
+                         "of 3 calls one by one")
     # the default path's whole loop on the same chunk, for comparison with
     # newton: the stage kernels, the PyTorch glue and a host sync a step
     stage_ms, newton_ms = time_pair(
         torch, lambda: _batched_newton(bd, c, mu, mu, siginv, NewtonConfig()),
-        lambda: stages.newton_loop(bd, c, mu, mu, siginv, ts, 24, GRAD_TOL, 6, True), reps=3)
+        lambda: stages.newton_loop(bd, c, mu, mu, siginv, ts, 24, GRAD_TOL, 6, True), reps=3,
+        graph=False)
     print(f"  time of the loop on the same chunk: stage kernels (estep._batched_newton) "
           f"{stage_ms:.4f} ms, newton {newton_ms:.4f} ms (timed in turns)")
     return results
@@ -664,32 +824,97 @@ def reset(stages):
         stages.LAUNCHES[k] = 0
 
 
-def phase_fused_fit(fails, stages, docs, X, cfg, stage_bounds, card):
-    """Phase 4b: 2 EM iterations of the bench fit on each fused path,
-    their bounds against the stage path's first 2 (both cold, single
-    pass on the stage and B4 paths, as B5 always is)."""
+def em_step_fn(model, it):
+    """The EM step ``expectation_maximization`` runs at iteration ``it``."""
+    cold = model._em_step_cold is not None and it < model.config.newton_warmup_iters
+    return model._em_step_cold if cold else model._em_step
+
+
+def phase_fused_fit(torch, fails, stages, docs, X, cfg, card):
+    """Phase 4b: the first 2 EM iterations of the bench fit (both cold,
+    single pass) on the stage path, then each on both fused paths from the
+    same state, their bounds against the stage path's.  From the same
+    state, because the paths are not bit-identical: a cold Newton solve
+    leaves a few percent of documents stalled (no Armijo step passes),
+    which ones depending on rounding, and a chained fit carries those
+    differences through the M-step into every later bound."""
     from strutopy_tpu_torch import STM
 
+    c = cfg.replace(max_em_iter=2)
+    ref = STM(docs, K=K_BENCH, X=X, config=c, device="cuda")
+    states = [ref._state]
+    for it in range(2):
+        states.append(em_step_fn(ref, it)(states[-1], ref._data))
+    ref_b = np.array([float(st.bound) for st in states[1:]])
+    print(f"phase 4b: stage EM 0, 1 bounds {ref_b.tolist()}")
     for path in ("iter", "newton"):
-        c = cfg.replace(max_em_iter=2, **FUSED_PATHS[path])
-        model = STM(docs, K=K_BENCH, X=X, config=c, device="cuda")
+        model = STM(docs, K=K_BENCH, X=X, config=c.replace(**FUSED_PATHS[path]), device="cuda")
         reset(stages)
-        model.expectation_maximization()
+        b = []
+        for it in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = em_step_fn(model, it)(states[it], model._data)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            b.append(float(out.bound))
+            print(f"phase 4b: {path} EM {it} from the stage path's state: bound {b[-1]:.6f}, "
+                  f"{sec:.4f} s, {model.N / sec:.1f} docs/s [{card}]")
         launches = {k: stages.LAUNCHES[k] for k in PATH_KERNELS[path]}
-        b = np.asarray(model.last_bounds)
-        rel = np.abs(b - stage_bounds[:2]) / np.abs(stage_bounds[:2])
-        for it, (bb, sec) in enumerate(zip(b, model.iter_seconds)):
-            print(f"phase 4b: {path} EM {it}: bound {bb:.6f}, {sec:.4f} s, "
-                  f"{model.N / sec:.1f} docs/s [{card}]")
-        fails.check(len(b) == 2 and bool(np.isfinite(b).all()) and float(rel.max()) <= FIT_RTOL
+        b = np.asarray(b)
+        rel = np.abs(b - ref_b) / np.abs(ref_b)
+        fails.check(bool(np.isfinite(b).all()) and float(rel.max()) <= FIT_RTOL
                     and all(v > 0 for v in launches.values()),
-                    f"{path} fit: 2 bounds finite, max rel diff to the stage path "
-                    f"{rel.max():.3e} (tol {FIT_RTOL:.0e}); launches {launches}")
+                    f"{path} fit: 2 bounds finite, max rel diff to the stage path from the "
+                    f"same state {rel.max():.3e} (tol {FIT_RTOL:.0e}); launches {launches}")
 
 
 def simplex_ok(theta, n, K):
     return (theta.shape == (n, K) and bool(np.isfinite(theta).all())
             and bool((theta >= 0).all()) and bool(np.allclose(theta.sum(1), 1, atol=1e-4)))
+
+
+def served_gmax(torch, stages, srv, docs, X, etas, chunk=256):
+    """max|g| (float32 Hessian-free plain math) of each served document at
+    each of ``etas`` (numpy (n, K-1) arrays in document order)."""
+    from strutopy_tpu_torch.corpus.bow import pad_corpus
+    from strutopy_tpu_torch.models.serving import _prior_means
+    from strutopy_tpu_torch.ops.estep import _gather_beta
+    from strutopy_tpu_torch.ops.linalg import precompute_sigma
+
+    n = len(docs)
+    mu = _prior_means(srv._gamma, srv._eta_mean, srv.cfg, srv.K, n, X, train=srv._train)
+    corpus = pad_corpus(docs, V=srv.V)
+    siginv, _ = precompute_sigma(srv._sigma.float())
+    out = [[] for _ in etas]
+    for lo in range(0, n, chunk):
+        w = torch.as_tensor(corpus.words[lo:lo + chunk], device=srv.device)
+        c = torch.as_tensor(corpus.counts[lo:lo + chunk], device=srv.device)
+        bd = _gather_beta(srv._beta.float(), w)
+        m = torch.as_tensor(mu[lo:lo + chunk], device=srv.device)
+        for o, eta in zip(out, etas):
+            e = torch.as_tensor(eta[lo:lo + chunk], device=srv.device)
+            o.append(loop_stats(torch, stages, (bd, c, m, siginv), e)[1])
+    return [torch.cat(o).cpu().numpy() for o in out]
+
+
+def check_served(torch, stages, fails, srv, docs, X, path, eta, eta_stage):
+    """A fused path's served eta against the stage path's, held as phase
+    2's loop check holds B5 to plain: within LOOP_ETA_ATOL on every
+    document both bring below STALL_G, and no more documents left above it
+    than the stage path leaves plus LOOP_STALL_FRAC of them.  The paths are
+    not bit-identical, and a document where no Armijo step passes stops
+    where it is, which one depending on rounding."""
+    gm, gm_s = served_gmax(torch, stages, srv, docs, X, (eta, eta_stage))
+    both = (gm <= STALL_G) & (gm_s <= STALL_G)
+    d = float(np.abs(eta - eta_stage)[both].max()) if both.any() else 0.0
+    stalls, stalls_s = int((gm > STALL_G).sum()), int((gm_s > STALL_G).sum())
+    allowed = math.ceil(LOOP_STALL_FRAC * len(docs))
+    fails.check(d <= LOOP_ETA_ATOL and stalls <= stalls_s + allowed,
+                f"serve {path}: max |eta - stage path's| {d:.3e} on the {int(both.sum())} "
+                f"documents both bring below {STALL_G:.0e} (tol {LOOP_ETA_ATOL:.0e}); "
+                f"above it {stalls} vs the stage path's {stalls_s} (at most {allowed} more); "
+                f"max |eta - stage path's| over all {float(np.abs(eta - eta_stage).max()):.3e}")
 
 
 def phase_serve(torch, stages, fails, model, card, n_docs=2048):
@@ -724,10 +949,7 @@ def phase_serve(torch, stages, fails, model, card, n_docs=2048):
                         and all(v == 0 for k, v in launches[path].items() if k not in used),
                         f"serve {path}: theta finite on the simplex; launches {launches[path]}")
             if path != "stage":
-                d = float(np.abs(eta - etas["stage"]).max())
-                fails.check(d <= LOOP_ETA_ATOL,
-                            f"serve {path}: max |eta - stage path's| {d:.3e} (tol "
-                            f"{LOOP_ETA_ATOL:.0e})")
+                check_served(torch, stages, fails, srv, docs, X, path, eta, etas["stage"])
             for n in (1, 16, 256, n_docs):
                 srv.infer(docs[:n], X=X[:n])  # warm this request's shapes
                 times = []
@@ -781,8 +1003,9 @@ def main() -> int:
     from strutopy_tpu_torch.corpus.bucketing import make_bucket_plan, split_corpus_by_plan
     from strutopy_tpu_torch.ops import build, stages
 
+    global CARD
     fails = Failures()
-    card = card_line()
+    card = CARD = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"phase 1: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{torch.cuda.device_count()} device(s), using 1")
@@ -791,6 +1014,7 @@ def main() -> int:
     build.load()
     print(f"  built {lib_path.name} in {time.time() - t0:.1f} s; ptxas:")
     print("\n".join("    " + ln for ln in build.ptxas_report().strip().splitlines()))
+    check_smem_plans(fails, build.load())
 
     t0 = time.time()
     docs, X, beta_true = make_corpus(K_BENCH, V_BENCH, N_BENCH, WORDS_BENCH, return_beta=True)
@@ -802,7 +1026,8 @@ def main() -> int:
           f"docs={[len(i) for i in plan.doc_ids]} batch={plan.batch_sizes}")
 
     words, counts = buckets[big].words[:256], buckets[big].counts[:256]
-    kernels = phase_kernels(torch, stages, fails, words, counts, K_BENCH)
+    kernels, inputs, aux = phase_kernels(torch, stages, fails, words, counts, K_BENCH)
+    phase_determinism(torch, stages, fails, inputs, aux)
     kernels.update(phase_fused(torch, stages, fails, words, counts, beta_true))
     phase_widths(torch, stages, fails)
     phase_fused_widths(torch, stages, fails)
@@ -835,7 +1060,7 @@ def main() -> int:
                 and np.allclose(theta.sum(1), 1, atol=1e-4)
                 and np.allclose(beta.sum(1), 1, atol=1e-4),
                 "theta (N, K) and beta (K, V) finite, rows on the simplex")
-    phase_fused_fit(fails, stages, docs, X, cfg, np.asarray(model.last_bounds), card)
+    phase_fused_fit(torch, fails, stages, docs, X, cfg, card)
 
     # ----- phase 5: serving -----
     launches.update(phase_serve(torch, stages, fails, model, card))
@@ -849,7 +1074,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": kernels[k]["max_abs_err"],
-         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
+         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"],
+         "bound_ms": kernels[k]["bound_ms"], "bound_by": kernels[k]["bound_by"],
+         "library_ms": kernels[k]["library_ms"]}
         for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0

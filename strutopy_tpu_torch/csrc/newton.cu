@@ -13,9 +13,10 @@
 //                (replaces strutopy_tpu/ops/pallas_stages.py::_gather_rows_kernel)
 //
 // The two Newton kernels chain the per-document bodies of
-// newton_doc.cuh, the same code the stage kernels B1-B3 (stages.cu) run,
-// so a fused step computes f, g, H, the direction and the sweep exactly
-// as the stage path does.  The step choice and the update follow the
+// newton_doc.cuh: doc_cg is the code of the stage kernel B2, while
+// doc_fgh and doc_sweep compute what the stage kernels B1 and B3 do with
+// float32 sums in another order, so a fused step matches the stage path
+// to rounding.  The step choice and the update follow the
 // PyTorch glue of strutopy_tpu_torch/ops/stages.py::_newton_step operation
 // for operation, with __fmul_rn/__fadd_rn so that nvcc does not contract
 // them into FMAs that PyTorch's elementwise kernels do not use.

@@ -1,8 +1,11 @@
 // Per-document bodies of the damped-Newton E-step, as __device__
 // functions that one thread block (kThreads threads) runs for one
-// document.  The stage kernels (stages.cu: B1 fgh, B2 cg, B3 ls) wrap
-// one body each; the fused kernels (newton.cu: B4 iter, B5 newton)
-// chain them inside one block.
+// document.  The fused kernels (newton.cu: B4 iter, B5 newton) chain
+// them inside one block; the stage kernel B2 (stages.cu cg_kernel) wraps
+// doc_cg.  The stage kernels B1 and B3 (stages.cu fgh_kernel, ls_kernel)
+// have their own slab-streaming designs and compute the same functions
+// with float32 sums in another order, so the fused kernels' results
+// match the stage path's to rounding, not bit for bit.
 //
 // Every body takes its inputs and outputs as generic pointers (global
 // or shared memory alike) and its scratch as a pointer into the block's
@@ -74,7 +77,7 @@ __device__ float block_max(float v, float* red) {
 }
 
 // ---------------------------------------------------------------------------
-// f, g, H of one document (B1's body)
+// f, g, H of one document (B4's and B5's; B1 has its own design)
 // ---------------------------------------------------------------------------
 //
 // Scratch (fgh_scratch floats): e[K] | diff[Km1] | sdiff[Km1] | q[Km1] |
@@ -219,7 +222,7 @@ __device__ void doc_fgh(const float* siginv, const float* eta_d, const float* mu
 }
 
 // ---------------------------------------------------------------------------
-// Steihaug CG of one document (B2's body)
+// Steihaug CG of one document (B2's, B4's and B5's body)
 // ---------------------------------------------------------------------------
 //
 // Scratch (cg_scratch floats): red[32] | p | r | z | x | dinv | Ap (Km1
@@ -290,7 +293,7 @@ __device__ void doc_cg(const float* H_d, const float* Hm, int round_load, const 
 }
 
 // ---------------------------------------------------------------------------
-// Armijo sweep of one document (B3's body)
+// Armijo sweep of one document (B4's and B5's; B3 has its own design)
 // ---------------------------------------------------------------------------
 //
 // fs_d[t] = f(eta + ts[t] p) for t < T (T <= kMaxT).  `sig` is siginv in

@@ -31,8 +31,10 @@ _lib = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    "stm_fgh_smem": [_I] * 2,
     "stm_fgh": [_P] * 8 + [_I] * 4 + [_P],
     "stm_cg": [_P] * 3 + [_I] * 4 + [_P],
+    "stm_ls_smem": [_I],
     "stm_ls": [_P] * 8 + [_I] * 4 + [_P],
     "stm_newton_h_global": [_I] * 3,
     "stm_iter": [_P] * 11 + [_I] * 4 + [_F] + [_I] * 2 + [_P],

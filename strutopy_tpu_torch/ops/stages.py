@@ -270,15 +270,19 @@ def fgh(eta, beta_doc, counts, mu, siginv, bf16: bool = True):
     """Objective, gradient and Hessian of every document in the chunk.
 
     Replaces ``strutopy_tpu/ops/pallas_stages.py::_fgh_kernel`` (wrapper
-    ``pallas_fgh_impl``).  On the H100 the kernel is bound by the
-    float32 B·Bᵀ product on the CUDA cores, 2·(K-1)²·L flops a document
-    (1.3 GFLOP for B=256, K=100, L=256), against ~36 MB of beta_doc read
-    and H written.  Design: one block per document; the softmax, s_l, the
-    log-likelihood, q and g in one pass over L; then H in 32x32 output
-    tiles (upper triangle, mirrored) with the B·Bᵀ operand rebuilt from
-    beta_doc tile by tile, so no (K, L) intermediate reaches device
-    memory and shared memory stays ~13 KB at any K.  bf16 rounds the
-    operand with ``__float2bfloat16`` and accumulates in float32.
+    ``pallas_fgh_impl``).  On the H100 it is bound by device memory: it
+    reads beta_doc (K·L·4 bytes a document) and writes H ((K-1)²·4), 50 MB
+    for B=256, K=100, L=384, while the bf16 B·Bᵀ product (2·(K-1)²·L
+    flops a document) is ~0.04 flop a byte.  Design: one block per
+    document streams beta_doc once, in slabs of 32 word slots through a
+    cp.async ring in shared memory; each slab gives its s_l, its
+    log-likelihood and q terms and its operand phi·sqrt(c) (rounded to
+    bf16 as the plain version rounds it), and H += operand·operandᵀ runs on
+    the tensor cores (``mma.sync`` bf16 -> float32, upper triangle,
+    accumulators in registers across slabs).  Above K ~115 the output
+    tiles split over tile groups that each re-stream the document.  With
+    ``bf16=False`` the operand stays float32 and the product runs in
+    float32 FMAs.
     """
     if _use_plain("fgh", eta, beta_doc, counts, mu, siginv):
         return fgh_plain(eta, beta_doc, counts, mu, siginv, bf16)
@@ -328,11 +332,14 @@ def linesearch(eta, p, ts, beta_doc, counts, mu, siginv):
 
     Replaces ``strutopy_tpu/ops/pallas_stages.py::_ls_kernel`` (wrapper
     ``pallas_linesearch_impl``).  On the H100 it is bound by reading
-    beta_doc (K·L·4 bytes a document, 26 MB for B=256, K=100, L=256)
-    and by T·L logarithms a document.  Design: one block per document;
-    the T candidate softmax rows and siginv (when it fits) sit in shared
-    memory, and one thread per word slot reads its beta_doc column once
-    and forms all T mixtures in registers (T <= 16).
+    beta_doc once (K·L·4 bytes a document, 39 MB for B=256, K=100,
+    L=384); the T mixtures are 2·T·K·L flops, in float32.  Design: one
+    block per document streams beta_doc in slabs of 64 word slots (32 at
+    large K) through a cp.async ring; each thread forms 4 step sizes by 4
+    slots of partial mixtures from 16-byte shared-memory reads, the
+    partials add in a fixed order, and the T ≤ 16 candidate softmax rows
+    sit in shared memory.  The prior term reads each column of siginv
+    once for 4 step sizes.
     """
     if _use_plain("ls", eta, p, ts, beta_doc, counts, mu, siginv):
         return linesearch_plain(eta, p, ts, beta_doc, counts, mu, siginv)
@@ -371,13 +378,14 @@ def newton_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
     """One fused damped-Newton iteration: (eta, done, advance).
 
     Replaces ``strutopy_tpu/ops/pallas_stages.py::_iter_kernel`` (wrapper
-    ``pallas_iter_impl``).  On the H100 it is bound, like :func:`fgh`, by
-    the float32 B·Bᵀ product on the CUDA cores.  Design: one block per
-    document runs the bodies of the three stage kernels in turn
-    (``csrc/newton_doc.cuh``) with H (when it fits), g, the direction and
-    the sweep values in shared memory, then chooses the step as
-    :func:`newton_iter_plain` does and updates eta; a done document keeps
-    its eta.  ``done`` is a bool (B,) tensor.
+    ``pallas_iter_impl``).  On the H100 it is bound by the float32 B·Bᵀ
+    product on the CUDA cores (the f/g/H body of ``csrc/newton_doc.cuh``,
+    which :func:`fgh` does not use).  Design: one block per document
+    runs the f/g/H, CG and sweep bodies of ``csrc/newton_doc.cuh`` in turn
+    with H (when it fits), g, the direction and the sweep values in shared
+    memory, then chooses the step as :func:`newton_iter_plain` does and
+    updates eta; a done document keeps its eta.  ``done`` is a bool (B,)
+    tensor.
     """
     if _use_plain("iter", eta, beta_doc, counts, mu, siginv, ts, done,
                   dtypes=[torch.float32] * 6 + [torch.bool]):

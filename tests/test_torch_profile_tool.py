@@ -10,9 +10,14 @@ def _kernel(name, ts=0.0, dur=1.0, cat="kernel"):
 
 def test_kernel_names_fall_into_their_groups():
     cases = {
-        "(anonymous namespace)::fgh_kernel(float const*, float*, int)": "fgh kernel (B1)",
+        "void (anonymous namespace)::fgh_kernel<64, 3, true>(float const*, float*, int)":
+            "fgh kernel (B1)",
         "(anonymous namespace)::cg_kernel(float const*, float*, int)": "cg kernel (B2)",
-        "(anonymous namespace)::ls_kernel(float const*, float*, int)": "ls kernel (B3)",
+        "void (anonymous namespace)::ls_kernel<64, 3>(float const*, float*, int)":
+            "ls kernel (B3)",
+        "(anonymous namespace)::iter_kernel(float const*, float*, int)": "iter kernel (B4)",
+        "(anonymous namespace)::newton_kernel(float const*, float*, int)":
+            "newton kernel (B5)",
         "void potrf_cta_lower_batch<float, float, 16>(int, int)": "Cholesky / cholesky_inverse",
         "void trsm_template_batched_lNL_kernel<float, 16, 16>(magma_diag_t)":
             "Cholesky / cholesky_inverse",

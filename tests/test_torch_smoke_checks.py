@@ -102,6 +102,74 @@ def test_smoke_checks_fail_a_wrong_kernel(mutant, bf16):
     assert all(worst[name] == 0.0 for name in worst if name not in wrong), worst
 
 
+# Faults the slab-streaming kernels could make.  The chunk has K=20 (the
+# 19 free rows pad to 32 for the tensor cores) and L=120, which ends in a
+# partial slab of the 64 word slots fgh and ls take at this K; its live
+# slots are 0..99.
+
+
+def _operand(inputs, bf16):
+    """fgh's B·Bᵀ operand phi·sqrt(c) of every topic (B, K, L), rounded
+    as the kernel rounds it."""
+    eta, bd, c, mu, siginv = inputs
+    *_, phi = stages.f_g_H_batched(eta, bd, c, mu, siginv, torch.sum(c, dim=1), False)
+    Bm = phi * torch.sqrt(c)[:, None, :]
+    return stages._bf16_round(Bm) if bf16 else Bm
+
+
+def _gram(Bm):
+    return torch.bmm(Bm, Bm.transpose(1, 2))
+
+
+def _fgh_misses_the_partial_slab(inputs, want, aux, bf16):
+    Km1 = inputs[0].shape[1]
+    last = _operand(inputs, bf16)[:, :Km1, 64:]
+    return {"fgh.H": want["fgh.H"] - _gram(last)}
+
+
+def _fgh_padded_row_leaks_into_row_k_minus_2(inputs, want, aux, bf16):
+    # the pinned topic's operand row added to the last free row
+    Km1 = inputs[0].shape[1]
+    Bm = _operand(inputs, bf16)
+    leaky = Bm[:, :Km1].clone()
+    leaky[:, -1] += Bm[:, Km1]
+    return {"fgh.H": want["fgh.H"] - _gram(Bm[:, :Km1]) + _gram(leaky)}
+
+
+def _fgh_mirrors_a_tile_untransposed(inputs, want, aux, bf16):
+    H = want["fgh.H"].clone()
+    H[:, 8:16, 0:8] = H[:, 0:8, 8:16]
+    return {"fgh.H": H}
+
+
+def _sweep_drops_a_slab(inputs, want, aux, bf16):
+    # the log-likelihood terms of word slots 64..127 left out of every f_t
+    eta, bd, c, mu, siginv = inputs
+    cand = eta[:, None, :] + aux["ts"][None, :, None] * aux["p"][:, None, :]
+    full = torch.cat([cand, cand.new_zeros(*cand.shape[:2], 1)], dim=2)
+    m = torch.amax(full, dim=2, keepdim=True)
+    s = torch.clamp_min(torch.bmm(torch.exp(full - m), bd), 1e-35)
+    terms = torch.where(c[:, None, :] > 0, c[:, None, :] * (torch.log(s) + m), 0.0)
+    return {"ls": want["ls"] + torch.sum(terms[:, :, 64:128], dim=2)}
+
+
+@pytest.mark.parametrize("mutant, bf16", [
+    (_fgh_misses_the_partial_slab, False),
+    (_fgh_misses_the_partial_slab, True),
+    (_fgh_padded_row_leaks_into_row_k_minus_2, False),
+    (_fgh_padded_row_leaks_into_row_k_minus_2, True),
+    (_fgh_mirrors_a_tile_untransposed, False),
+    (_fgh_mirrors_a_tile_untransposed, True),
+    (_sweep_drops_a_slab, False),
+], ids=lambda v: v.__name__.strip("_") if callable(v) else f"bf16={v}")
+def test_smoke_checks_fail_a_wrong_slab_kernel(mutant, bf16):
+    inputs, want, aux = _chunk(bf16, K=20, L=120)
+    wrong = mutant(inputs, want, aux, bf16)
+    worst = _worst(inputs, {**want, **wrong}, want, aux, bf16)
+    assert all(worst[name] > 1.0 for name in wrong), worst
+    assert all(worst[name] == 0.0 for name in worst if name not in wrong), worst
+
+
 # ---------------------------------------------------------------------------
 # B4 (fused iteration), B5 (whole loop), B6 (row gather)
 # ---------------------------------------------------------------------------
