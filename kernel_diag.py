@@ -3,14 +3,28 @@
 
 Run from the root of a checkout:
 
-    python3 kernel_diag.py ablate   # where B1 fgh's and B3 ls's time goes
-    python3 kernel_diag.py stalls   # Newton documents left unconverged, per path
+    python3 kernel_diag.py ablate        # where B1 fgh's and B3 ls's time goes
+    python3 kernel_diag.py stalls        # Newton documents left unconverged, per path
+    python3 kernel_diag.py compare DIR   # the stage kernels against another checkout's
+    python3 kernel_diag.py plans         # B5 on its streaming and its resident plan
 
-``ablate`` compiles copies of ``csrc/stages.cu`` (under
-``build/ablate/``) with parts of the work switched off (each copy is
+``ablate`` compiles ``csrc/stages.cu`` against copies of
+``csrc/newton_doc.cuh``, where B1's and B3's bodies live (under
+``build/ablate/``), with parts of the work switched off (each copy is
 wrong on purpose and used for timing only), then times ``stm_fgh`` and
 ``stm_ls`` of each copy against the unchanged kernel, in turns with CUDA
 events, on a chunk of the bench corpus (B=256, K=100, L=384, T=12).
+
+``compare`` builds the CUDA sources of the checkout at DIR (under
+``build/diag/``) and times its ``stm_fgh``, ``stm_cg`` and ``stm_ls``
+against this checkout's, in turns (theirs, ours, ours, theirs, ...), on
+the same chunk; their C interfaces must be this checkout's.
+
+``plans`` builds the library twice, once with B5's streaming plans only
+and once with its resident plan only (beta_doc held in shared memory for
+the whole loop, one block an SM), and times ``stm_newton`` of each in
+turns on 256 and on 128 documents of the bench recipe at K=100, and on
+256 at K=50.
 
 ``stalls`` runs the first E-step's Newton solve of the bench fit (random
 init, 32 chunks of 256 documents, 24 iterations) on the stage kernels,
@@ -25,10 +39,11 @@ import argparse
 import ctypes
 import subprocess
 import sys
+from pathlib import Path
 
 import chip_smoke as cs
 
-# (bit, what is switched off, [(text in stages.cu, its replacement)])
+# (bit, what is switched off, [(text in newton_doc.cuh, its replacement)])
 PARTS = (
     (1, "prior term", [
         ("    for (int idx = tid; idx < 2 * Km1; idx += kThreads) {",
@@ -50,12 +65,14 @@ PARTS = (
     ]),
     (8, "all slab work but the stream", [
         ("    // s_l: warp w sums", "    if (ABLATE & 8) continue;\n    // s_l: warp w sums"),
-        ("    const float* slab = ring + (size_t)(s % STAGES) * K * W;\n\n    if (4 * tg",
-         "    const float* slab = ring + (size_t)(s % STAGES) * K * W;\n"
+        ("    const float* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n\n"
+         "    if (4 * tg",
+         "    const float* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n"
          "    if (ABLATE & 8) continue;\n\n    if (4 * tg"),
     ]),
     (16, "fgh's H stores to device memory", [
-        ("  if (stage) {\n    __syncthreads();", "  if (stage && !(ABLATE & 16)) {\n    __syncthreads();"),
+        ("  if (staged) {\n    __syncthreads();",
+         "  if (staged && !(ABLATE & 16)) {\n    __syncthreads();"),
     ]),
 )
 VARIANTS = (0, 1, 2, 4, 8, 9, 16, 25)
@@ -65,7 +82,7 @@ def ablated_source(text: str) -> str:
     for _bit, _what, subs in PARTS:
         for old, new in subs:
             if text.count(old) != 1:
-                raise RuntimeError(f"ablate: stages.cu no longer holds {old!r} once")
+                raise RuntimeError(f"ablate: newton_doc.cuh no longer holds {old!r} once")
             text = text.replace(old, new)
     return text
 
@@ -73,9 +90,9 @@ def ablated_source(text: str) -> str:
 def build_variants(build):
     out = build.BUILD_DIR.parent / "ablate"
     out.mkdir(parents=True, exist_ok=True)
-    src = out / "stages_ablate.cu"
-    src.write_text(ablated_source((build.CSRC / "stages.cu").read_text()))
-    (out / "newton_doc.cuh").write_bytes((build.CSRC / "newton_doc.cuh").read_bytes())
+    src = out / "stages.cu"
+    src.write_bytes((build.CSRC / "stages.cu").read_bytes())
+    (out / "newton_doc.cuh").write_text(ablated_source((build.CSRC / "newton_doc.cuh").read_text()))
     nvcc = build._nvcc()
     procs = {v: subprocess.Popen([nvcc, *build.NVCC_FLAGS, f"-DABLATE={v}", "-shared", "-o",
                                   str(out / f"ablate{v}.so"), str(src)],
@@ -97,13 +114,16 @@ def describe(v: int) -> str:
     return ", ".join(what for bit, what, _ in PARTS if v & bit) or "nothing (the kernel)"
 
 
-def ablate(torch):
+def bench_chunk(torch):
+    """The ablation's chunk: B=256 documents of the bench corpus padded to
+    L=384, random beta, eta, mu and siginv (chip_smoke.stage_inputs), with
+    the plain H, g, direction and step sizes; and, per stage entry point,
+    calls[name](lib): a function that launches that library's on it."""
     import numpy as np
 
     from strutopy_tpu_torch.corpus.bow import pad_corpus
-    from strutopy_tpu_torch.ops import build, stages
+    from strutopy_tpu_torch.ops import stages
 
-    libs = build_variants(build)
     B, K, L, T = 256, cs.K_BENCH, 384, 12
     docs, _X = cs.make_corpus(K, cs.V_BENCH, B, cs.WORDS_BENCH)
     corpus = pad_corpus(docs, V=cs.V_BENCH)
@@ -117,26 +137,118 @@ def ablate(torch):
     f = torch.empty(B, device="cuda")
     g = torch.empty(B, K - 1, device="cuda")
     H = torch.empty(B, K - 1, K - 1, device="cuda")
+    x = torch.empty(B, K - 1, device="cuda")
     fs = torch.empty(B, T, device="cuda")
 
     def stream():  # the current one: a graph capture runs on its own
         return torch.cuda.current_stream().cuda_stream
 
-    def fgh(lib):
-        return lambda: lib.stm_fgh(*(t.data_ptr() for t in (siginv, eta, mu, bd, c, f, g, H)),
-                                   B, K, L, 1, stream())
+    calls = {
+        "fgh": lambda lib: lambda: lib.stm_fgh(
+            *(t.data_ptr() for t in (siginv, eta, mu, bd, c, f, g, H)), B, K, L, 1, stream()),
+        "cg": lambda lib: lambda: lib.stm_cg(
+            aux["H"].data_ptr(), aux["g"].data_ptr(), x.data_ptr(), B, K - 1, aux["iters"], 1,
+            stream()),
+        # H and g in and the set-up, no step: what the steps add is the rest
+        "cg, 0 steps": lambda lib: lambda: lib.stm_cg(
+            aux["H"].data_ptr(), aux["g"].data_ptr(), x.data_ptr(), B, K - 1, 0, 1, stream()),
+        "ls": lambda lib: lambda: lib.stm_ls(
+            *(t.data_ptr() for t in (siginv, aux["ts"], eta, aux["p"], mu, bd, c, fs)), B, K, L,
+            T, stream()),
+    }
+    return (B, K, L, T), calls
 
-    def ls(lib):
-        return lambda: lib.stm_ls(*(t.data_ptr() for t in (siginv, aux["ts"], eta, aux["p"],
-                                                           mu, bd, c, fs)), B, K, L, T, stream())
 
+def ablate(torch):
+    from strutopy_tpu_torch.ops import build
+
+    libs = build_variants(build)
+    (B, K, L, T), calls = bench_chunk(torch)
     print(f"ablate: B={B} K={K} L={L} T={T}, bf16 on; us a call, median of 3 rounds of a CUDA "
           f"graph of 50 calls, each beside the unchanged kernel [{cs.card_line()}]")
     for v in VARIANTS:
-        a = cs.time_pair(torch, fgh(libs[v]), fgh(libs[0]), reps=50)
-        b = cs.time_pair(torch, ls(libs[v]), ls(libs[0]), reps=50)
+        a = cs.time_pair(torch, calls["fgh"](libs[v]), calls["fgh"](libs[0]), reps=50)
+        b = cs.time_pair(torch, calls["ls"](libs[v]), calls["ls"](libs[0]), reps=50)
         print(f"  off: {describe(v)}: fgh {1e3 * a[0]:.1f} (unchanged {1e3 * a[1]:.1f}), "
               f"ls {1e3 * b[0]:.1f} (unchanged {1e3 * b[1]:.1f})")
+
+
+def build_lib(build, name, sources, flags=()):
+    """One library from ``sources`` (compiled in parallel as ops/build.py
+    compiles the kernels, with ``flags`` added), under build/diag/."""
+    out = build.BUILD_DIR.parent / "diag"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = build._nvcc()
+    objs = [out / f"{name}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    for p in procs:
+        text = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed:\n{text}")
+    lib_path = out / f"{name}.so"
+    subprocess.run([nvcc, "-shared", "-o", str(lib_path), *map(str, objs)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, argtypes in build._SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def build_other(build, root):
+    """The CUDA library of the checkout at ``root``."""
+    sources = sorted((Path(root) / "strutopy_tpu_torch" / "csrc").glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"compare: no CUDA sources under {root}/strutopy_tpu_torch/csrc")
+    return build_lib(build, "other", sources)
+
+
+def compare(torch, root):
+    from strutopy_tpu_torch.ops import build
+
+    other = build_other(build, root)
+    ours = build.load()
+    (B, K, L, T), calls = bench_chunk(torch)
+    print(f"compare: B={B} K={K} L={L} T={T}, bf16 on, 6 CG steps; ms a call, median of 3 "
+          f"rounds of a CUDA graph of 50 calls, in turns with {root}'s [{cs.card_line()}]")
+    for name, call in calls.items():
+        ms, theirs = cs.time_pair(torch, call(ours), call(other), reps=50)
+        print(f"  {name}: this checkout {ms:.4f} ms, {root} {theirs:.4f} ms")
+
+
+def plans(torch):
+    from strutopy_tpu_torch.ops import build
+
+    libs = {name: build_lib(build, f"plan_{name}", build.SOURCES, [f"-DSTM_NEWTON_PLAN={flag}"])
+            for name, flag in (("streaming", 1), ("resident", 2))}
+    T = cs.N_STEPS
+    print(f"plans: B5 (stm_newton), T={T}, {cs.LOOP_ITERS} iterations, 6 CG steps, bf16 on; ms "
+          f"a call, median of 3 rounds of a CUDA graph of 5 calls, in turns [{cs.card_line()}]")
+    for K, B in ((cs.K_BENCH, 256), (cs.K_BENCH, 128), (50, 256)):
+        bd, c, mu, siginv = cs.dgp_chunk(torch, K, B, seed=0)
+        L = bd.shape[2]
+        ts = cs.step_sizes(torch, "cuda")
+        out = {name: (torch.empty_like(mu), torch.empty(B, dtype=torch.int32, device="cuda"))
+               for name in libs}
+
+        def run(name):
+            eta, n = out[name]
+            return lambda: libs[name].stm_newton(
+                *(t.data_ptr() for t in (siginv, ts, bd, c, mu, mu)), None, eta.data_ptr(),
+                n.data_ptr(), B, K, L, T, cs.LOOP_ITERS, cs.GRAD_TOL, 6, 1,
+                torch.cuda.current_stream().cuda_stream)
+
+        for name, lib in libs.items():
+            plan = (ctypes.c_int * 8)()
+            lib.stm_newton_plan(K, L, 1, 1, plan)
+            assert run(name)() == 0, name
+            print(f"  {name} plan at L={L}: {list(plan)}")
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(out["resident"], out["streaming"]))
+        res, strm = cs.time_pair(torch, run("resident"), run("streaming"), reps=5)
+        print(f"  K={K} B={B} L={L}: resident {res:.4f} ms, streaming {strm:.4f} ms; eta and "
+              f"counts bit-equal {same}; slowest document {int(out['resident'][1].max())} steps")
 
 
 def stalls(torch):
@@ -183,14 +295,20 @@ def stalls(torch):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("ablate", "stalls"))
+    ap.add_argument("what", choices=("ablate", "stalls", "compare", "plans"))
+    ap.add_argument("other", nargs="?", help="compare: the root of the other checkout")
     args = ap.parse_args()
+    if args.what == "compare" and not args.other:
+        ap.error("compare needs the other checkout's root")
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_diag: no CUDA device", file=sys.stderr)
         return 2
-    {"ablate": ablate, "stalls": stalls}[args.what](torch)
+    if args.what == "compare":
+        compare(torch, args.other)
+    else:
+        {"ablate": ablate, "stalls": stalls, "plans": plans}[args.what](torch)
     return 0
 
 

@@ -37,8 +37,7 @@ GROUPS = (
     ("fgh kernel (B1)", ("fgh_kernel",)),
     ("ls kernel (B3)", ("ls_kernel",)),
     ("cg kernel (B2)", ("cg_kernel",)),
-    ("iter kernel (B4)", ("iter_kernel",)),
-    ("newton kernel (B5)", ("newton_kernel",)),
+    ("newton kernel (B4 and B5)", ("newton_kernel",)),
     ("Cholesky / cholesky_inverse", ("potrf", "trsm", "magma", "cholesky", "zdisplace",
                                      "syrk", "trmm", "lauum", "cusolver")),
     ("gemm / bmm (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas")),

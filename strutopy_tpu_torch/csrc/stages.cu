@@ -27,173 +27,21 @@
 // document's inputs, in a fixed order: no atomics, nothing that depends
 // on B or on the document's place in the chunk.
 //
-// fgh and ls stream the document's beta_doc block once, in slabs of all
-// K rows by a few dozen word slots, through a ring of shared-memory
-// buffers filled with cp.async, so the next slabs load while the current
-// one is used.  cg runs the per-document body of newton_doc.cuh, which
-// the fused kernels of newton.cu (B4, B5) share; they also keep the
-// earlier fgh and sweep bodies (doc_fgh, doc_sweep).
+// Each kernel is a thin wrapper around its per-document body in
+// newton_doc.cuh (fgh_body, cg_body, ls_body), the bodies the fused
+// kernel of newton.cu (B4, B5) runs too.
 
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "newton_doc.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// cp.async and the tensor-core product
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Slab [K, W] of a document's beta_doc block (K rows of stride L) from
-// word slot l0, into dst (row stride W).  Slots at or past L are filled
-// with zeros.  vec16: L % 4 == 0 and the block 16-byte aligned, so each
-// 4-slot chunk is wholly in or out; else one 4-byte copy per slot.
-template <int W>
-__device__ __forceinline__ void load_slab(float* dst, const float* __restrict__ src, int K,
-                                          int L, int l0, int vec16) {
-  if (vec16) {
-    constexpr int kChunks = W / 4;
-    for (int idx = threadIdx.x; idx < K * kChunks; idx += kThreads) {
-      const int k = idx / kChunks, c = idx - k * kChunks;
-      const int l = l0 + 4 * c;
-      const bool in = l < L;
-      cp_async16(dst + k * W + 4 * c, in ? src + (size_t)k * L + l : src, in ? 16 : 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < K * W; idx += kThreads) {
-      const int k = idx / W, c = idx - k * W;
-      const int l = l0 + c;
-      const bool in = l < L;
-      cp_async4(dst + k * W + c, in ? src + (size_t)k * L + l : src, in ? 4 : 0);
-    }
-  }
-}
-
-// siginv (n = (K-1)² floats) into shared memory with cp.async.
-__device__ __forceinline__ void load_siginv(float* dst, const float* __restrict__ siginv, int n) {
-  const int n4 = (uintptr_t)siginv % 16 == 0 ? n / 4 : 0;
-  for (int c = threadIdx.x; c < n4; c += kThreads) cp_async16(dst + 4 * c, siginv + 4 * c, 16);
-  for (int i = 4 * n4 + threadIdx.x; i < n; i += kThreads) cp_async4(dst + i, siginv + i, 4);
-}
-
-// d += a·b on the tensor cores: one m16n8k16 tile, bf16 in, float32 out.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The A (16x16) and B (16x8) fragments of one m16n8k16 tile from bf16 rows
-// of shared memory: A from rows r0 .. r0+15, B from rows c0 .. c0+7 (the
-// operand transposed), both at depth k0 .. k0+15.
-__device__ __forceinline__ void ldmatrix_a(uint32_t* a, const __nv_bfloat16* op, int stride,
-                                           int r0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* p = op + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * stride + k0 +
-                           (lane >> 4) * 8;
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_b(uint32_t* b, const __nv_bfloat16* op, int stride,
-                                           int c0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* p = op + (c0 + (lane & 7)) * stride + k0 + ((lane >> 3) & 1) * 8;
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(s));
-}
-
-__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
-
-// ---------------------------------------------------------------------------
-// B1: f, g, H
-// ---------------------------------------------------------------------------
-//
-// Bound on the H100 by device memory: per document it reads beta_doc
-// (K·L·4 bytes) and writes H ((K-1)²·4 bytes); the B·Bᵀ product is
-// 2·(K-1)²·L flops, ~0.04 flop a byte in bf16.  Design: one block per
-// document (times a tile group, below) streams beta_doc once, in slabs of
-// W word slots (64 where two blocks with a three-slab ring fit an SM,
-// else 32).  Each slab gives its s_l = Σ_k e_k β_kl (per-warp partial
-// sums over k ≡ warp, added in warp order), its log-likelihood and q
-// terms, and its B·Bᵀ operand Bmat[k,l] = (e_k β_kl / s_l)·sqrt(c_l) for
-// k < K-1, rounded to bf16 (bf16 mode) into shared memory; rows K-1 ..
-// Kp-1 (Kp = K-1 rounded up to 16) stay zero.  H += Bmat·Bmatᵀ then runs
-// on the tensor cores (ldmatrix fragments, mma.sync m16n8k16, float32
-// accumulators held in registers across slabs), upper triangle only: the
-// output is cut into 16x8 tiles (ti, tj) with tj >= 2 ti, eight a warp,
-// 64 a block.  Above K ~115 the tiles split into ceil(tiles / 64) tile
-// groups on gridDim.y, each re-streaming its document, and group 0 alone
-// writes f and g.  Where the ring can hold it, siginv comes in by
-// cp.async beside the first slab, so the prior term reads shared memory;
-// where one group covers H, H is assembled in the free ring and written
-// in whole rows (scattered tile stores had cost half the kernel's time).
-// bf16 = 0 keeps the operand in float32 and forms the same tiles with
-// float32 FMAs on the CUDA cores.
-//
-// Operand row strides: bf16 rows of W + 8 (80 or 144 bytes: a warp's
-// ldmatrix rows hit distinct banks), float32 rows of W + 1.
-__host__ __device__ constexpr int op_stride_bf(int W) { return W + 8; }
-__host__ __device__ constexpr int op_stride_f(int W) { return W + 1; }
-constexpr int kTilesPerWarp = 8;
-constexpr int kTilesPerGroup = kTilesPerWarp * kWarps;
-
-// Shared-memory layout of B1, in floats.
-struct FghLayout {
-  size_t ring, part, qpart, e, diff, sdiff, q, red, op, floats;
-};
-
-__host__ __device__ inline FghLayout fgh_layout(int K, int W, int stages, int bf16) {
-  const int Km1 = K - 1, Kp = round16(Km1);
-  FghLayout o;
-  size_t at = 0;
-  o.ring = at;   at += (size_t)stages * K * W;  // the slabs
-  o.part = at;   at += (size_t)kWarps * W;       // per-warp partial s_l
-  o.qpart = at;  at += (size_t)Km1 * 32;         // per-lane partial q_k
-  o.e = at;      at += K;
-  o.diff = at;   at += Km1;
-  o.sdiff = at;  at += Km1;
-  o.q = at;      at += Km1;
-  o.red = at;    at += 32;
-  at = (at + 3) & ~(size_t)3;
-  o.op = at;
-  at += bf16 ? (size_t)Kp * op_stride_bf(W) / 2 : (size_t)Kp * op_stride_f(W);
-  o.floats = at;
-  return o;
-}
-
-__host__ __device__ inline int fgh_tiles(int K) {
-  const int n16 = round16(K - 1) / 16;
-  return n16 * (n16 + 1);  // Σ over row tiles ti of the 16x8 tiles tj >= 2 ti
-}
-
+// B1: one block per document and tile group (blockIdx.y); H assembled in
+// the free ring and written in whole rows where one group covers it.
 template <int W, int STAGES, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
 fgh_kernel(const float* __restrict__ siginv, const float* __restrict__ eta,
@@ -201,329 +49,15 @@ fgh_kernel(const float* __restrict__ siginv, const float* __restrict__ eta,
            const float* __restrict__ counts, float* __restrict__ f_out,
            float* __restrict__ g_out, float* __restrict__ H_out, int K, int L, int vec16) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int kOpStrideBf = op_stride_bf(W), kOpStrideF = op_stride_f(W);
-  constexpr int kCols = W / 32;  // word slots of a lane in a slab
-  const int Km1 = K - 1, Kp = round16(Km1);
-  const FghLayout lay = fgh_layout(K, W, STAGES, BF16);
-  float* ring = smem + lay.ring;
-  float* part = smem + lay.part;
-  float* qpart = smem + lay.qpart;
-  float* e = smem + lay.e;
-  float* diff = smem + lay.diff;
-  float* sdiff = smem + lay.sdiff;
-  float* q = smem + lay.q;
-  float* red = smem + lay.red;
-  __nv_bfloat16* op_b = reinterpret_cast<__nv_bfloat16*>(smem + lay.op);
-  float* op_f = smem + lay.op;
-
   const size_t d = blockIdx.x;
-  const int grp = blockIdx.y;
-  const float* beta_d = beta_doc + d * K * L;
-  const float* cnt_d = counts + d * L;
-  const float* eta_d = eta + d * Km1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_slabs = (L + W - 1) / W;
-
-  // The first slabs load while the block does the per-document set-up.
-  // Where the ring's other buffers hold siginv, it comes in first, for the
-  // prior term to read from shared memory; the later slabs follow it.
-  const bool sig_smem = grp == 0 && (size_t)Km1 * Km1 <= (size_t)(STAGES - 1) * K * W;
-  if (sig_smem) {
-    load_siginv(ring + K * W, siginv, Km1 * Km1);
-    cp_async_commit();
-  }
-  for (int s = 0; s < (sig_smem ? 1 : STAGES - 1); ++s) {
-    if (s < n_slabs) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
-    cp_async_commit();
-  }
-
-  // softmax of the padded eta (last coordinate pinned to 0)
-  float mloc = -INFINITY;
-  for (int k = tid; k < K; k += kThreads) {
-    const float v = k < Km1 ? eta_d[k] : 0.f;
-    e[k] = v;
-    mloc = fmaxf(mloc, v);
-  }
-  const float m = block_max(mloc, red);
-  float se = 0.f;
-  for (int k = tid; k < K; k += kThreads) {
-    const float v = expf(e[k] - m);
-    e[k] = v;
-    se += v;
-  }
-  const float sum_e = block_sum(se, red);
-
-  float nd = 0.f;
-  for (int l = tid; l < L; l += kThreads) nd += cnt_d[l];
-  for (int i = tid; i < Km1; i += kThreads) diff[i] = eta_d[i] - mu[d * Km1 + i];
-  for (int i = tid; i < Km1 * 32; i += kThreads) qpart[i] = 0.f;
-  // operand rows Km1 .. Kp-1 are zero for the whole stream
-  if (BF16) {
-    for (int i = Km1 * kOpStrideBf + tid; i < Kp * kOpStrideBf; i += kThreads)
-      op_b[i] = __float2bfloat16(0.f);
-  } else {
-    for (int i = Km1 * kOpStrideF + tid; i < Kp * kOpStrideF; i += kThreads) op_f[i] = 0.f;
-  }
-  const float Nd = block_sum(nd, red);  // its barriers publish the above
-
-  // prior term (group 0 writes f and g): sdiff_j = Σ_i diff_i siginv[i, j],
-  // each column's two halves of i summed by two threads (the upper half
-  // into q, free until the stream ends), then added
-  float quad = 0.f;
-  if (grp == 0) {
-    if (sig_smem) {
-      cp_async_wait<1>();  // siginv has landed (slab 0 may not have)
-      __syncthreads();
-    }
-    const float* sig = sig_smem ? ring + K * W : siginv;
-    const int half = Km1 / 2;
-    for (int idx = tid; idx < 2 * Km1; idx += kThreads) {
-      const int h = idx >= Km1, j = idx - h * Km1;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int i = h * half; i < (h ? Km1 : half); ++i) acc += diff[i] * sig[(size_t)i * Km1 + j];
-      (h ? q : sdiff)[j] = acc;
-    }
-    __syncthreads();  // also: siginv's buffers are free for the slabs
-    if (sig_smem) {
-      for (int s = 1; s < STAGES - 1; ++s) {
-        if (s < n_slabs) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
-        cp_async_commit();
-      }
-    }
-    float qd = 0.f;
-    for (int j = tid; j < Km1; j += kThreads) {
-      const float acc = sdiff[j] + q[j];
-      sdiff[j] = acc;
-      qd += diff[j] * acc;
-    }
-    quad = 0.5f * block_sum(qd, red);
-  }
-
-  // this warp's accumulator tiles: rows i0 .. i0+15, columns j0 .. j0+7
-  const int n16 = Kp / 16, n_tiles = fgh_tiles(K);
-  int ti0[kTilesPerWarp], tj0[kTilesPerWarp];
-  int my_tiles = 0;
-#pragma unroll
-  for (int r = 0; r < kTilesPerWarp; ++r) {
-    int t = grp * kTilesPerGroup + warp + kWarps * r;
-    ti0[r] = 0;
-    tj0[r] = 0;
-    if (t < n_tiles) {
-      int ti = 0;
-      while (t >= 2 * (n16 - ti)) {
-        t -= 2 * (n16 - ti);
-        ++ti;
-      }
-      ti0[r] = 16 * ti;
-      tj0[r] = 8 * (2 * ti + t);
-      my_tiles = r + 1;
-    }
-  }
-  float acc[kTilesPerWarp][4];
-#pragma unroll
-  for (int r = 0; r < kTilesPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  const int g8 = lane >> 2, t4 = lane & 3;
-  float llp = 0.f;  // warp 0: its lane's word slots' log-likelihood terms
-  for (int s = 0; s < n_slabs; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slab s has landed; slab s-1's buffer is free
-    {
-      const int sn = s + STAGES - 1;
-      if (sn < n_slabs)
-        load_slab<W>(ring + (size_t)(sn % STAGES) * K * W, beta_d, K, L, sn * W, vec16);
-      cp_async_commit();
-    }
-    const float* slab = ring + (size_t)(s % STAGES) * K * W;
-
-    // s_l: warp w sums the topics k ≡ w (mod kWarps) of its lane's slots
-    float ps[kCols];
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) ps[u] = 0.f;
-#pragma unroll 4
-    for (int k = warp; k < K; k += kWarps) {
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) ps[u] += e[k] * slab[k * W + lane + 32 * u];
-    }
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) part[warp * W + lane + 32 * u] = ps[u];
-    __syncthreads();
-    float sl[kCols], cl[kCols], rc[kCols];
-    bool live[kCols];
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) {
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += part[w * W + lane + 32 * u];
-      sl[u] = fmaxf(v, kTiny);
-      const int l = s * W + lane + 32 * u;
-      cl[u] = l < L ? cnt_d[l] : 0.f;
-      live[u] = cl[u] > 0.f;
-      if (warp == 0 && live[u]) llp += cl[u] * (logf(sl[u]) + m);
-      rc[u] = live[u] ? sqrtf(cl[u]) : 0.f;
-    }
-
-    // phi_hat, its q terms and the B·Bᵀ operand, rows k < Km1
-#pragma unroll 4
-    for (int k = warp; k < Km1; k += kWarps) {
-      float qv = qpart[k * 32 + lane];
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) {
-        const int col = lane + 32 * u;
-        const float ph = live[u] ? e[k] * slab[k * W + col] / sl[u] : 0.f;
-        qv += ph * cl[u];
-        const float v = ph * rc[u];
-        if (BF16) {
-          op_b[k * kOpStrideBf + col] = __float2bfloat16(v);
-        } else {
-          op_f[k * kOpStrideF + col] = v;
-        }
-      }
-      qpart[k * 32 + lane] = qv;
-    }
-    __syncthreads();  // the operand is complete
-
-    if (BF16) {
-#pragma unroll
-      for (int kk = 0; kk < W; kk += 16) {
-#pragma unroll
-        for (int r = 0; r < kTilesPerWarp; ++r) {
-          if (r < my_tiles) {
-            uint32_t a[4], b[2];
-            ldmatrix_a(a, op_b, kOpStrideBf, ti0[r], kk);
-            ldmatrix_b(b, op_b, kOpStrideBf, tj0[r], kk);
-            mma_bf16(acc[r], a, b);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < kTilesPerWarp; ++r) {
-        if (r < my_tiles) {
-          const float* ra = op_f + (ti0[r] + g8) * kOpStrideF;
-          const float* rb = op_f + (tj0[r] + 2 * t4) * kOpStrideF;
-#pragma unroll 8
-          for (int ll = 0; ll < W; ++ll) {
-            const float a0 = ra[ll], a1 = ra[8 * kOpStrideF + ll];
-            const float b0 = rb[ll], b1 = rb[kOpStrideF + ll];
-            acc[r][0] += a0 * b0;
-            acc[r][1] += a0 * b1;
-            acc[r][2] += a1 * b0;
-            acc[r][3] += a1 * b1;
-          }
-        }
-      }
-    }
-  }
-
-  // q_k: the per-lane partials, one warp per topic
-  for (int k = warp; k < Km1; k += kWarps) {
-    const float v = warp_sum(qpart[k * 32 + lane]);
-    if (lane == 0) q[k] = v;
-  }
-  const float ll = warp_sum(llp);  // meaningful in warp 0
-  cp_async_wait<0>();  // (only empty groups are pending)
-  __syncthreads();  // publishes q; the ring, part and qpart are free
-
-  if (grp == 0) {
-    for (int i = tid; i < Km1; i += kThreads) {
-      const float th = e[i] / sum_e;
-      g_out[d * Km1 + i] = sdiff[i] + (Nd * th - q[i]);
-    }
-    if (tid == 0) f_out[d] = quad - ll + Nd * (m + logf(sum_e));
-  }
-
-  // H = B·Bᵀ - Nd θθᵀ + diag(Nd θ - q) + Σ⁻¹; each upper entry and its
-  // mirror.  Where one tile group covers H and it fits in the free space
-  // before e, it is assembled in shared memory and written in whole rows.
-  const bool stage = gridDim.y == 1 && (size_t)Km1 * Km1 <= lay.e;
-  float* H_d = stage ? smem : H_out + d * Km1 * Km1;
-#pragma unroll
-  for (int r = 0; r < kTilesPerWarp; ++r) {
-    if (r < my_tiles) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = ti0[r] + g8 + (c >= 2 ? 8 : 0);
-        const int j = tj0[r] + 2 * t4 + (c & 1);
-        if (i <= j && j < Km1) {
-          const float thi = e[i] / sum_e, thj = e[j] / sum_e;
-          float h = acc[r][c] - (Nd * thi) * thj;
-          if (i == j) h += Nd * thi - q[i];
-          h += siginv[(size_t)i * Km1 + j];
-          H_d[(size_t)i * Km1 + j] = h;
-          if (i != j) H_d[(size_t)j * Km1 + i] = h;
-        }
-      }
-    }
-  }
-  if (stage) {
-    __syncthreads();
-    // whole rows: a scalar head up to a 16-byte boundary, then 16-byte stores
-    const int n = Km1 * Km1;
-    float* out = H_out + d * n;
-    const int head = min(n, (int)((16 - (uintptr_t)out % 16) % 16 / 4));
-    if (tid < head) out[tid] = smem[tid];
-    float4* out4 = reinterpret_cast<float4*>(out + head);
-    const int n4 = (n - head) / 4;
-    for (int c = tid; c < n4; c += kThreads) {
-      const float* v = smem + head + 4 * c;
-      out4[c] = make_float4(v[0], v[1], v[2], v[3]);
-    }
-    for (int idx = head + 4 * n4 + tid; idx < n; idx += kThreads) out[idx] = smem[idx];
-  }
+  HOut hout{};
+  hout.glob = H_out;
+  fgh_body<W, STAGES, BF16, false>(siginv, false, eta + d * (K - 1), mu, beta_doc + d * K * L,
+                                   counts + d * L, f_out, g_out, hout, d, K, L, vec16,
+                                   blockIdx.y, smem);
 }
 
-// ---------------------------------------------------------------------------
-// B3: the Armijo sweep
-// ---------------------------------------------------------------------------
-//
-// Bound on the H100 by reading beta_doc once (K·L·4 bytes a document);
-// the T mixtures are 2·T·K·L flops, far below the float32 peak at that
-// byte count.  Design: one block per document; slabs of W word slots
-// (64, or 32 where K is large) stream through a cp.async ring.  Thread
-// (ks, tg, cg) forms the partial mixtures of 4 step sizes (tg) by 4 slots
-// (cg) over the topics k ≡ ks (mod KS) in float32 FMAs, from 16-byte
-// shared-memory reads of the slab and of the transposed candidate rows
-// etT[k][t]; the KS partials of each s[t,l] are added in ks order, and
-// each (t, l) thread keeps its own log-likelihood sum across slabs.  The
-// prior term ½ dᵀΣ⁻¹d of each candidate is computed as before, once per
-// (t, j), with each thread reading a column of siginv once for 4 step
-// sizes, from shared memory where the ring holds siginv (as in B1).  Sums
-// over warps are added in warp order.
-template <int W>
-struct LsShape {
-  static constexpr int kCG = W / 4;                       // slot groups of 4
-  static constexpr int kKS = kThreads / (kCG * 4);        // topic splits
-};
-
-struct LsLayout {
-  size_t ring, part, etT, dT, eta, p, mu, ts, mt, lse, llw, qw, red, floats;
-};
-
-__host__ __device__ inline LsLayout ls_layout(int K, int W, int stages) {
-  const int Km1 = K - 1;
-  LsLayout o;
-  size_t at = 0;
-  o.ring = at;  at += (size_t)stages * K * W;
-  o.part = at;  at += (size_t)(kThreads / W) * kMaxT * W;  // KS x kMaxT x W
-  o.etT = at;   at += (size_t)K * kMaxT;
-  o.dT = at;    at += (size_t)Km1 * kMaxT;
-  o.eta = at;   at += Km1;
-  o.p = at;     at += Km1;
-  o.mu = at;    at += Km1;
-  o.ts = at;    at += kMaxT;
-  o.mt = at;    at += kMaxT;
-  o.lse = at;   at += kMaxT;
-  o.llw = at;   at += kMaxT * kWarps;
-  o.qw = at;    at += kMaxT * kWarps;
-  o.red = at;   at += 32;
-  o.floats = at;
-  return o;
-}
-
+// B3: one block per document.
 template <int W, int STAGES>
 __global__ void __launch_bounds__(kThreads)
 ls_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
@@ -532,234 +66,86 @@ ls_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
           const float* __restrict__ counts, float* __restrict__ fs, int K, int L, int T,
           int vec16) {
   extern __shared__ __align__(16) float smem[];
-  using S = LsShape<W>;
-  const int Km1 = K - 1;
-  const LsLayout lay = ls_layout(K, W, STAGES);
-  float* ring = smem + lay.ring;
-  float* part = smem + lay.part;
-  float* etT = smem + lay.etT;
-  float* dT = smem + lay.dT;
-  float* eta_s = smem + lay.eta;
-  float* p_s = smem + lay.p;
-  float* mu_s = smem + lay.mu;
-  float* tsv = smem + lay.ts;
-  float* mt = smem + lay.mt;
-  float* lse = smem + lay.lse;
-  float* llw = smem + lay.llw;
-  float* qw = smem + lay.qw;
-  float* red = smem + lay.red;
-
   const size_t d = blockIdx.x;
-  const float* beta_d = beta_doc + d * K * L;
-  const float* cnt_d = counts + d * L;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_slabs = (L + W - 1) / W;
-
-  // as in fgh: siginv first where the ring's other buffers hold it
-  const bool sig_smem = (size_t)Km1 * Km1 <= (size_t)(STAGES - 1) * K * W;
-  if (sig_smem) {
-    load_siginv(ring + K * W, siginv, Km1 * Km1);
-    cp_async_commit();
-  }
-  for (int s = 0; s < (sig_smem ? 1 : STAGES - 1); ++s) {
-    if (s < n_slabs) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
-    cp_async_commit();
-  }
-
-  for (int i = tid; i < Km1; i += kThreads) {
-    eta_s[i] = eta[d * Km1 + i];
-    p_s[i] = pdir[d * Km1 + i];
-    mu_s[i] = mu[d * Km1 + i];
-  }
-  if (tid < kMaxT) tsv[tid] = tid < T ? ts[tid] : 0.f;
-  for (int i = tid; i < 2 * kMaxT * kWarps; i += kThreads) llw[i] = 0.f;  // llw, qw
-  __syncthreads();
-
-  // candidates (padded with the pinned 0), step sizes past T zero; the
-  // offsets d = cand - mu of the prior term
-  for (int idx = tid; idx < K * kMaxT; idx += kThreads) {
-    const int k = idx / kMaxT, t = idx - k * kMaxT;
-    etT[idx] = (t < T && k < Km1) ? eta_s[k] + tsv[t] * p_s[k] : 0.f;
-    if (k < Km1) dT[idx] = t < T ? (eta_s[k] + tsv[t] * p_s[k]) - mu_s[k] : 0.f;
-  }
-  __syncthreads();
-  for (int t = warp; t < T; t += kWarps) {
-    float mx = -INFINITY;
-    for (int k = lane; k < K; k += 32) mx = fmaxf(mx, etT[k * kMaxT + t]);
-    mx = warp_max(mx);
-    float se = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float v = expf(etT[k * kMaxT + t] - mx);
-      etT[k * kMaxT + t] = v;
-      se += v;
-    }
-    se = warp_sum(se);
-    if (lane == 0) {
-      mt[t] = mx;
-      lse[t] = mx + logf(se);
-    }
-  }
-
-  // prior term: dq[t, j] = d_tj · (d_t · siginv)_j, summed over j per t.
-  // Thread (tg, jj) takes step sizes 4 tg .. 4 tg + 3 and columns j ≡ jj (mod 64).
-  if (sig_smem) {
-    cp_async_wait<1>();  // siginv has landed (slab 0 may not have)
-    __syncthreads();
-  }
-  {
-    const float* sig = sig_smem ? ring + K * W : siginv;
-    const int tg = tid >> 6, jj = tid & 63;
-    float qs[4] = {0.f, 0.f, 0.f, 0.f};
-    if (4 * tg < T) {
-      for (int j = jj; j < Km1; j += 64) {
-        float a[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-        for (int i = 0; i < Km1; ++i) {
-          const float sv = sig[(size_t)i * Km1 + j];
-          const float4 di = *reinterpret_cast<const float4*>(dT + i * kMaxT + 4 * tg);
-          a[0] += di.x * sv;
-          a[1] += di.y * sv;
-          a[2] += di.z * sv;
-          a[3] += di.w * sv;
-        }
-        const float4 dj = *reinterpret_cast<const float4*>(dT + j * kMaxT + 4 * tg);
-        qs[0] += dj.x * a[0];
-        qs[1] += dj.y * a[1];
-        qs[2] += dj.z * a[2];
-        qs[3] += dj.w * a[3];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float v = warp_sum(qs[u]);
-      if (lane == 0 && 4 * tg + u < T) qw[(4 * tg + u) * kWarps + warp] = v;
-    }
-  }
-  if (sig_smem) {
-    __syncthreads();  // siginv's buffers are free for the slabs
-    for (int s = 1; s < STAGES - 1; ++s) {
-      if (s < n_slabs) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
-      cp_async_commit();
-    }
-  }
-
-  float nd = 0.f;
-  for (int l = tid; l < L; l += kThreads) nd += cnt_d[l];
-  const float Nd = block_sum(nd, red);  // publishes etT, mt, lse, qw
-
-  // thread (ks, tg, cg) of the mixtures; (t, l) pairs of the finalize
-  const int cg = tid % S::kCG, tg = (tid / S::kCG) & 3, ks = tid / (4 * S::kCG);
-  constexpr int kPairs = kMaxT * W / kThreads;  // (t, l) pairs a thread finalizes
-  float llp[kPairs];
-#pragma unroll
-  for (int r = 0; r < kPairs; ++r) llp[r] = 0.f;
-
-  for (int s = 0; s < n_slabs; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slab s has landed; slab s-1's buffer and part are free
-    {
-      const int sn = s + STAGES - 1;
-      if (sn < n_slabs)
-        load_slab<W>(ring + (size_t)(sn % STAGES) * K * W, beta_d, K, L, sn * W, vec16);
-      cp_async_commit();
-    }
-    const float* slab = ring + (size_t)(s % STAGES) * K * W;
-
-    if (4 * tg < T) {
-      float a[4][4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) a[u][v] = 0.f;
-      for (int k = ks; k < K; k += S::kKS) {
-        const float4 b = *reinterpret_cast<const float4*>(slab + k * W + 4 * cg);
-        const float4 ev = *reinterpret_cast<const float4*>(etT + k * kMaxT + 4 * tg);
-        const float ea[4] = {ev.x, ev.y, ev.z, ev.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          a[u][0] += ea[u] * b.x;
-          a[u][1] += ea[u] * b.y;
-          a[u][2] += ea[u] * b.z;
-          a[u][3] += ea[u] * b.w;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        *reinterpret_cast<float4*>(part + ((size_t)ks * kMaxT + 4 * tg + u) * W + 4 * cg) =
-            make_float4(a[u][0], a[u][1], a[u][2], a[u][3]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kPairs; ++r) {
-      const int idx = tid + kThreads * r;
-      const int t = idx / W, lw = idx - t * W;
-      const int l = s * W + lw;
-      if (t < T && l < L) {
-        const float cl = cnt_d[l];
-        if (cl > 0.f) {
-          float sm = 0.f;
-#pragma unroll
-          for (int k2 = 0; k2 < S::kKS; ++k2) sm += part[((size_t)k2 * kMaxT + t) * W + lw];
-          llp[r] += cl * (logf(fmaxf(sm, kTiny)) + mt[t]);
-        }
-      }
-    }
-  }
-
-  // each warp's (t, l) pairs share one t per r
-#pragma unroll
-  for (int r = 0; r < kPairs; ++r) {
-    const int t = (tid + kThreads * r) / W;
-    const float v = warp_sum(llp[r]);
-    if (lane == 0 && t < T) llw[t * kWarps + warp] = v;
-  }
-  __syncthreads();
-  if (tid < T) {
-    float qsum = 0.f, ll = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      qsum += qw[tid * kWarps + w];
-      ll += llw[tid * kWarps + w];
-    }
-    fs[d * T + tid] = 0.5f * qsum - ll + Nd * lse[tid];
-  }
+  ls_body<W, STAGES>(siginv, false, ts, T, eta, pdir, mu, beta_doc + d * K * L, counts + d * L,
+                     fs, d, K, L, vec16, smem);
 }
 
-// ---------------------------------------------------------------------------
-// B2: Steihaug CG
-// ---------------------------------------------------------------------------
+// B2: one block per document.  Shared memory: g[Km1] | diag[Km1] | cg
+// scratch | H (HSMEM: rows of cg_ld(Km1), bf16 in bf16 mode, else
+// float32).  H comes in with coalesced loads, all of a thread's share in
+// flight at once up to K ~100 (one round trip), g and the unrounded
+// diagonal beside them, and is stored as the values the matvec uses.
+// Without HSMEM (bf16 H above K ~330, float32 H above K ~230) the matvecs
+// read H from device memory (L2) and round it as they read.
+__host__ __device__ inline size_t cg_h_offset(int Km1) {
+  return 2 * round4(Km1) + round4(cg_scratch(Km1));
+}
 
-// Steihaug CG of document blockIdx.x; scratch cg_scratch(Km1) floats,
-// then Hs[Km1*Km1] when h_smem.  With h_smem the (bf16-rounded) Hessian
-// is read from device memory once and every matvec reads shared memory;
-// without it (K above ~238, where Km1² floats exceed a block's shared
-// memory) the matvecs read H from device memory/L2 and round on the fly.
-__global__ void __launch_bounds__(kThreads)
+template <int NP, bool BF16, bool HSMEM>
+__global__ void __launch_bounds__(kThreads, NP <= 4 ? 2 : 1)
 cg_kernel(const float* __restrict__ H, const float* __restrict__ g,
-          float* __restrict__ x_out, int Km1, int iters, int bf16, int h_smem) {
+          float* __restrict__ x_out, int Km1, int iters) {
   extern __shared__ __align__(16) float smem[];
   const size_t d = blockIdx.x;
-  float* Hs = smem + cg_scratch(Km1);
+  const int tid = threadIdx.x, ld = cg_ld(Km1);
   const float* H_d = H + d * Km1 * Km1;
-  if (h_smem) {
-    for (int idx = threadIdx.x; idx < Km1 * Km1; idx += kThreads) {
-      const float v = H_d[idx];
-      Hs[idx] = bf16 ? bf16_round(v) : v;
+  float* gs = smem;
+  float* diag = smem + round4(Km1);
+  float* scratch = smem + 2 * round4(Km1);
+  void* Hs = smem + cg_h_offset(Km1);
+  // g and the diagonal (K-1 <= 512: two a thread)
+  float gv[2], dv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = tid + r * kThreads;
+    gv[r] = i < Km1 ? g[d * Km1 + i] : 0.f;
+    dv[r] = i < Km1 ? H_d[(size_t)i * (Km1 + 1)] : 0.f;
+  }
+  if (HSMEM) {
+    // thread tid takes the flat indices tid + kThreads·b, which step by
+    // (di, dj) in (row, column)
+    const int n = Km1 * Km1;
+    const int di = kThreads / Km1, dj = kThreads - di * Km1;
+    constexpr int kBatch = 40;
+    for (int f0 = tid; f0 < n; f0 += kBatch * kThreads) {
+      float v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int f = f0 + b * kThreads;
+        v[b] = f < n ? __ldg(H_d + f) : 0.f;
+      }
+      int i = f0 / Km1, j = f0 - i * Km1;
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (f0 + b * kThreads < n) {
+          if (BF16)
+            static_cast<__nv_bfloat16*>(Hs)[i * ld + j] = __float2bfloat16(v[b]);
+          else
+            static_cast<float*>(Hs)[i * ld + j] = v[b];
+        }
+        i += di;
+        j += dj;
+        if (j >= Km1) {
+          j -= Km1;
+          ++i;
+        }
+      }
     }
   }
-  // doc_cg's first barrier publishes Hs
-  doc_cg(H_d, h_smem ? Hs : H_d, bf16 && !h_smem, g + d * Km1, x_out + d * Km1, Km1, iters,
-         smem);
-}
-
-// Launch `kernel` with `bytes` of dynamic shared memory (opted in above
-// the 48 KB default).
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t bytes, void* stream, Args... args) {
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(args...);
-  return cudaGetLastError();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = tid + r * kThreads;
+    if (i < Km1) {
+      gs[i] = gv[r];
+      diag[i] = dv[r];
+    }
+  }
+  __syncthreads();
+  if (HSMEM)
+    cg_body<NP>(HShared<BF16>{Hs, ld}, diag, gs, x_out + d * Km1, Km1, iters, scratch);
+  else
+    cg_body<NP>(HGlobal<BF16>{H_d, Km1}, diag, gs, x_out + d * Km1, Km1, iters, scratch);
 }
 
 }  // namespace
@@ -816,15 +202,34 @@ int stm_fgh(const void* siginv, const void* eta, const void* mu, const void* bet
   return (int)err;
 }
 
+// B2: H in shared memory where it fits beside the scratch; K-1 up to 512.
 int stm_cg(const void* H, const void* g, void* x, int B, int Km1, int iters, int bf16,
            void* stream) {
   if (B == 0) return 0;
-  const size_t base = sizeof(float) * cg_scratch(Km1);
-  const size_t with_h = base + sizeof(float) * (size_t)Km1 * Km1;
-  const int h_smem = (int)with_h <= max_optin_smem();
+  if (Km1 < 1 || Km1 > 512) return (int)cudaErrorInvalidValue;
+  const size_t base = sizeof(float) * cg_h_offset(Km1);
+  const size_t with_h =
+      base + (size_t)Km1 * cg_ld(Km1) * (bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  const bool h_smem = with_h <= (size_t)max_optin_smem();
   const size_t bytes = h_smem ? with_h : base;
-  return (int)launch(cg_kernel, dim3(B), bytes, stream, (const float*)H, (const float*)g,
-                     (float*)x, Km1, iters, bf16, h_smem);
+  auto args = [&](auto kernel) {
+    return launch(kernel, dim3(B), bytes, stream, (const float*)H, (const float*)g, (float*)x,
+                  Km1, iters);
+  };
+  auto pick = [&](auto np) {
+    constexpr int NP = decltype(np)::value;
+    if (h_smem)
+      return bf16 ? args(cg_kernel<NP, true, true>) : args(cg_kernel<NP, false, true>);
+    return bf16 ? args(cg_kernel<NP, true, false>) : args(cg_kernel<NP, false, false>);
+  };
+  cudaError_t err;
+  if (Km1 <= 128)
+    err = pick(std::integral_constant<int, 2>());
+  else if (Km1 <= 256)
+    err = pick(std::integral_constant<int, 4>());
+  else
+    err = pick(std::integral_constant<int, 8>());
+  return (int)err;
 }
 
 // B3's ring: 64 slots by three slabs where two blocks fit an SM, then

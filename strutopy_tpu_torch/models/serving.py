@@ -48,7 +48,7 @@ def _refuse_content(beta) -> None:
 
 
 def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
-                aspects_user=None, full_convergence: bool = True, *, device):
+                aspects_user=None, full_convergence: bool = True, *, device="cuda"):
     """One batched E-step under fixed (beta, sigma) with per-document
     prior means ``mu_user`` -> (theta, eta) in document order, as numpy.
 
@@ -222,7 +222,8 @@ def _n_docs(documents) -> int:
     return documents.N
 
 
-def infer_from_artifacts(model_dir: str, documents, X=None, beta_index=None, *, device):
+def infer_from_artifacts(model_dir: str, documents, X=None, beta_index=None, *,
+                         device="cuda"):
     """Load the artifacts and configuration and infer (theta, eta) for new
     documents.  ``beta_index`` is read only by the content model (not
     ported)."""
@@ -247,7 +248,7 @@ class ThetaServer:
     to serve on another path.
     """
 
-    def __init__(self, model_dir: str, *, device):
+    def __init__(self, model_dir: str, *, device="cuda"):
         beta, sigma, gamma, eta_mean, cfg, train = _load_params(model_dir)
         _refuse_content(beta)
         self.device = torch.device(device)

@@ -1,8 +1,9 @@
 """The user-facing STM estimator (twin of ``strutopy_tpu/models/stm.py``).
 
 Same construction, fitting, inference (``transform``) and artifact
-(``save_model``) surface as the JAX ``STM``, on one device that the
-caller names (``device="cuda"`` or ``"cpu"``; nothing is detected).
+(``save_model``) surface as the JAX ``STM``, on one device: the card
+(``device="cuda"``, the default) unless the caller asks for the CPU
+(``device="cpu"``); nothing is detected.
 Not ported yet: spectral init (ROADMAP.md Queue A item 10), the content
 model (item 11), meshes and streaming (items 12 and 14), checkpoints.
 """
@@ -66,7 +67,7 @@ class STM:
         beta_smoothing: float = 0.0,
         init_beta=None,
         *,
-        device,
+        device="cuda",
     ):
         if config is not None and seed != 123456 and config.seed != seed:
             raise ValueError(

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "stm_cg": [_P] * 3 + [_I] * 4 + [_P],
     "stm_ls_smem": [_I],
     "stm_ls": [_P] * 8 + [_I] * 4 + [_P],
-    "stm_newton_h_global": [_I] * 3,
+    "stm_newton_plan": [_I] * 4 + [_P],
     "stm_iter": [_P] * 11 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
     "stm_newton": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "stm_gather_rows": [_P] * 3 + [_I] * 3 + [_P],

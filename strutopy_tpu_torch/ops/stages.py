@@ -30,6 +30,8 @@ quantities.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from strutopy_tpu_torch.ops import build
@@ -305,13 +307,17 @@ def cg(H, g, iters: int, bf16: bool = True):
     """Newton direction x ≈ -H⁻¹g by ``iters`` steps of Steihaug CG.
 
     Replaces ``strutopy_tpu/ops/pallas_stages.py::_cg_kernel`` (wrapper
-    ``pallas_cg_impl``).  On the H100 it is bound by latency, not bytes:
-    H is read once (39 KB a document at K=100), then each step is a
-    (K-1)² matvec from shared memory and two block-wide reductions.
-    Design: one block per document; H (bf16-rounded when ``bf16``, kept
-    as float32 values) stays in shared memory for all steps when it fits
-    (K up to ~238), else the matvecs read it from L2; the recurrences
-    run in float32 with p unrounded, as in the TPU kernel.
+    ``pallas_cg_impl``).  On the H100 it is bound by reading H once (39 KB
+    a document at K=100) and, beyond that, by the latency of its steps.
+    Design (``csrc/newton_doc.cuh::cg_body``): one block per document
+    brings H in with 16-byte loads and keeps it in shared memory as the
+    values the matvec uses (bf16 when ``bf16``, else float32; read from L2
+    and rounded on the fly where it does not fit, K above ~330), with the
+    unrounded diagonal apart for the preconditioner.  Each matvec spreads
+    the rows of H over all eight warps and adds their partial rows in warp
+    order; every warp then runs the recurrences in registers, so a step
+    takes one barrier.  p stays float32, as in the TPU kernel.  K-1 is at
+    most 512.
     """
     if _use_plain("cg", H, g):
         return cg_plain(H, g, iters, bf16)
@@ -359,14 +365,35 @@ def linesearch(eta, p, ts, beta_doc, counts, mu, siginv):
     return fs
 
 
-def _h_scratch(lib, B: int, K: int, L: int, T: int, device):
-    """The (B, K-1, K-1) global scratch the fused kernels need for H where
-    it does not fit in shared memory (K above ~238), else None."""
-    need = lib.stm_newton_h_global(K, L, T)
-    if need < 0:
-        raise ValueError(f"fused Newton kernels: K={K}, L={L}, T={T} exceed a block's "
-                         "shared memory")
-    return torch.empty(B, K - 1, K - 1, dtype=torch.float32, device=device) if need else None
+_PLAN_FIELDS = ("bytes", "W", "stages", "blocks_per_sm", "groups", "H", "siginv_in_smem",
+                "resident")
+
+
+def newton_plan(K: int, L: int, bf16: bool = True, loop: bool = True):
+    """The fused kernel's shared-memory plan at (K, L) on the current card,
+    for the whole loop (:func:`newton_loop`) or one step
+    (:func:`newton_iter`, ``loop=False``): bytes a block, slab width W,
+    ring depth, blocks an SM, B1's tile groups, where H lives ("ring",
+    "shared" or "global"), whether siginv stays in shared memory and
+    whether beta_doc stays resident in it for the whole loop; None where
+    no plan fits."""
+    out = (ctypes.c_int * len(_PLAN_FIELDS))()
+    if build.load().stm_newton_plan(int(K), int(L), int(bool(bf16)), int(bool(loop)), out) != 0:
+        return None
+    plan = dict(zip(_PLAN_FIELDS, out))
+    plan["H"] = ("ring", "shared", "global")[plan["H"]]
+    return plan
+
+
+def _h_scratch(B: int, K: int, L: int, bf16: bool, loop: bool, device):
+    """The (B, K-1, K-1) global scratch the fused kernel needs for H where
+    it does not fit in shared memory (K above ~250), else None."""
+    plan = newton_plan(K, L, bf16, loop)
+    if plan is None:
+        raise ValueError(f"fused Newton kernels: K={K}, L={L} exceed a block's shared memory")
+    if plan["H"] != "global":
+        return None
+    return torch.empty(B, K - 1, K - 1, dtype=torch.float32, device=device)
 
 
 def _ptr(t) -> int:
@@ -378,14 +405,12 @@ def newton_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
     """One fused damped-Newton iteration: (eta, done, advance).
 
     Replaces ``strutopy_tpu/ops/pallas_stages.py::_iter_kernel`` (wrapper
-    ``pallas_iter_impl``).  On the H100 it is bound by the float32 B·Bᵀ
-    product on the CUDA cores (the f/g/H body of ``csrc/newton_doc.cuh``,
-    which :func:`fgh` does not use).  Design: one block per document
-    runs the f/g/H, CG and sweep bodies of ``csrc/newton_doc.cuh`` in turn
-    with H (when it fits), g, the direction and the sweep values in shared
-    memory, then chooses the step as :func:`newton_iter_plain` does and
-    updates eta; a done document keeps its eta.  ``done`` is a bool (B,)
-    tensor.
+    ``pallas_iter_impl``).  The kernel of :func:`newton_loop` with one
+    step: one block per document runs the f/g/H, CG and sweep bodies of
+    the stage kernels (``csrc/newton_doc.cuh``) in turn with H, g, the
+    direction and the sweep values in shared memory, then chooses the step
+    as :func:`newton_iter_plain` does and updates eta; a done document
+    keeps its eta.  ``done`` is a bool (B,) tensor.
     """
     if _use_plain("iter", eta, beta_doc, counts, mu, siginv, ts, done,
                   dtypes=[torch.float32] * 6 + [torch.bool]):
@@ -397,8 +422,8 @@ def newton_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
             siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)), done=(done, (B,)))
     if not 1 <= T <= 16:
         raise ValueError(f"iter: the kernel takes 1 to 16 step sizes, got {T}")
+    scratch = _h_scratch(B, K, L, bf16, False, eta.device)
     lib = build.load()
-    scratch = _h_scratch(lib, B, K, L, T, eta.device)
     eta_out = torch.empty_like(eta)
     done_out = torch.empty_like(done)
     adv_out = torch.empty_like(done)
@@ -417,13 +442,15 @@ def newton_loop(beta_doc, counts, mu, eta0, siginv, ts, max_iters: int, grad_tol
     """The whole damped-Newton loop of a chunk: (eta, n_iters int32).
 
     Replaces ``strutopy_tpu/ops/pallas_estep.py::_newton_kernel`` (wrapper
-    ``pallas_newton_impl``).  Bound like :func:`newton_iter`, per
-    iteration; besides, the loop needs no host synchronisation.  Design:
-    the :func:`newton_iter` block body in a loop of at most ``max_iters``
-    steps that each block leaves once its document is done (a done
-    document is frozen and counts no iteration, so this is exact), so
-    every document gets its full Newton budget without a chunk-wide
-    stopping test.
+    ``pallas_newton_impl``).  A loop is bound by its longest chain: the
+    chunk costs about its slowest document's Newton count times one step
+    of one block.  Design: one block per document keeps its state on chip
+    and runs the stage kernels' f/g/H, CG and sweep bodies
+    (``csrc/newton_doc.cuh``) in turn, at most ``max_iters`` steps, leaving
+    the loop once its document is done (a done document is frozen and
+    counts no iteration, so this is exact), with no host synchronisation.
+    The bodies share one cp.async ring; H is assembled in it for CG where
+    it fits (see :func:`newton_plan`).
     """
     if _use_plain("newton", beta_doc, counts, mu, eta0, siginv, ts):
         return newton_loop_plain(beta_doc, counts, mu, eta0, siginv, ts, max_iters, grad_tol,
@@ -434,8 +461,8 @@ def newton_loop(beta_doc, counts, mu, eta0, siginv, ts, max_iters: int, grad_tol
             siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)))
     if not 1 <= T <= 16:
         raise ValueError(f"newton: the kernel takes 1 to 16 step sizes, got {T}")
+    scratch = _h_scratch(B, K, L, bf16, max_iters > 1, eta0.device)
     lib = build.load()
-    scratch = _h_scratch(lib, B, K, L, T, eta0.device)
     eta = torch.empty_like(eta0)
     n_iters = torch.empty(B, dtype=torch.int32, device=eta0.device)
     with torch.cuda.device(eta0.device):

@@ -1,5 +1,6 @@
-"""kernel_diag.py's ablation: every patch finds its one line of stages.cu,
-and a patched line that changed is refused rather than skipped."""
+"""kernel_diag.py's ablation: every patch finds its one line of
+newton_doc.cuh (where B1's and B3's bodies live), and a patched line that
+changed is refused rather than skipped."""
 
 import pytest
 
@@ -7,12 +8,12 @@ import kernel_diag as kd
 from strutopy_tpu_torch.ops import build
 
 
-def _stages_cu():
-    return (build.CSRC / "stages.cu").read_text()
+def _bodies():
+    return (build.CSRC / "newton_doc.cuh").read_text()
 
 
 def test_every_ablation_patch_applies_once():
-    out = kd.ablated_source(_stages_cu())
+    out = kd.ablated_source(_bodies())
     for _bit, _what, subs in kd.PARTS:
         for _old, new in subs:
             assert out.count(new) == 1, new
@@ -25,4 +26,4 @@ def test_every_ablation_patch_applies_once():
 def test_a_changed_patched_line_is_refused(old):
     with pytest.raises(RuntimeError, match="no longer holds"):
         half = len(old) // 2
-        kd.ablated_source(_stages_cu().replace(old, old[:half] + "/**/" + old[half:]))
+        kd.ablated_source(_bodies().replace(old, old[:half] + "/**/" + old[half:]))

@@ -15,9 +15,8 @@ def test_kernel_names_fall_into_their_groups():
         "(anonymous namespace)::cg_kernel(float const*, float*, int)": "cg kernel (B2)",
         "void (anonymous namespace)::ls_kernel<64, 3>(float const*, float*, int)":
             "ls kernel (B3)",
-        "(anonymous namespace)::iter_kernel(float const*, float*, int)": "iter kernel (B4)",
-        "(anonymous namespace)::newton_kernel(float const*, float*, int)":
-            "newton kernel (B5)",
+        "void (anonymous namespace)::newton_kernel<64, 3, true, false>(float const*, int)":
+            "newton kernel (B4 and B5)",
         "void potrf_cta_lower_batch<float, float, 16>(int, int)": "Cholesky / cholesky_inverse",
         "void trsm_template_batched_lNL_kernel<float, 16, 16>(magma_diag_t)":
             "Cholesky / cholesky_inverse",

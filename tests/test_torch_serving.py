@@ -231,3 +231,16 @@ def test_artifact_loader_refuses_pickled_objects(tmp_path):
         pickle.dump([os.getcwd], f)  # a function: code, not data
     with pytest.raises(pickle.UnpicklingError):
         load_model_artifacts(str(tmp_path))
+
+
+def test_entry_points_run_on_the_card_unless_asked_for_the_cpu():
+    """Every entry point's device defaults to the card; the CPU is a
+    choice the caller makes (as every CPU test here does)."""
+    import inspect
+
+    from strutopy_tpu_torch.models.serving import infer_theta
+
+    for fn in (STM, ThetaServer, infer_theta, infer_from_artifacts):
+        param = inspect.signature(fn).parameters["device"]
+        assert param.kind is inspect.Parameter.KEYWORD_ONLY, fn
+        assert param.default == "cuda", fn

@@ -85,6 +85,59 @@ def _cg_rounds_p_too(inputs, want, aux, bf16):
     return {"cg": torch.tensor(np.asarray(x))}
 
 
+def _cg(H, g, iters, bf16, dinv_from_bf16=False, dropped_warp=None, round_p=False):
+    """cg_plain with one of the CUDA CG's hazards put in: the
+    preconditioner from the bf16-rounded diagonal, one warp's partial Ap
+    rows left out (warp w holds rows w·R .. w·R + R - 1, R = ceil((K-1)/8)),
+    or p rounded to bf16 in the matvec."""
+    Hm = stages._bf16_round(H) if bf16 else H
+    dinv = 1.0 / torch.clamp_min(torch.abs(torch.diagonal(Hm if dinv_from_bf16 else H,
+                                                          dim1=1, dim2=2)), 1e-20)
+    if dropped_warp is not None:
+        rows = -(-H.shape[1] // 8)
+        Hm = Hm.clone()
+        Hm[:, dropped_warp * rows:(dropped_warp + 1) * rows] = 0.0
+    r = -g
+    z = dinv * r
+    p = z
+    rz = torch.sum(r * z, dim=1)
+    x = torch.zeros_like(g)
+    active = torch.ones(g.shape[0], dtype=torch.bool)
+    for _ in range(iters):
+        pm = stages._bf16_round(p) if round_p else p
+        Ap = torch.bmm(pm[:, None, :], Hm)[:, 0]
+        pAp = torch.sum(p * Ap, dim=1)
+        pos = pAp > 1e-30
+        active = active & pos
+        alpha = rz / torch.where(pos, pAp, 1.0)
+        am = active[:, None]
+        x = torch.where(am, x + alpha[:, None] * p, x)
+        r = torch.where(am, r - alpha[:, None] * Ap, r)
+        z = dinv * r
+        rz_new = torch.sum(r * z, dim=1)
+        beta = rz_new / torch.clamp_min(rz, 1e-30)
+        p = torch.where(am, z + beta[:, None] * p, p)
+        rz = torch.where(active, rz_new, rz)
+    return x
+
+
+def test_the_cg_fault_model_without_a_fault_is_cg_plain():
+    _inputs, want, aux = _chunk(True)
+    assert torch.equal(_cg(aux["H"], aux["g"], aux["iters"], True), want["cg"])
+
+
+def _cg_dinv_from_the_rounded_diagonal(inputs, want, aux, bf16):
+    return {"cg": _cg(aux["H"], aux["g"], aux["iters"], bf16, dinv_from_bf16=True)}
+
+
+def _cg_drops_one_warps_partial_rows(inputs, want, aux, bf16):
+    return {"cg": _cg(aux["H"], aux["g"], aux["iters"], bf16, dropped_warp=3)}
+
+
+def _cg_rounds_p_in_the_matvec(inputs, want, aux, bf16):
+    return {"cg": _cg(aux["H"], aux["g"], aux["iters"], bf16, round_p=True)}
+
+
 @pytest.mark.parametrize("mutant, bf16", [
     (_sweep_reads_8_step_sizes, False),
     (_fgh_drops_a_word, False),
@@ -93,6 +146,10 @@ def _cg_rounds_p_too(inputs, want, aux, bf16):
     (_hessian_in_the_other_rounding, True),
     (_cg_one_step_short, True),
     (_cg_rounds_p_too, True),
+    (_cg_dinv_from_the_rounded_diagonal, True),
+    (_cg_drops_one_warps_partial_rows, False),
+    (_cg_drops_one_warps_partial_rows, True),
+    (_cg_rounds_p_in_the_matvec, True),
 ], ids=lambda v: v.__name__.strip("_") if callable(v) else f"bf16={v}")
 def test_smoke_checks_fail_a_wrong_kernel(mutant, bf16):
     inputs, want, aux = _chunk(bf16)
@@ -300,6 +357,47 @@ def test_loop_check_fails_a_loop_that_stops_one_step_early():
         prev = torch.where(adv[:, None], eta, prev)
         eta, n = new, n + adv.to(torch.int32)
     verdict = cs.judge_loop(torch, stages, inputs_loop, (prev, n - 1), (eta, n))
+    assert not cs.loop_ok(verdict, mu.shape[0]), verdict
+
+
+def _loop_stops_one_step_early_on_every_fourth_document(inputs_loop, bf16):
+    """Every fourth document's eta before its last advancing step, one
+    count less; the others' as plain leaves them."""
+    bd, c, mu, siginv = inputs_loop
+    ts = cs.step_sizes(torch, "cpu")
+    eta, prev = mu.clone(), mu.clone()
+    done = torch.zeros(mu.shape[0], dtype=torch.bool)
+    n = torch.zeros(mu.shape[0], dtype=torch.int32)
+    for _ in range(cs.LOOP_ITERS):
+        new, done, adv = stages.newton_iter_plain(eta, bd, c, mu, siginv, ts, done,
+                                                  cs.GRAD_TOL, 6, bf16)
+        prev = torch.where(adv[:, None], eta, prev)
+        eta, n = new, n + adv.to(torch.int32)
+    some = torch.zeros(mu.shape[0], dtype=torch.bool)
+    some[::4] = True
+    return torch.where(some[:, None], prev, eta), torch.where(some, n - 1, n)
+
+
+def _loop_keeps_stepping_done_documents(inputs_loop, bf16):
+    """A converged document is not left: it takes Newton steps until no
+    Armijo step passes or the budget is spent."""
+    bd, c, mu, siginv = inputs_loop
+    ts = cs.step_sizes(torch, "cpu")
+    return stages.newton_loop_plain(bd, c, mu, mu, siginv, ts, cs.LOOP_ITERS, -1.0, 6, bf16)
+
+
+@pytest.mark.parametrize("mutant, bf16", [
+    (_loop_stops_one_step_early_on_every_fourth_document, True),
+    (_loop_keeps_stepping_done_documents, False),
+    (_loop_keeps_stepping_done_documents, True),
+], ids=lambda v: v.__name__.strip("_") if callable(v) else f"bf16={v}")
+def test_loop_check_fails_a_wrong_whole_loop(mutant, bf16):
+    inputs_loop, _inputs, _parts = _fused(bf16)
+    bd, c, mu, siginv = inputs_loop
+    ts = cs.step_sizes(torch, "cpu")
+    want = stages.newton_loop_plain(bd, c, mu, mu, siginv, ts, cs.LOOP_ITERS, cs.GRAD_TOL, 6,
+                                    bf16)
+    verdict = cs.judge_loop(torch, stages, inputs_loop, mutant(inputs_loop, bf16), want)
     assert not cs.loop_ok(verdict, mu.shape[0]), verdict
 
 
