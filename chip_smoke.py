@@ -42,7 +42,24 @@ end, without the final result line):
      simplex, eta against the stage path's where both converge, launch
      counts), then requests
      of 1, 16, 256 and 2,048 documents timed on each;
-     5b. the repo's wiki model (K=50, V=13,852) through the same server.
+     5b. the repo's wiki model (K=50, V=13,852) through the same server;
+  6. spectral init at full width: ``spectral_init`` on the bench corpus
+     (maxV=5000), its Gram / anchor / recovery stages timed, beta finite
+     with rows on the simplex; the card's anchors against the CPU's on
+     the same corpus (where they part, the gap between the two
+     candidates' scores must be float32 rounding); then ``STM(docs,
+     K=100, X=X)`` with every other argument at its default (spectral
+     init, the two-pass schedule) for 3 EM iterations;
+  7. the content model at full width: an A=2 content fit (``content=True``,
+     ``beta_index`` the binary covariate, P=102) for 3 EM iterations from
+     a random init, with the kappa solve's Newton counts and wall time;
+     the bounds and kappa of the same kind of fit on the card against the
+     CPU at a reduced size (default and weak kappa penalty); the saved model served by ``ThetaServer`` to 2,048 new
+     documents with their ``beta_index``;
+  8. heldout and resume: ``train_and_eval_heldout(fast=True)`` on an
+     80/20 split of the bench corpus, ``eval_heldout_torch`` on the card
+     against the float64 ``eval_heldout``; a fit of 4 iterations
+     checkpointed at 2 and resumed against the uninterrupted fit.
 
 The last three lines of standard output are the card line, one JSON
 object of per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -1037,6 +1054,300 @@ def phase_wiki(torch, stages, fails, n_docs=64,
     fails.check(simplex_ok(theta, n_docs, srv.K), "wiki model: theta finite on the simplex")
 
 
+# ---------------------------------------------------------------------------
+# phases 6, 7, 8: spectral init, the content model, heldout and resume
+# ---------------------------------------------------------------------------
+
+KAPPA_ATOL = 1e-3  # kappa after 3 EM iterations, card vs CPU (a float32 Newton solve's floor)
+HELDOUT_ATOL = 1e-5  # eval_heldout_torch (float32, card) vs eval_heldout (float64), nats
+
+
+def timed(torch, fn):
+    """(result, seconds) of ``fn()`` between two device synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def anchor_gap(torch, spectral, Q, anchors, step, a, b):
+    """On Q's device, replay the first ``step`` anchor choices and return
+    (score[a] - score[b]) / score[a] at that step."""
+    Q = Q.clone()
+    used = torch.zeros(Q.shape[0], dtype=Q.dtype, device=Q.device)
+    for j in range(step):
+        rss = spectral.anchor_rss(Q, used)
+        spectral.anchor_step(Q, used, torch.tensor(int(anchors[j]), device=Q.device), rss)
+    rss = spectral.anchor_rss(Q, used).double()
+    return float((rss[a] - rss[b]) / rss[a])
+
+
+def check_anchors(torch, spectral, fails, Q_card, Q_cpu, a_card, a_cpu):
+    """The card's anchor chain against the CPU's.  The chain is K discrete
+    choices (argmax of a float32 sum over Vp squares); the two devices sum
+    in another order, so near a tie they may part, after which every later
+    anchor differs.  Where they first part, each device's own scores of the
+    two candidates must lie within float32 rounding of a Vp-term sum
+    (Vp · 2^-24) of each other."""
+    K, Vp = len(a_card), Q_card.shape[0]
+    tol = Vp * 2.0 ** -24
+    same = int(np.argmin(a_card == a_cpu)) if (a_card != a_cpu).any() else K
+    if same == K:
+        fails.check(True, f"anchors: all {K} equal to the CPU's, in order")
+        return
+    gc = anchor_gap(torch, spectral, Q_card, a_card, same, int(a_card[same]), int(a_cpu[same]))
+    gh = anchor_gap(torch, spectral, Q_cpu, a_cpu, same, int(a_cpu[same]), int(a_card[same]))
+    fails.check(0 <= gc <= tol and 0 <= gh <= tol,
+                f"anchors: the first {same} of {K} equal to the CPU's; at step {same} the card "
+                f"takes row {a_card[same]}, the CPU row {a_cpu[same]}: relative gap between the "
+                f"two scores {gc:.3e} on the card, {gh:.3e} on the CPU (tol {tol:.1e}, float32 "
+                f"rounding of a {Vp}-term sum)")
+
+
+def run_fit(torch, stages, fails, model, n_iter, label, card):
+    """``n_iter`` EM iterations through ``expectation_maximization`` with
+    the launch counts of that run; bounds finite, B1-B3 launched."""
+    model.config = model.config.replace(max_em_iter=n_iter, convergence_threshold=0.0)
+    reset(stages)
+    model.expectation_maximization()
+    launches = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+    for it, (b, sec) in enumerate(zip(model.last_bounds, model.iter_seconds)):
+        print(f"  {label} EM {it}: bound {b:.6f}, {sec:.4f} s, {model.N / sec:.1f} docs/s "
+              f"[{card}]")
+    fails.check(len(model.last_bounds) == n_iter
+                and bool(np.all(np.isfinite(model.last_bounds)))
+                and all(v > 0 for v in launches.values()),
+                f"{label}: {len(model.last_bounds)} EM iterations, every bound finite; "
+                f"launches {launches}")
+    return launches
+
+
+def phase_spectral(torch, stages, fails, corpus, X, card):
+    """Phase 6: spectral init on the card, its anchors against the CPU's,
+    and the fit that ``STM`` runs with its default arguments."""
+    from strutopy_tpu_torch import STM
+    from strutopy_tpu_torch.ops import spectral
+
+    t_phase = time.time()
+    K, V = K_BENCH, V_BENCH
+    t0 = time.time()
+    wf, cf, keep, wprob, nc = spectral.filter_corpus(corpus, V, 5000)
+    Vp = len(keep)
+    t_host = time.time() - t0
+    Qs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        w, c = torch.as_tensor(wf, device=dev), torch.as_tensor(cf, device=dev)
+        (Q, _rows), secs[dev, "gram"] = timed(
+            torch, lambda: spectral._gram_scan(w, c, nc, Vp))
+        anchors, secs[dev, "anchors"] = timed(torch, lambda: spectral.fast_anchor(Q, K))
+        Qs[dev] = (Q, anchors.cpu().numpy())
+    Q, a_card = Qs["cuda"]
+    wp = torch.as_tensor(wprob[keep], dtype=torch.float32, device="cuda")
+    beta_p, t_rec = timed(torch, lambda: spectral.recover_l2(Q, torch.as_tensor(
+        a_card, device="cuda"), wp))
+    beta = spectral.expand_beta(beta_p.cpu().numpy(), keep, K, V)
+    print(f"phase 6: spectral init, N={corpus.N} V={V} Vp={Vp} K={K}: host filter "
+          f"{t_host:.3f} s; on the card Gram {secs['cuda', 'gram']:.3f} s, anchors "
+          f"{secs['cuda', 'anchors']:.3f} s, recovery {t_rec:.3f} s; on the CPU Gram "
+          f"{secs['cpu', 'gram']:.3f} s, anchors {secs['cpu', 'anchors']:.3f} s [{card}]")
+    fails.check(beta.shape == (K, V) and bool(np.isfinite(beta).all()) and bool((beta > 0).all())
+                and bool(np.allclose(beta.sum(1), 1, atol=1e-8)),
+                "spectral beta (K, V) finite, positive, rows on the simplex")
+    whole, t_whole = timed(torch, lambda: spectral.spectral_init(corpus, K, V, device="cuda"))
+    fails.check(bool(np.array_equal(whole, beta)),
+                f"spectral_init (the entry point, {t_whole:.3f} s) equals its three stages "
+                f"run one by one")
+    qd = float((Q.cpu() - Qs["cpu"][0]).abs().max() / Qs["cpu"][0].abs().max())
+    fails.check(qd <= 1e-5, f"Gram on the card vs the CPU: max |diff| / max |Q| {qd:.3e} "
+                            f"(tol 1e-5)")
+    check_anchors(torch, spectral, fails, Q, Qs["cpu"][0], a_card, Qs["cpu"][1])
+    del Qs, Q
+
+    t0 = time.time()
+    model = STM(corpus, K=K, X=X, device="cuda")
+    torch.cuda.synchronize()
+    cfg = model.config
+    print(f"  STM(docs, K={K}, X=X) built in {time.time() - t0:.1f} s: init_type "
+          f"{cfg.init_type}, pass-1 cap {cfg.newton_pass1_iters}, straggler fraction "
+          f"{cfg.newton_straggler_frac}, warm-up {cfg.newton_warmup_iters}")
+    fails.check(cfg.init_type == "spectral" and cfg.newton_pass1_iters == 6
+                and bool(np.allclose(model.beta, beta.astype(np.float32), rtol=1e-6)),
+                "the default STM starts from the spectral beta, two-pass schedule on")
+    launches = run_fit(torch, stages, fails, model, 3, "default fit", card)
+    print(f"phase 6 took {time.time() - t_phase:.1f} s [{card}]")
+    return launches
+
+
+def phase_content(torch, stages, fails, corpus, X, card, n_serve=2048):
+    """Phase 7: the content model at full width, its first bound against
+    the CPU at a reduced size, and its saved model served."""
+    import tempfile
+
+    from strutopy_tpu_torch import STM, STMConfig, ThetaServer
+    from strutopy_tpu_torch.ops import build, mstep
+
+    t_phase = time.time()
+    K, V, A = K_BENCH, V_BENCH, 2
+    bi = X.astype(np.int32)
+    t0 = time.time()
+    model = STM(corpus, K=K, X=X, content=True, beta_index=bi, init_type="random",
+                max_em_iter=3, device="cuda")
+    torch.cuda.synchronize()
+    P = model._kappa_design.shape[1]
+    print(f"phase 7: content fit A={A} K={K} V={V} N={corpus.N}, kappa design "
+          f"{model._kappa_design.shape}, {mstep._kappa_vchunk(V, P)} words a chunk; built in "
+          f"{time.time() - t0:.1f} s; {card}")
+    # the kappa solve's Newton counts (one entry a chunk of words a call)
+    # and the wall time of each content M-step
+    counts, secs = [], []
+    solve, update = mstep._poisson_newton_batch, mstep.update_beta_content
+
+    def counting(*a, **kw):
+        W, n_it = solve(*a, **kw)
+        counts.append(n_it)
+        return W, n_it
+
+    def timing(*a, **kw):
+        out, sec = timed(torch, lambda: update(*a, **kw))
+        secs.append(sec)
+        return out
+
+    mstep._poisson_newton_batch, mstep.update_beta_content = counting, timing
+    try:
+        launches = run_fit(torch, stages, fails, model, 3, "content fit", card)
+    finally:
+        mstep._poisson_newton_batch, mstep.update_beta_content = solve, update
+    per_it = np.asarray(counts).reshape(3, -1)
+    for it, (row, sec) in enumerate(zip(per_it, secs)):
+        print(f"  kappa solve EM {it} ({'cold' if it == 0 else 'warm'} start): Newton "
+              f"iterations a chunk {row.tolist()}, {int(row.sum())} in all; "
+              f"update_beta_content {sec:.4f} s [{card}]")
+    beta, kappa = model.beta, model.kappa
+    fails.check(beta.shape == (A, K, V) and bool(np.isfinite(beta).all())
+                and bool((beta >= 0).all()) and bool(np.allclose(beta.sum(-1), 1, atol=1e-4))
+                and kappa.shape == (P, V) and bool(np.isfinite(kappa).all())
+                and P == K + A and bool(np.abs(kappa).max() > 0),
+                f"beta {beta.shape} rows on the simplex, kappa {kappa.shape} finite, "
+                f"max |kappa| {np.abs(kappa).max():.3f}")
+
+    # the same kind of fit on the card and on the CPU, at a reduced size:
+    # with the default penalty (250, which holds kappa near 0) and with a
+    # weak one (1), under which the kappa solve iterates and shapes beta
+    k, v, n = 10, 2000, 512
+    docs_s, X_s = make_corpus(k, v, n, 100, seed=3)
+    for l2 in (250.0, 1.0):
+        cfg = STMConfig(K=k, content=True, A=A, lda_beta=False, init_type="random",
+                        max_em_iter=3, convergence_threshold=0.0, newton_bf16_hessian=False,
+                        batch_size=128, kappa_l2=l2)
+        bounds, kappas = {}, {}
+        for dev in ("cpu", "cuda"):
+            m = STM(docs_s, K=k, X=X_s, config=cfg, beta_index=X_s.astype(np.int32),
+                    init_beta=random_beta(k, v, seed=7), device=dev)
+            m.expectation_maximization()
+            bounds[dev], kappas[dev] = np.asarray(m.last_bounds), m.kappa
+        rel = np.abs(bounds["cuda"] - bounds["cpu"]) / np.abs(bounds["cpu"])
+        kd = float(np.abs(kappas["cuda"] - kappas["cpu"]).max())
+        kmax = float(np.abs(kappas["cpu"]).max())
+        print(f"  content fit K={k} V={v} N={n} kappa_l2={l2:g}: bounds cpu "
+              f"{bounds['cpu'].tolist()}, cuda {bounds['cuda'].tolist()}")
+        fails.check(bool(np.all(np.isfinite(bounds["cuda"]))) and float(rel.max()) <= FIT_RTOL
+                    and kd <= KAPPA_ATOL * max(1.0, kmax),
+                    f"content fit on the card vs the CPU, kappa_l2={l2:g}: bounds rel diff "
+                    f"{rel.tolist()} (tol {FIT_RTOL:.0e}); max |kappa - CPU's| {kd:.3e} of "
+                    f"max |kappa| {kmax:.3f} (tol {KAPPA_ATOL:.0e})")
+
+    docs_new, X_new = make_corpus(K, V, n_serve, WORDS_BENCH, seed=11)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as model_dir:
+        model.save_model(model_dir)
+        srv = ThetaServer(model_dir, device="cuda")
+        srv.warmup()
+        reset(stages)
+        (theta, _eta), sec = timed(
+            torch, lambda: srv.infer(docs_new, X=X_new, beta_index=X_new.astype(np.int32)))
+        served = {k_: stages.LAUNCHES[k_] for k_ in ("fgh", "cg", "ls")}
+        fails.check(srv.content and simplex_ok(theta, n_serve, K)
+                    and all(v_ > 0 for v_ in served.values()),
+                    f"content model served: {n_serve} documents in {sec:.3f} s, theta finite "
+                    f"on the simplex; launches {served}")
+        try:
+            srv.infer(docs_new[:4], X=X_new[:4])
+            refused = False
+        except ValueError as e:
+            refused = "beta_index" in str(e)
+        fails.check(refused, "a content model refuses a request without beta_index")
+    print(f"phase 7 took {time.time() - t_phase:.1f} s [{card}]")
+    return launches
+
+
+def phase_heldout(torch, stages, fails, docs, corpus, X, card):
+    """Phase 8: document-completion heldout likelihood of the bench corpus
+    (80/20 split, the one-fit protocol), the device variant against the
+    float64 anchor, and a resumed fit against the uninterrupted one."""
+    import tempfile
+
+    from strutopy_tpu_torch import STM, STMConfig
+    from strutopy_tpu_torch.corpus.bow import pad_corpus
+    from strutopy_tpu_torch.eval.heldout import cut_in_half, eval_heldout, eval_heldout_torch
+    from strutopy_tpu_torch.ops import build
+    from strutopy_tpu_torch.pipeline import train_and_eval_heldout
+
+    t_phase = time.time()
+    K = K_BENCH
+    n_train = int(0.8 * len(docs))
+    train, test = docs[:n_train], docs[n_train:]
+    reset(stages)
+    (ll, mb, _mt), sec = timed(torch, lambda: train_and_eval_heldout(
+        train, test, K=K, X=X, max_em_iter=3, fast=True, device="cuda"))
+    launches = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+    print(f"phase 8: train_and_eval_heldout(fast=True), {n_train} train + {len(test)} test "
+          f"documents, K={K}, spectral init, 3 EM iterations: heldout {ll:.6f} nats a token "
+          f"in {sec:.1f} s; bounds {mb.last_bounds}; launches {launches} [{card}]")
+    fails.check(bool(np.isfinite(ll)) and ll < 0 and all(v > 0 for v in launches.values()),
+                f"heldout likelihood finite and negative ({ll:.6f}), B1-B3 launched")
+    test_1, test_2 = cut_in_half(test)
+    theta, _ = mb.transform(test_1, X=X[n_train:])
+    c2 = pad_corpus(test_2, V=mb.V)
+    ll_card, sec_card = timed(torch, lambda: float(eval_heldout_torch(
+        c2.words, c2.counts, c2.doc_ok, theta, mb._state.beta, device="cuda")))
+    t0 = time.time()
+    ll_64 = eval_heldout(test_2, theta, mb.beta)
+    sec_64 = time.time() - t0
+    fails.check(abs(ll_card - ll_64) <= HELDOUT_ATOL and abs(ll - ll_64) <= HELDOUT_ATOL,
+                f"eval_heldout_torch on the card {ll_card:.7f} ({sec_card:.4f} s) vs float64 "
+                f"eval_heldout {ll_64:.7f} ({sec_64:.3f} s): diff {abs(ll_card - ll_64):.2e} "
+                f"(tol {HELDOUT_ATOL:.0e}); the pipeline's value differs by "
+                f"{abs(ll - ll_64):.2e}")
+
+    # resume.  beta_ss is an index_add_, which on the card adds with atomics
+    # in no fixed order unless PyTorch is asked for its deterministic form
+    cfg = STMConfig(K=K, init_type="random", batch_size=256, max_em_iter=4,
+                    convergence_threshold=0.0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+            ckpt = f"{d}/state.npz"
+            t0 = time.time()
+            full = STM(corpus, K=K, X=X, config=cfg, device="cuda").expectation_maximization()
+            STM(corpus, K=K, X=X, config=cfg.replace(max_em_iter=2),
+                device="cuda").expectation_maximization(checkpoint_path=ckpt)
+            rest = STM(corpus, K=K, X=X, config=cfg, device="cuda")
+            rest.expectation_maximization(checkpoint_path=ckpt, resume=True)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = (rest.last_bounds == full.last_bounds
+            and bool(torch.equal(rest._state.beta, full._state.beta))
+            and bool(torch.equal(rest._state.eta, full._state.eta)))
+    fails.check(same and len(rest.last_bounds) == 4,
+                f"a fit of 4 EM iterations checkpointed at 2 and resumed equals the "
+                f"uninterrupted fit: bounds, beta and eta bit for bit {same} "
+                f"(bounds {rest.last_bounds} vs {full.last_bounds}; three fits in {sec:.1f} s)")
+    print(f"phase 8 took {time.time() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1112,6 +1423,15 @@ def main() -> int:
     # ----- phase 5: serving -----
     launches.update(phase_serve(torch, stages, fails, model, card))
     phase_wiki(torch, stages, fails)
+
+    # ----- phases 6-8: the default fit, the content model, evaluation -----
+    paths = {"bench fit (phase 4)": {k: launches[k] for k in ("fgh", "cg", "ls")},
+             "default spectral fit (phase 6)": phase_spectral(torch, stages, fails, corpus, X,
+                                                              card),
+             "content fit (phase 7)": phase_content(torch, stages, fails, corpus, X, card),
+             "heldout fit (phase 8)": phase_heldout(torch, stages, fails, docs, corpus,
+                                                    X, card)}
+    print(f"launches of B1-B3 by path: {paths}")
 
     print(f"total {time.time() - t_start:.1f} s")
     if fails:

@@ -1,7 +1,6 @@
 """Corpus representation: ragged bag-of-words -> padded arrays.
 
-A numpy copy of ``strutopy_tpu/corpus/bow.py`` (the subset the fit
-uses).  The port keeps its own copy because importing any
+A numpy copy of ``strutopy_tpu/corpus/bow.py``.  The port keeps its own copy because importing any
 ``strutopy_tpu`` module imports jax, which the GPU machine does not
 have.
 
@@ -58,6 +57,11 @@ class PaddedCorpus:
         """Number of real (non-padding) documents."""
         return int(self.doc_ok.sum())
 
+    @property
+    def doc_lengths(self) -> np.ndarray:
+        """Total token count per document (float32 (N,))."""
+        return self.counts.sum(axis=1)
+
     def word_counts(self) -> np.ndarray:
         """Corpus-wide count of each term, float64 (V,)."""
         out = np.zeros(self.V, dtype=np.float64)
@@ -79,6 +83,26 @@ class PaddedCorpus:
         )
         doc_ok = np.concatenate([self.doc_ok, np.zeros(extra, bool)], axis=0)
         return PaddedCorpus(words=words, counts=counts, doc_ok=doc_ok, V=self.V)
+
+    def pad_terms_to(self, L: int) -> "PaddedCorpus":
+        """Pad the unique-term axis up to ``L``."""
+        if L < self.L:
+            raise ValueError(f"cannot shrink term axis from {self.L} to {L}")
+        if L == self.L:
+            return self
+        extra = L - self.L
+        words = np.pad(self.words, ((0, 0), (0, extra)))
+        counts = np.pad(self.counts, ((0, 0), (0, extra)))
+        return PaddedCorpus(words=words, counts=counts, doc_ok=self.doc_ok, V=self.V)
+
+    def take(self, idx) -> "PaddedCorpus":
+        idx = np.asarray(idx)
+        return PaddedCorpus(
+            words=self.words[idx],
+            counts=self.counts[idx],
+            doc_ok=self.doc_ok[idx],
+            V=self.V,
+        )
 
 
 def pad_corpus(
@@ -133,6 +157,78 @@ def pad_corpus(
     return PaddedCorpus(words=words, counts=counts, doc_ok=doc_ok, V=V)
 
 
+def to_bow(corpus: PaddedCorpus) -> list:
+    """Convert back to the list-of-tuples BoW format."""
+    out = []
+    for i in range(corpus.N):
+        mask = corpus.counts[i] > 0
+        out.append(
+            list(
+                zip(
+                    corpus.words[i, mask].tolist(),
+                    [int(c) if float(c).is_integer() else float(c)
+                     for c in corpus.counts[i, mask]],
+                )
+            )
+        )
+    return out
+
+
+def create_dtm(documents, V: int | None = None) -> np.ndarray:
+    """Dense float64 document-term matrix (D, V) from BoW or PaddedCorpus."""
+    if isinstance(documents, PaddedCorpus):
+        corpus = documents
+    else:
+        corpus = pad_corpus(documents, V=V)
+    V = corpus.V if V is None else max(V, corpus.V)
+    dtm = np.zeros((corpus.N, V), dtype=np.float64)
+    rows = np.repeat(np.arange(corpus.N), corpus.L)
+    np.add.at(
+        dtm, (rows, corpus.words.reshape(-1)), corpus.counts.reshape(-1).astype(np.float64)
+    )
+    return dtm
+
+
+def from_dtm(dtm) -> list:
+    """BoW documents from a document-term count matrix (the inverse of
+    :func:`create_dtm`).
+
+    Accepts a dense (D, V) array or a scipy sparse matrix; rows become
+    ``[(word_idx, count), ...]`` documents.  Entries are rounded to the
+    nearest integer first and kept only when the rounded count is
+    positive; negative entries raise, since a DTM is a count matrix.  An
+    all-zero row becomes an empty document.
+    """
+    if hasattr(dtm, "tocsr"):  # scipy sparse, no hard dependency
+        csr = dtm.tocsr()
+        if csr is dtm:  # tocsr() is a no-op on CSR input; don't mutate it
+            csr = csr.copy()
+        csr.sum_duplicates()  # one (word, count) per word per doc
+        if csr.nnz and csr.data.min() < 0:
+            raise ValueError("dtm has negative entries; counts must be >= 0")
+        docs = []
+        for d in range(csr.shape[0]):
+            lo, hi = csr.indptr[d], csr.indptr[d + 1]
+            docs.append(
+                [(int(w), c)
+                 for w, c in zip(csr.indices[lo:hi],
+                                 (int(round(v)) for v in csr.data[lo:hi]))
+                 if c > 0]
+            )
+        return docs
+    dtm = np.asarray(dtm)
+    if dtm.ndim != 2:
+        raise ValueError(f"dtm must be 2-D (D, V), got shape {dtm.shape}")
+    if dtm.size and dtm.min() < 0:
+        raise ValueError("dtm has negative entries; counts must be >= 0")
+    docs = []
+    for row in dtm:
+        counts = np.rint(row).astype(np.int64)
+        (nz,) = np.nonzero(counts > 0)
+        docs.append([(int(w), int(counts[w])) for w in nz])
+    return docs
+
+
 class Vocabulary:
     """Minimal vocabulary: id -> token mapping."""
 
@@ -151,6 +247,10 @@ class Vocabulary:
         if V is not None:
             n = max(n, V)
         return cls([str(i) for i in range(n)])
+
+    @classmethod
+    def from_tokens(cls, tokens: Sequence[str]) -> "Vocabulary":
+        return cls(tokens)
 
     def __len__(self) -> int:
         return len(self.tokens)

@@ -18,8 +18,8 @@ Differences, all explicit:
     are fields with their JAX defaults and raise when set to anything
     else — a configuration tuned for the TPU must not be silently
     reinterpreted;
-  * the content model (``content=True`` / ``lda_beta=False``) and
-    ``debug_checks`` are not ported yet and raise ``NotImplementedError``.
+  * ``debug_checks`` is not ported yet and raises
+    ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ class STMConfig:
     """Configuration of an STM/CTM fit (see the JAX twin for each field)."""
 
     K: int
-    # topical content (not ported: content=False, lda_beta=True only)
+    # topical content
     content: bool = False
     A: int = 1
     kappa_interactions: bool = False
@@ -67,7 +67,7 @@ class STMConfig:
     init_type: str = "spectral"  # "spectral" | "random"
     seed: int = 123456
     spectral_max_v: int = 5000
-    # content-model (kappa) Poisson regression; inert until it is ported
+    # content-model (kappa) Poisson regression
     kappa_l2: float = 250.0
     kappa_newton_iters: int = 40
     kappa_grad_tol: float = 1e-6
@@ -113,6 +113,8 @@ class STMConfig:
             raise ValueError(f"init_type must be spectral or random, got {self.init_type}")
         if not 0.0 <= self.sigma_prior <= 1.0:
             raise ValueError("sigma_prior must be in [0, 1]")
+        if self.content and self.A < 2:
+            raise ValueError("content=True requires A >= 2 aspects")
         if self.beta_smoothing < 0.0:
             raise ValueError("beta_smoothing must be >= 0")
         if self.nu_method not in ("chol", "ns", "blocked"):
@@ -144,11 +146,6 @@ class STMConfig:
                 "nu_method='ns' (Newton-Schulz inverse) is a TPU-only setting; "
                 "the PyTorch port computes nu from the Cholesky factor "
                 "(use 'chol' or 'blocked')"
-            )
-        if self.content or not self.lda_beta:
-            raise NotImplementedError(
-                "the content model (content=True or lda_beta=False) is not "
-                "ported yet: ROADMAP.md Queue A item 11"
             )
         if self.debug_checks:
             raise NotImplementedError(

@@ -1,7 +1,7 @@
 """One EM iteration (twin of ``strutopy_tpu/models/em.py``, one device).
 
 Sigma factorization, the bucketed E-step, the moment reduction and the
-prevalence / sigma / beta updates, as one function of ``(state, data)``.
+prevalence / sigma / beta (LDA or content model) updates, as one function of ``(state, data)``.
 
 Length bucketing: every per-document field of :class:`CorpusData` is a
 tuple with one entry per length bucket.  Buckets are contiguous row
@@ -29,6 +29,7 @@ class CorpusData:
 
     words: Tuple[torch.Tensor, ...]  # each (N_b, L_b) int32
     counts: Tuple[torch.Tensor, ...]  # each (N_b, L_b) float32
+    aspects: Tuple[torch.Tensor, ...]  # each (N_b,) int32
     doc_ok: Tuple[torch.Tensor, ...]  # each (N_b,) bool
     D: Tuple[torch.Tensor, ...]  # each (N_b, P); zero rows for padding
 
@@ -83,7 +84,8 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
 
     lo = 0
     for b in range(data.n_buckets):
-        words_b, counts_b, ok_b = data.words[b], data.counts[b], data.doc_ok[b]
+        words_b, counts_b = data.words[b], data.counts[b]
+        aspects_b, ok_b = data.aspects[b], data.doc_ok[b]
         n_b = words_b.shape[0]
         hi = lo + n_b
         B_b = (bucket_batches[b] if bucket_batches is not None
@@ -94,10 +96,12 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
         if cfg.sort_by_difficulty and n_b > B_b:
             perm = torch.argsort(state.opt_iters[lo:hi], stable=True)
             mu_b, eta_b = mu_b[perm], eta_b[perm]
-            words_b, counts_b, ok_b = words_b[perm], counts_b[perm], ok_b[perm]
+            words_b, counts_b = words_b[perm], counts_b[perm]
+            aspects_b, ok_b = aspects_b[perm], ok_b[perm]
 
         res = run_estep(
-            state.beta, mu_b, eta_b, siginv, sigmaentropy, words_b, counts_b, ok_b,
+            state.beta, mu_b, eta_b, siginv, sigmaentropy, words_b, counts_b,
+            aspects_b, ok_b,
             cfg=ncfg, batch_size=B_b, pass1_iters=cfg.newton_pass1_iters,
             straggler_frac=cfg.newton_straggler_frac, use_pallas=cfg.use_pallas,
         )
@@ -124,7 +128,7 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
 
 
 def em_iteration(state: STMState, data: CorpusData, design: mstep.PrevalenceDesign,
-                 cfg: STMConfig,
+                 kappa_design, wcounts, cfg: STMConfig,
                  bucket_batches: Optional[Tuple[int, ...]] = None) -> STMState:
     """One full EM iteration on one device (the JAX ``psum`` is the identity)."""
     stats, eta, theta, newton_iters = local_estep_stats(state, data, cfg, bucket_batches)
@@ -140,19 +144,32 @@ def em_iteration(state: STMState, data: CorpusData, design: mstep.PrevalenceDesi
     ])
     resid = mstep.residual_moment(eta, mu)
     sigma = mstep.update_sigma(resid, stats.sigma_ss, design.n_docs, cfg.sigma_prior)
-    beta = mstep.update_beta_lda(stats.beta_ss, cfg.beta_smoothing)
+    if cfg.lda_beta:
+        beta = mstep.update_beta_lda(stats.beta_ss, cfg.beta_smoothing)
+        kappa = state.kappa
+    else:
+        # warm start from the previous EM iteration's kappa (zeros, the
+        # cold start, at iteration 0)
+        beta, kappa = mstep.update_beta_content(
+            stats.beta_ss, wcounts, kappa_design, alpha=cfg.kappa_l2,
+            iters=cfg.kappa_newton_iters, kappa0=state.kappa,
+            tol=cfg.kappa_grad_tol, ftol_rel=cfg.kappa_ftol_rel,
+        )
     return STMState(
         beta=beta, mu=mu, sigma=sigma, eta=eta, theta=theta, gamma=gamma,
-        kappa=state.kappa, bound=stats.bound, opt_iters=newton_iters,
+        kappa=kappa, bound=stats.bound, opt_iters=newton_iters,
         straggler_overflow=stats.straggler_overflow,
     )
 
 
-def make_em_step(cfg: STMConfig, design: mstep.PrevalenceDesign,
-                 bucket_batches: Optional[Tuple[int, ...]] = None):
-    """The single-device EM step: state, data -> state."""
+def make_em_step(cfg: STMConfig, design: mstep.PrevalenceDesign, kappa_design,
+                 wcounts, bucket_batches: Optional[Tuple[int, ...]] = None):
+    """The single-device EM step: state, data -> state.  ``kappa_design``
+    and ``wcounts`` (tensors on the state's device, or None) are read by
+    the content-model beta update only."""
 
     def em_step(state: STMState, data: CorpusData) -> STMState:
-        return em_iteration(state, data, design, cfg, bucket_batches=bucket_batches)
+        return em_iteration(state, data, design, kappa_design, wcounts, cfg,
+                            bucket_batches=bucket_batches)
 
     return em_step

@@ -39,11 +39,11 @@ from strutopy_tpu_torch.ops import build
 from strutopy_tpu_torch.ops.mstep import encode_new_covariates
 
 
-def _refuse_content(beta) -> None:
-    if beta.ndim == 3:
-        raise NotImplementedError(
-            "this is a content-covariate model (per-aspect beta); the content "
-            "model is not ported yet: ROADMAP.md Queue A item 11"
+def _require_beta_index(beta, beta_index) -> None:
+    if beta.ndim == 3 and beta_index is None:
+        raise ValueError(
+            "this is a content-covariate model (per-aspect beta); pass "
+            "beta_index for the new documents"
         )
 
 
@@ -57,9 +57,9 @@ def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
     every document its full Newton budget: with the two-pass schedule it
     admits every unconverged document to pass 2 (straggler fraction 1);
     ``False`` keeps the training configuration's capped budget.
-    ``aspects_user`` is read only by the content model (not ported).
+    ``aspects_user`` (N,) gives each document its aspect level under a
+    content model's (A, K, V) beta; zeros when absent.
     """
-    _refuse_content(beta)
     dev = torch.device(device)
     V = beta.shape[-1]
     K = beta.shape[-2]
@@ -87,12 +87,17 @@ def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
         np.concatenate(gather_per_bucket(np.asarray(mu_user, np.float32), plan), axis=0),
         device=dev)
 
+    if aspects_user is None:
+        aspects_user = np.zeros(N_new, np.int32)
+    aspect_buckets = gather_per_bucket(np.asarray(aspects_user, np.int32), plan)
+
     def zeros(*shape, dt=torch.float32):
         return torch.zeros(shape, dtype=dt, device=dev)
 
     data = CorpusData(
         words=tuple(torch.as_tensor(b.words, device=dev) for b in buckets),
         counts=tuple(torch.as_tensor(b.counts, device=dev) for b in buckets),
+        aspects=tuple(torch.as_tensor(a, device=dev) for a in aspect_buckets),
         doc_ok=tuple(torch.as_tensor(b.doc_ok, device=dev) for b in buckets),
         D=tuple(zeros(b.N, 1) for b in buckets),
     )
@@ -225,10 +230,9 @@ def _n_docs(documents) -> int:
 def infer_from_artifacts(model_dir: str, documents, X=None, beta_index=None, *,
                          device="cuda"):
     """Load the artifacts and configuration and infer (theta, eta) for new
-    documents.  ``beta_index`` is read only by the content model (not
-    ported)."""
+    documents.  A content model needs ``beta_index``, their aspects."""
     beta, sigma, gamma, eta_mean, cfg, train = _load_params(model_dir)
-    _refuse_content(beta)
+    _require_beta_index(beta, beta_index)
     mu_user = _prior_means(gamma, eta_mean, cfg, beta.shape[-2], _n_docs(documents), X,
                            train=train)
     return infer_theta(beta, sigma, mu_user, documents, cfg, aspects_user=beta_index,
@@ -250,11 +254,11 @@ class ThetaServer:
 
     def __init__(self, model_dir: str, *, device="cuda"):
         beta, sigma, gamma, eta_mean, cfg, train = _load_params(model_dir)
-        _refuse_content(beta)
         self.device = torch.device(device)
         self.cfg = cfg
         self.K = beta.shape[-2]
         self.V = beta.shape[-1]
+        self.content = beta.ndim == 3
         self._gamma = gamma
         self._eta_mean = eta_mean
         self._train = train
@@ -271,6 +275,7 @@ class ThetaServer:
         """(theta, eta) for new documents, in document order.
         ``full_convergence=False`` keeps the training schedule's capped
         Newton budget (see :func:`infer_theta`)."""
+        _require_beta_index(self._beta, beta_index)
         mu_user = _prior_means(self._gamma, self._eta_mean, self.cfg, self.K,
                                _n_docs(documents), X, train=self._train)
         return infer_theta(self._beta, self._sigma, mu_user, documents, self.cfg,
@@ -304,4 +309,5 @@ class ThetaServer:
                 X = None if P <= 1 else np.zeros((n_docs, P - 1))
             else:
                 X = np.zeros((n_docs, P))
-        self.infer(docs, X=X)
+        aspects = np.zeros(n_docs, np.int32) if self.content else None
+        self.infer(docs, X=X, beta_index=aspects)

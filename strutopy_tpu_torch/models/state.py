@@ -7,6 +7,7 @@ dataclass of tensors that each EM iteration replaces whole.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,10 +18,11 @@ class STMState:
     """Global and per-document variational state of an STM fit.
 
     Shapes (K topics, V vocabulary, N documents incl. padding, P design
-    columns):
-      beta (K, V); mu, eta (N, K-1); sigma (K-1, K-1); theta (N, K);
-      gamma (K-1, P) (zeros for CTM); kappa (0, V) (content model, not
-      ported); bound () ELBO of the last E-step; opt_iters (N,) int32
+    columns, A aspects):
+      beta (K, V), or (A, K, V) for a content model; mu, eta (N, K-1);
+      sigma (K-1, K-1); theta (N, K); gamma (K-1, P) (zeros for CTM);
+      kappa (P_kappa, V) content-model coefficients (0 rows with the LDA
+      beta update); bound () ELBO of the last E-step; opt_iters (N,) int32
       Newton iterations per document in the last E-step (drives
       difficulty-sorted chunking); straggler_overflow () int32.
     """
@@ -38,12 +40,23 @@ class STMState:
 
 
 def init_state(K: int, V: int, N: int, P: int, beta_init: np.ndarray,
-               device, dtype=torch.float32) -> STMState:
-    """Initial state from a (K, V) beta: sigma = 20 I, mu = eta = 0,
-    theta uniform (reference STM.__init__)."""
+               device, A: int = 1, content: bool = False,
+               kappa_p: Optional[int] = None, dtype=torch.float32) -> STMState:
+    """Initial state from a (K, V) beta (broadcast to (A, K, V) for a
+    content model): sigma = 20 I, mu = eta = 0, theta uniform, kappa
+    zeros of ``kappa_p`` rows (the kappa design's width; 0 with the LDA
+    beta update)."""
     beta = torch.as_tensor(np.asarray(beta_init), device=device).to(dtype)
-    if beta.shape != (K, V):
-        raise ValueError(f"beta_init has shape {tuple(beta.shape)}, expected {(K, V)}")
+    if beta.ndim == 3 and not content:
+        beta = beta[0]
+    if content and beta.ndim == 2:
+        beta = beta[None].expand(A, K, V).contiguous()
+    want = (A, K, V) if content else (K, V)
+    if beta.shape != want:
+        raise ValueError(f"beta_init has shape {tuple(beta.shape)}, expected {want}")
+    if kappa_p is None:
+        # the width of build_kappa_design with interactions
+        kappa_p = K + A + A * K if content else 0
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -55,7 +68,7 @@ def init_state(K: int, V: int, N: int, P: int, beta_init: np.ndarray,
         eta=zeros(N, K - 1),
         theta=torch.full((N, K), 1.0 / K, dtype=dtype, device=device),
         gamma=zeros(K - 1, P),
-        kappa=zeros(0, V),
+        kappa=zeros(kappa_p, V),
         bound=torch.tensor(float("-inf"), dtype=dtype, device=device),
         opt_iters=zeros(N, dt=torch.int32),
         straggler_overflow=zeros(dt=torch.int32),

@@ -3,9 +3,12 @@
 Same construction, fitting, inference (``transform``) and artifact
 (``save_model``) surface as the JAX ``STM``, on one device: the card
 (``device="cuda"``, the default) unless the caller asks for the CPU
-(``device="cpu"``); nothing is detected.
-Not ported yet: spectral init (ROADMAP.md Queue A item 10), the content
-model (item 11), meshes and streaming (items 12 and 14), checkpoints.
+(``device="cpu"``); nothing is detected.  Spectral or random
+initialization, the LDA beta or the content model (per-aspect beta from
+the kappa regression), resumable checkpoints.
+Not ported yet: meshes and streaming (``mesh=``, ``stream_parts=``;
+ROADMAP.md Queue A items 12 and 14) and the post-fit analysis methods
+(``eval/diagnostics.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from strutopy_tpu_torch.models.config import STMConfig
 from strutopy_tpu_torch.models.em import CorpusData, make_em_step
 from strutopy_tpu_torch.models.state import init_state
 from strutopy_tpu_torch.ops import mstep
+from strutopy_tpu_torch.ops.spectral import spectral_init
+from strutopy_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -37,13 +42,16 @@ logger = logging.getLogger(__name__)
 class STM:
     """Structural Topic Model on PyTorch::
 
-        model = STM(documents, dictionary, K=10, X=meta, max_em_iter=25,
-                    init_type="random", model_type="STM", mode="ols",
+        model = STM(documents, dictionary, content=False, K=10, X=meta,
+                    kappa_interactions=False, max_em_iter=25,
+                    init_type="spectral", model_type="STM", mode="ols",
                     device="cuda")
-        model.expectation_maximization()
+        model.expectation_maximization(saving=True, output_dir=...)
 
     ``documents`` is a BoW list of ``[(word_id, count), ...]`` or a
-    :class:`PaddedCorpus`.  ``init_beta`` injects an explicit (K, V)
+    :class:`PaddedCorpus`.  ``content=True`` fits the content model:
+    ``beta_index`` gives every document its aspect level in ``[0, A)``.
+    ``init_beta`` injects an explicit (K, V)
     initialization.  Advanced knobs live on :class:`STMConfig`
     (``config=``), which then overrides the keyword arguments.
     """
@@ -55,9 +63,13 @@ class STM:
         content: bool = False,
         K: int = 10,
         X=None,
+        kappa_interactions: bool = False,
         max_em_iter: int = 100,
         sigma_prior: float = 0.0,
         convergence_threshold: float = 1e-5,
+        lda_beta: bool = True,
+        beta_index=None,
+        A: Optional[int] = None,
         init_type: str = "spectral",
         model_type: str = "STM",
         mode: str = "ols",
@@ -79,6 +91,9 @@ class STM:
             config = STMConfig(
                 K=K,
                 content=content,
+                A=A if A is not None else (2 if content else 1),
+                kappa_interactions=kappa_interactions,
+                lda_beta=lda_beta and not content,
                 model_type=model_type,
                 mode=mode,
                 max_em_iter=max_em_iter,
@@ -113,6 +128,7 @@ class STM:
             raise ValueError("corpus contains no non-empty documents; nothing to fit")
         self.N = corpus.n_docs
         self.K = config.K
+        self.A = config.A
 
         # ----- length buckets -----
         plan = make_bucket_plan(
@@ -136,12 +152,45 @@ class STM:
                 )
             X_storage = np.concatenate(
                 gather_per_bucket(Xa.astype(np.float64), plan), axis=0)
+        aspects_user = np.zeros(corpus.N, np.int32)
+        if config.content:
+            if beta_index is None:
+                raise ValueError("content=True requires beta_index (per-doc aspect)")
+            bi = np.asarray(beta_index).astype(np.int32).ravel()
+            # a short array would zero-fill and an out-of-range aspect
+            # would index past beta: both must fail here
+            if len(bi) != corpus.N:
+                raise ValueError(
+                    f"beta_index has {len(bi)} entries but the corpus "
+                    f"has {corpus.N} documents"
+                )
+            if bi.size and (bi.min() < 0 or bi.max() >= config.A):
+                raise ValueError(
+                    f"beta_index values must lie in [0, A={config.A}); "
+                    f"got range [{bi.min()}, {bi.max()}]"
+                )
+            aspects_user[:] = bi
+        self.betaindex = aspects_user
+
         doc_ok_storage = np.concatenate([b.doc_ok for b in buckets])
-        D_np, self._design = mstep.make_prevalence_design(
+        self._D_np, self._design = mstep.make_prevalence_design(
             X_storage, doc_ok_storage, fit_intercept=config.fit_intercept,
             ridge_alpha=config.ridge_alpha, device=self.device,
         )
-        D_buckets = np.split(D_np, np.cumsum([b.N for b in buckets])[:-1], axis=0)
+        D_buckets = np.split(self._D_np, np.cumsum([b.N for b in buckets])[:-1], axis=0)
+        aspect_buckets = gather_per_bucket(aspects_user, plan)
+
+        # the content model needs the covariate design; lda_beta=False
+        # without content covariates is the A=1 SAGE topic model
+        self._kappa_design = (
+            mstep.build_kappa_design(
+                config.K, config.A,
+                config.kappa_interactions if config.content else False,
+            )
+            if (config.content or not config.lda_beta)
+            else None
+        )
+        self._wcounts = corpus.word_counts()
 
         # ----- init -----
         if init_beta is not None:
@@ -157,33 +206,45 @@ class STM:
                 raise ValueError("init_beta has an all-zero topic row")
             beta_init = beta_init / row
         elif config.init_type == "spectral":
-            raise NotImplementedError(
-                "init_type='spectral' is not ported yet (ROADMAP.md Queue A "
-                "item 10); pass init_type='random' or init_beta="
+            beta_init = spectral_init(
+                corpus, config.K, self.V, maxV=config.spectral_max_v,
+                device=self.device,
             )
         else:
             # normalized Gamma(0.1, 1) rows from the numpy RNG, exactly as
             # the JAX package draws them
-            g = np.random.RandomState(config.seed).gamma(0.1, 1.0, (config.K, self.V))
-            beta_init = g / np.maximum(g.sum(axis=1, keepdims=True), 1e-300)
+            beta_init = self._random_beta(config.seed)
 
-        self._state = init_state(
-            K=config.K, V=self.V, N=plan.n_storage, P=D_np.shape[1],
-            beta_init=beta_init, device=self.device,
-        )
         dev = self.device
+        self._state = init_state(
+            K=config.K, V=self.V, N=plan.n_storage, P=self._D_np.shape[1],
+            beta_init=beta_init, device=dev, A=config.A, content=config.content,
+            # kappa keeps the actual design width across EM iterations
+            kappa_p=(self._kappa_design.shape[1]
+                     if (self._kappa_design is not None and not config.lda_beta)
+                     else 0),
+        )
         self._data = CorpusData(
             words=tuple(torch.as_tensor(b.words, device=dev) for b in buckets),
             counts=tuple(torch.as_tensor(b.counts, device=dev) for b in buckets),
+            aspects=tuple(torch.as_tensor(a, device=dev) for a in aspect_buckets),
             doc_ok=tuple(torch.as_tensor(b.doc_ok, device=dev) for b in buckets),
             D=tuple(torch.as_tensor(d, device=dev) for d in D_buckets),
         )
-        self._em_step = make_em_step(config, self._design, plan.batch_sizes)
+        kd_dev = wc_dev = None
+        if not config.lda_beta:
+            kd_dev = torch.as_tensor(self._kappa_design, dtype=torch.float32, device=dev)
+            wc_dev = torch.as_tensor(self._wcounts, dtype=torch.float32, device=dev)
+
+        def build_step(c):
+            return make_em_step(c, self._design, kd_dev, wc_dev,
+                                bucket_batches=plan.batch_sizes)
+
+        self._em_step = build_step(config)
         # cold iterations (poor warm starts leave most documents
         # unconverged at the pass-1 cap) run the single-pass schedule
         self._em_step_cold = (
-            make_em_step(config.replace(newton_pass1_iters=0), self._design,
-                         plan.batch_sizes)
+            build_step(config.replace(newton_pass1_iters=0))
             if config.newton_pass1_iters > 0 and config.newton_warmup_iters > 0
             else None
         )
@@ -199,17 +260,67 @@ class STM:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def expectation_maximization(self):
+    def _random_beta(self, seed: int) -> np.ndarray:
+        """Normalized Gamma(0.1, 1) rows from the numpy RNG, exactly as
+        the JAX package draws them."""
+        g = np.random.RandomState(seed).gamma(0.1, 1.0, (self.config.K, self.V))
+        return g / np.maximum(g.sum(axis=1, keepdims=True), 1e-300)
+
+    def reinitialize(self, seed: int) -> "STM":
+        """Re-draw the random initial state under a new seed, keeping the
+        corpus, the designs and the EM step (multi-restart protocols).
+        Only meaningful for ``init_type='random'``: spectral init is
+        deterministic, so restarts would all coincide."""
+        cfg = self.config
+        if cfg.init_type != "random":
+            raise ValueError(
+                "reinitialize requires init_type='random': spectral "
+                "init is deterministic, so re-seeded restarts would "
+                "all produce the same model"
+            )
+        self._state = init_state(
+            K=cfg.K, V=self.V, N=self._state.mu.shape[0], P=self._D_np.shape[1],
+            beta_init=self._random_beta(seed), device=self.device, A=cfg.A,
+            content=cfg.content, kappa_p=self._state.kappa.shape[0],
+        )
+        self.last_bounds = []
+        self.iter_seconds = []
+        self.nonfinite_bound_iters = []
+        self.time_processed = None
+        self.docs_per_sec = None
+        self._overflow_warned = False
+        return self
+
+    def expectation_maximization(
+        self,
+        saving: bool = False,
+        output_dir=None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 5,
+        resume: bool = False,
+        start_iter: int = 0,
+    ):
         """Run EM until convergence or ``config.max_em_iter``.
 
         Each iteration's wall time (ending in a device synchronize) is
         kept in ``iter_seconds``; a non-finite bound is recorded in
         ``nonfinite_bound_iters`` and warned about once.
+
+        ``checkpoint_path`` writes a resumable checkpoint every
+        ``checkpoint_every`` iterations and at the end; ``resume=True``
+        continues from it when it exists.  ``start_iter`` continues a
+        partial fit in place (the state and ``last_bounds`` carry over):
+        iterations run from ``start_iter`` to ``config.max_em_iter``.
+        ``saving`` writes the artifact set to ``output_dir`` at the end.
         """
         cfg = self.config
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            self._state, self.last_bounds, start_iter, _ = load_checkpoint(
+                checkpoint_path, device=self.device)
+            logger.info("resumed from %s at EM iteration %d", checkpoint_path, start_iter)
         self._sync()
         t0 = time.time()
-        for it in range(cfg.max_em_iter):
+        for it in range(start_iter, cfg.max_em_iter):
             it_t0 = time.time()
             step = (
                 self._em_step_cold
@@ -246,6 +357,9 @@ class STM:
             self.docs_per_sec = self.N / max(it_dt, 1e-9)
             logger.info("EM iteration %d: bound %.4f (%.3fs, %.0f docs/s)",
                         it, bound, it_dt, self.docs_per_sec)
+            if checkpoint_path and (it + 1) % checkpoint_every == 0:
+                save_checkpoint(checkpoint_path, self._state, self.last_bounds,
+                                it + 1, cfg.to_json())
             if it >= 1:
                 old = self.last_bounds[-2]
                 rel = abs((bound - old) / abs(old)) if old != 0 else np.inf
@@ -256,6 +370,15 @@ class STM:
                     break
         if self.time_processed is None:
             self.time_processed = time.time() - t0
+            logger.info("max EM iterations (%d) reached after %.2fs",
+                        cfg.max_em_iter, self.time_processed)
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path, self._state, self.last_bounds,
+                            len(self.last_bounds), cfg.to_json())
+        if saving:
+            if output_dir is None:
+                raise ValueError("saving=True needs output_dir")
+            self.save_model(output_dir)
         return self
 
     fit = expectation_maximization
@@ -290,8 +413,16 @@ class STM:
         return np.ascontiguousarray(self._state.gamma.cpu().numpy())
 
     @property
+    def kappa(self) -> np.ndarray:
+        return np.ascontiguousarray(self._state.kappa.cpu().numpy())
+
+    @property
     def bound(self) -> float:
         return float(self._state.bound)
+
+    @property
+    def wcounts(self) -> np.ndarray:
+        return self._wcounts
 
     @property
     def straggler_overflow(self) -> int:
@@ -310,7 +441,7 @@ class STM:
         a CTM or a fit without covariates, the mean fitted eta).  Without
         an STM instance, see
         :func:`strutopy_tpu_torch.models.serving.infer_from_artifacts`.
-        ``beta_index`` is read only by the content model (not ported).
+        A content model needs ``beta_index``, the new documents' aspects.
         """
         from strutopy_tpu_torch.models.serving import infer_theta
 
@@ -345,8 +476,13 @@ class STM:
                     "encoding used at training"
                 )
             mu_user = D_new @ np.asarray(self.gamma, np.float64).T
+        aspects_user = None
+        if cfg.content:
+            if beta_index is None:
+                raise ValueError("content model requires beta_index for new docs")
+            aspects_user = np.asarray(beta_index, np.int32).ravel()
         return infer_theta(self._state.beta, self._state.sigma, mu_user.astype(np.float32),
-                           documents, cfg, device=self.device)
+                           documents, cfg, aspects_user=aspects_user, device=self.device)
 
     # ------------------------------------------------------------------
     # persistence (the JAX package's save_model artifact set)
@@ -367,6 +503,8 @@ class STM:
             np.save(os.path.join(output_dir, "X"), self.X)
         if self.config.model_type == "STM":
             np.save(os.path.join(output_dir, "gamma_hat"), self.gamma)
+        if self.config.content:
+            np.save(os.path.join(output_dir, "kappa_hat"), self.kappa)
         with open(os.path.join(output_dir, "lower_bound.pickle"), "wb") as f:
             pickle.dump(self.last_bounds, f)
         # non-finite bounds propagate into the artifact set

@@ -20,7 +20,7 @@ then finalize at the converged eta: float32 Hessian, PD-repair Cholesky,
 ``nu = H⁻¹``, the per-document ELBO and the token-topic statistics phi,
 accumulated as
 
-    sigma_ss += nu        beta_ss[:, w_d] += phi_d      bound += bound_d
+    sigma_ss += nu        beta_ss[(a_d,) :, w_d] += phi_d      bound += bound_d
 
 Documents go through in chunks of ``batch_size``.  Plain functions on
 tensors: everything runs on the device of its inputs.
@@ -54,7 +54,7 @@ class NewtonConfig(NamedTuple):
 
 
 class EStepResult(NamedTuple):
-    beta_ss: torch.Tensor  # (K, V)
+    beta_ss: torch.Tensor  # (K, V) or (A, K, V)
     sigma_ss: torch.Tensor  # (K-1, K-1)
     bound: torch.Tensor  # scalar
     eta: torch.Tensor  # (N, K-1)
@@ -189,19 +189,35 @@ def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd):
 # ---------------------------------------------------------------------------
 
 
-def _gather_beta(beta, words):
-    """beta (K, V), words (B, L) -> per-document slices (B, K, L)."""
-    K = beta.shape[0]
+def _gather_beta(beta, words, aspects=None):
+    """Per-document topic-word slices (B, K, L) from beta (K, V), or from
+    a content model's beta (A, K, V) and the documents' aspect levels
+    ``aspects`` (B,): one gather either way, so the (B, K, V) block of
+    ``beta[aspects]`` is never formed."""
     B, L = words.shape
-    cols = torch.index_select(beta, 1, words.reshape(-1).long())
-    return cols.reshape(K, B, L).permute(1, 0, 2).contiguous()
+    if beta.ndim == 2:
+        K = beta.shape[0]
+        cols = torch.index_select(beta, 1, words.reshape(-1).long())
+        return cols.reshape(K, B, L).permute(1, 0, 2).contiguous()
+    k = torch.arange(beta.shape[1], device=beta.device)
+    return beta[aspects.long()[:, None, None], k[None, :, None], words.long()[:, None, :]]
 
 
-def _scatter_phi(beta_ss, phi, words):
-    """beta_ss[:, words] += phi for a whole chunk (in place).  Padding
-    slots carry phi = 0 (zero counts), so they add nothing."""
+def _scatter_phi(beta_ss, phi, words, aspects=None):
+    """beta_ss[(aspect,) :, words] += phi for a whole chunk (in place).
+    Padding slots carry phi = 0 (zero counts), so they add nothing.  The
+    aspect case adds into the (K, A·V) layout at column ``aspect·V +
+    word``, as the JAX package does."""
     B, K, L = phi.shape
-    beta_ss.index_add_(1, words.reshape(-1).long(), phi.permute(1, 0, 2).reshape(K, B * L))
+    phi_flat = phi.permute(1, 0, 2).reshape(K, B * L)
+    if beta_ss.ndim == 2:
+        beta_ss.index_add_(1, words.reshape(-1).long(), phi_flat)
+        return beta_ss
+    A, _, V = beta_ss.shape
+    flat = beta_ss.permute(1, 0, 2).reshape(K, A * V)
+    idx = (aspects.long()[:, None] * V + words.long()).reshape(B * L)
+    flat.index_add_(1, idx, phi_flat)
+    beta_ss.copy_(flat.reshape(K, A, V).permute(1, 0, 2))
     return beta_ss
 
 
@@ -209,34 +225,35 @@ def _chunks(n: int, B: int):
     return [slice(i, i + B) for i in range(0, n, B)]
 
 
-def _finalize_all(beta, eta, mu, siginv, sigmaentropy, words, counts, doc_ok, B):
+def _finalize_all(beta, eta, mu, siginv, sigmaentropy, words, counts, aspects,
+                  doc_ok, B):
     """Finalize every document in storage order, chunk by chunk."""
-    K = beta.shape[0]
+    K = beta.shape[-2]
     beta_ss = torch.zeros_like(beta)
     sigma_ss = torch.zeros(K - 1, K - 1, dtype=beta.dtype, device=beta.device)
     bound = torch.zeros((), dtype=beta.dtype, device=beta.device)
     thetas = []
     for sl in _chunks(words.shape[0], B):
         w, c = words[sl], counts[sl]
-        bd = _gather_beta(beta, w)
+        bd = _gather_beta(beta, w, aspects[sl])
         theta, nu, bound_d, phi = _finalize_chunk(
             eta[sl], bd, c, mu[sl], doc_ok[sl].to(beta.dtype), siginv,
             sigmaentropy, torch.sum(c, dim=1))
-        _scatter_phi(beta_ss, phi, w)
+        _scatter_phi(beta_ss, phi, w, aspects[sl])
         sigma_ss = sigma_ss + torch.sum(nu, dim=0)
         bound = bound + torch.sum(bound_d)
         thetas.append(theta)
     return beta_ss, sigma_ss, bound, torch.cat(thetas)
 
 
-def _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B, done0=None,
+def _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B, done0=None,
                 use_pallas: bool = False):
     """Newton over every chunk: (eta, n_iters, done) for all documents;
     with ``use_pallas`` the whole-loop kernel reports no flags (done is
     None), as ``pallas_newton_impl`` does."""
     etas, iters, dones = [], [], []
     for sl in _chunks(words.shape[0], B):
-        bd = _gather_beta(beta, words[sl])
+        bd = _gather_beta(beta, words[sl], aspects[sl])
         if use_pallas:
             eta, it = _newton_loop(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
         else:
@@ -249,8 +266,8 @@ def _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B, done0=None,
     return torch.cat(etas), torch.cat(iters), torch.cat(dones) if dones else None
 
 
-def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
-                    cfg: NewtonConfig, B: int, pass1_iters: int,
+def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
+                    doc_ok, cfg: NewtonConfig, B: int, pass1_iters: int,
                     straggler_frac: float) -> EStepResult:
     """Two-pass difficulty schedule (twin of ``_two_pass_estep``).
 
@@ -266,7 +283,8 @@ def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
     """
     N = words.shape[0]
     cfg1 = cfg._replace(max_iters=min(pass1_iters, cfg.max_iters))
-    eta, iters, done = _newton_all(beta, mu, eta0, siginv, words, counts, cfg1, B)
+    eta, iters, done = _newton_all(beta, mu, eta0, siginv, words, counts, aspects,
+                                    cfg1, B)
 
     rest = cfg.max_iters - cfg1.max_iters
     M = min(max(-(-int(straggler_frac * N) // B) * B, B), N)
@@ -279,27 +297,29 @@ def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
         selected[idx] = True
         overflow = torch.sum(~done & ~selected & doc_ok).to(torch.int32)
         eta2, it2, _ = _newton_all(
-            beta, mu[idx], eta[idx], siginv, words[idx], counts[idx],
+            beta, mu[idx], eta[idx], siginv, words[idx], counts[idx], aspects[idx],
             cfg._replace(max_iters=rest), B, done0=done[idx])
         eta[idx] = eta2  # eta and iters are fresh tensors (torch.cat)
         iters[idx] += it2
 
     beta_ss, sigma_ss, bound, theta = _finalize_all(
-        beta, eta, mu, siginv, sigmaentropy, words, counts, doc_ok, B)
+        beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, doc_ok, B)
     return EStepResult(beta_ss, sigma_ss, bound, eta, theta, iters, overflow)
 
 
-def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
+def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok,
               cfg: NewtonConfig = NewtonConfig(), batch_size: int = 1024,
               pass1_iters: int = 0, straggler_frac: float = 0.3,
               use_pallas: bool = False) -> EStepResult:
     """E-step over a corpus (twin of ``strutopy_tpu/ops/estep.py::run_estep``).
 
     Args:
-      beta: (K, V) topic-word distributions.
+      beta: (K, V) topic-word distributions, or (A, K, V) for a content
+        model.
       mu: (N, K-1) prior means; eta0: (N, K-1) warm starts.
       siginv, sigmaentropy: from :func:`~strutopy_tpu_torch.ops.linalg.precompute_sigma`.
       words/counts: (N, L) padded corpus arrays (int32 / float32).
+      aspects: (N,) int32 content-covariate levels (zeros if unused).
       doc_ok: (N,) bool mask; False rows are padding documents.
       batch_size: documents per chunk; N must be a multiple.
       pass1_iters: > 0 enables the two-pass schedule.
@@ -317,10 +337,10 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, doc_ok,
         )
     if pass1_iters:
         return _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts,
-                               doc_ok, cfg, B, pass1_iters, straggler_frac)
-    eta, iters, _ = _newton_all(beta, mu, eta0, siginv, words, counts, cfg, B,
+                               aspects, doc_ok, cfg, B, pass1_iters, straggler_frac)
+    eta, iters, _ = _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B,
                                 use_pallas=use_pallas)
     beta_ss, sigma_ss, bound, theta = _finalize_all(
-        beta, eta, mu, siginv, sigmaentropy, words, counts, doc_ok, B)
+        beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, doc_ok, B)
     overflow = torch.zeros((), dtype=torch.int32, device=words.device)
     return EStepResult(beta_ss, sigma_ss, bound, eta, theta, iters, overflow)

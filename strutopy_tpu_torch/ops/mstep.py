@@ -1,6 +1,7 @@
 """M-step: global parameter updates from the E-step's sufficient
-statistics (twin of ``strutopy_tpu/ops/mstep.py:37-348``, LDA-beta path),
-and the serving-time covariate encoder.
+statistics (twin of ``strutopy_tpu/ops/mstep.py``): the prevalence
+regression, sigma, the LDA beta and the content model's kappa, and the
+serving-time covariate encoder.
 
 Every update works on small dense moments (Dᵀeta, DᵀD, the residual
 moment, beta_ss, sigma_ss), so the M-step is a handful of (K|P)-sized
@@ -274,3 +275,189 @@ def update_beta_lda(beta_ss, smoothing: float = 0.0):
         beta_ss = beta_ss + smoothing
     row_sums = torch.sum(beta_ss, dim=-1, keepdim=True)
     return torch.where(row_sums > 0, beta_ss / torch.clamp_min(row_sums, 1e-30), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# content model: kappa (twin of strutopy_tpu/ops/mstep.py:351-625)
+# ---------------------------------------------------------------------------
+
+
+def build_kappa_design(K: int, A: int, interactions: bool) -> np.ndarray:
+    """Dense covariate design for the content model, ((A*K), P).
+
+    Rows are (aspect a, topic k) in a-major order, matching the stacked
+    per-aspect beta_ss.  Columns: K topic indicators, A aspect
+    indicators, and A*K interaction indicators when requested.
+    """
+    if A == 1:
+        return np.eye(K)
+    rows = A * K
+    a_idx = np.repeat(np.arange(A), K)
+    k_idx = np.tile(np.arange(K), A)
+    P = K + A + (A * K if interactions else 0)
+    X = np.zeros((rows, P))
+    X[np.arange(rows), k_idx] = 1.0
+    X[np.arange(rows), K + a_idx] = 1.0
+    if interactions:
+        X[np.arange(rows), K + A + np.arange(rows)] = 1.0
+    return X
+
+
+def _poisson_newton_batch(Y, m, Xd, offset, alpha, n, iters, W0,
+                          tol=1e-6, lp_clip=30.0, ftol_rel=0.0):
+    """Batched damped Newton for a chunk of penalized Poisson regressions.
+
+    One word's sklearn PoissonRegressor objective (fit_intercept=False):
+      (1/n) sum_r [exp(z_r) - y_r z_r] + (alpha/2)||w||²,
+      z = m_v + offset + X w.
+    All Vc words of the chunk solve together:
+      * gradient: one (P, R) @ (R, Vc) matmul;
+      * Hessians: one (Vc, R) @ (R, P·P) matmul against the row outer
+        products of the design, formed once per call — (R, Vc, P, P) is
+        never materialized;
+      * solves: batched Cholesky (H is SPD by construction: + alpha·I);
+      * line search: 6 halving steps evaluated for every word at once.
+    The loop ends when every word is done (one host read an iteration) or
+    after ``iters`` steps.  A done word never moves, so the result does
+    not depend on which other words share its chunk.  Warm-started solves
+    (W0 from the previous EM iteration) typically finish in a few steps;
+    words whose warm start already meets ``tol`` skip the body.
+
+    Y (R, Vc); m (Vc,); Xd (R, P); offset (R,); W0 (P, Vc).
+    Returns (W (P, Vc), number of Newton iterations run, an int).
+    """
+    R, P = Xd.shape
+    dtype, dev = Xd.dtype, Xd.device
+    eyeP = alpha * torch.eye(P, dtype=dtype, device=dev)
+    base = m[None, :] + offset[:, None]  # (R, Vc)
+    ts = torch.tensor([1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125], dtype=dtype, device=dev)
+    XX = (Xd[:, :, None] * Xd[:, None, :]).reshape(R, P * P)
+
+    def obj(W):
+        Z = torch.clamp(base + Xd @ W, -lp_clip, lp_clip)
+        return (torch.sum(torch.exp(Z) - Y * Z, dim=0) / n
+                + 0.5 * alpha * torch.sum(W * W, dim=0))  # (Vc,)
+
+    # words whose warm start already meets tol never enter the body
+    Z0 = torch.clamp(base + Xd @ W0, -lp_clip, lp_clip)
+    G0 = Xd.T @ ((torch.exp(Z0) - Y) / n) + alpha * W0
+    done = torch.amax(torch.abs(G0), dim=0) < tol
+    W, F = W0, obj(W0)
+    n_it = 0
+    while n_it < iters and not bool(torch.all(done)):
+        Z = torch.clamp(base + Xd @ W, -lp_clip, lp_clip)
+        lam = torch.exp(Z)  # (R, Vc)
+        G = Xd.T @ ((lam - Y) / n) + alpha * W  # (P, Vc)
+        H = (lam.T @ XX).reshape(-1, P, P) / n + eyeP[None]  # (Vc, P, P)
+        L, _info = torch.linalg.cholesky_ex(H)
+        D = -torch.cholesky_solve(G.T[:, :, None], L)[:, :, 0].T  # (P, Vc)
+
+        # halving line search, all (step, word) pairs at once; the
+        # candidate objectives are evaluated on W + t*D directly, so an
+        # accepted step agrees with the next iteration's fresh evaluation
+        Ws = W[None] + ts[:, None, None] * D[None]  # (T, P, Vc)
+        Zs = torch.clamp(base[None] + torch.matmul(Xd, Ws), -lp_clip, lp_clip)  # (T, R, Vc)
+        Fs = (torch.sum(torch.exp(Zs) - Y[None] * Zs, dim=1) / n
+              + 0.5 * alpha * torch.sum(Ws * Ws, dim=1))  # (T, Vc)
+        # ties go to the first (largest) step, as jnp.argmin
+        f_new, best = torch.min(Fs, dim=0)
+        t_best = ts[best]
+        improved = f_new < F
+        gnorm = torch.amax(torch.abs(G), dim=0)  # (Vc,)
+        step = improved & ~done
+        W = torch.where(step[None, :], W + t_best[None, :] * D, W)
+        F = torch.where(step, f_new, F)
+        # a word is done when its gradient meets tol, or when no halving
+        # step improves it (the float32 floor of a convex objective).
+        # ftol_rel is read as the JAX package reads it: against the
+        # objective AFTER the step is taken, so a word that moved has
+        # rel_impr = 0 and any ftol_rel > 0 freezes it after that one
+        # step (ROADMAP.md Queue C); 0 leaves the exit to the two tests
+        # above
+        rel_impr = (F - f_new) / torch.clamp_min(torch.abs(F), 1e-30)
+        done = done | (gnorm < tol) | ~improved | (rel_impr < ftol_rel)
+        n_it += 1
+    return W, n_it
+
+
+def _poisson_newton_word(y, m_v, Xd, offset, alpha, n, iters,
+                         w0=None, tol=1e-7, lp_clip=30.0):
+    """Single-word wrapper over :func:`_poisson_newton_batch` (tests)."""
+    if w0 is None:
+        w0 = torch.zeros(Xd.shape[1], dtype=Xd.dtype, device=Xd.device)
+    W, _ = _poisson_newton_batch(
+        y[:, None], m_v.reshape(1), Xd, offset, alpha, n, iters,
+        w0[:, None], tol=tol, lp_clip=lp_clip,
+    )
+    return W[:, 0]
+
+
+def _kappa_vchunk(V: int, P: int, budget_floats: int = 16_000_000) -> int:
+    """Words per chunk: the largest power of two whose (Vc, P, P)
+    Hessian workspace stays within ``budget_floats``, at least 128.
+    Each word freezes on its own, so the chunk size changes no word's
+    result, only the workspace and how many words ride along to the
+    chunk's slowest one."""
+    c = max(128, budget_floats // max(P * P, 1))
+    c = 1 << (c.bit_length() - 1)  # round down to a power of two
+    return min(V, c)
+
+
+def update_beta_content(
+    beta_ss,  # (A, K, V) or (K, V)
+    wcounts,  # (V,) corpus-wide word counts
+    kappa_design,  # ((A*K), P) from build_kappa_design
+    alpha: float = 250.0,
+    iters: int = 40,
+    kappa0=None,  # (P, V) warm start (the previous EM iteration's kappa)
+    tol: float = 1e-6,
+    ftol_rel: float = 0.0,
+):
+    """Content model: V parallel Poisson regressions -> (beta, kappa).
+
+    Counts ((A*K), V) = stacked beta_ss; fixed intercept m = log relative
+    word frequency; offset = log row totals; one penalized Poisson
+    regression per word; predictions row-softmaxed into beta.  The V fits
+    run as word-chunked batched damped Newton
+    (:func:`_poisson_newton_batch`), warm-started from ``kappa0``.
+
+    Words are sorted by corpus frequency before chunking (a stable sort):
+    a chunk runs to its slowest word's count, and solve difficulty tracks
+    word frequency, so rare words exit together.  The permutation only
+    relabels independent solves.
+    """
+    dtype, dev = beta_ss.dtype, beta_ss.device
+    counts = beta_ss.reshape(-1, beta_ss.shape[-1]) if beta_ss.ndim == 3 else beta_ss
+    R, V = counts.shape
+    n = float(R)
+
+    wcounts = torch.as_tensor(wcounts, device=dev).to(dtype)
+    m = (torch.log(torch.clamp_min(wcounts, 1e-10))
+         - torch.log(torch.clamp_min(torch.sum(wcounts), 1e-10)))
+    offset = torch.log(torch.clamp_min(torch.sum(counts, dim=1), 1e-10))  # ((A*K),)
+    Xd = torch.as_tensor(kappa_design, device=dev).to(dtype)
+    P = Xd.shape[1]
+    if kappa0 is None:
+        kappa0 = torch.zeros(P, V, dtype=dtype, device=dev)
+
+    order = torch.argsort(wcounts[:V], stable=True)
+    inv_order = torch.argsort(order, stable=True)
+    m_user = m  # unsorted: the final linear predictor is in user order
+    counts = counts[:, order]
+    m = m[order]
+    kappa0 = kappa0[:, order]
+
+    Vc = _kappa_vchunk(V, P)
+    Ws = []
+    for lo in range(0, V, Vc):
+        W, _n_it = _poisson_newton_batch(
+            counts[:, lo:lo + Vc], m[lo:lo + Vc], Xd, offset, alpha, n, iters,
+            kappa0[:, lo:lo + Vc], tol=tol, ftol_rel=ftol_rel)
+        Ws.append(W)
+    kappa = torch.cat(Ws, dim=1)[:, inv_order]
+
+    linpred = m_user[None, :V] + Xd @ kappa  # ((A*K), V)
+    beta = torch.softmax(linpred, dim=1)
+    if beta_ss.ndim == 3:
+        beta = beta.reshape(beta_ss.shape)
+    return beta, kappa

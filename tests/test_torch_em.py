@@ -95,11 +95,12 @@ def test_em_iterations_match_jax(model_type, pass1_iters):
     data = em.CorpusData(
         words=tuple(torch.tensor(b.words) for b in bk),
         counts=tuple(torch.tensor(b.counts) for b in bk),
+        aspects=tuple(torch.zeros(b.N, dtype=torch.int32) for b in bk),
         doc_ok=tuple(torch.tensor(b.doc_ok) for b in bk),
         D=tuple(torch.tensor(d) for d in np.split(D1, splits)))
     state = state_from_numpy({f: np.asarray(getattr(jstate, f)) for f in jstate._fields},
                              "cpu")
-    step = em.make_em_step(cfg, d1, plan.batch_sizes)
+    step = em.make_em_step(cfg, d1, None, None, plan.batch_sizes)
 
     for _ in range(3):
         jstate = jstep(jstate, jdata)
@@ -176,8 +177,8 @@ def test_config_rejects_tpu_only_knobs(field):
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(nu_method="ns"), ValueError),
-    (dict(content=True, A=2), NotImplementedError),
-    (dict(lda_beta=False), NotImplementedError),
+    (dict(content=True, A=1), ValueError),  # a content model has >= 2 aspects
+    (dict(init_type="anchor"), ValueError),
     (dict(debug_checks=True), NotImplementedError),
 ])
 def test_config_rejects_what_is_not_ported(kw, exc):
@@ -198,9 +199,17 @@ def test_config_reads_the_jax_json():
 
 
 def test_spectral_init_is_refused_not_replaced():
+    """init_type="spectral" runs the spectral initialization: the initial
+    beta is ``spectral_init``'s, not the random draw's."""
+    from strutopy_tpu_torch.ops.spectral import spectral_init
+
     docs, _ = _docs(N=8)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        STM(docs, K=3, init_type="spectral", device="cpu")
+    V = 1 + max(w for d in docs for w, _ in d)
+    m = STM(docs, K=3, init_type="spectral", device="cpu")
+    np.testing.assert_allclose(
+        m.beta, spectral_init(docs, 3, V, device="cpu").astype(np.float32), rtol=1e-6)
+    r = STM(docs, K=3, init_type="random", device="cpu")
+    assert np.abs(m.beta - r.beta).max() > 1e-3
 
 
 def test_import_loads_no_jax():

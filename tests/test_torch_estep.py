@@ -44,7 +44,8 @@ def _run_both(x, bf16, batch_size=16, pass1_iters=0, straggler_frac=0.3):
     si2, se2 = precompute_sigma(T(x["sigma"]))
     got = estep.run_estep(
         T(x["beta"]), T(x["mu"]), T(x["eta0"]), si2, se2, T(x["words"]), T(x["counts"]),
-        T(x["doc_ok"]), cfg=estep.NewtonConfig(bf16_hessian=bf16),
+        torch.zeros(N, dtype=torch.int32), T(x["doc_ok"]),
+        cfg=estep.NewtonConfig(bf16_hessian=bf16),
         batch_size=batch_size, pass1_iters=pass1_iters, straggler_frac=straggler_frac)
     return got, want
 
@@ -138,7 +139,8 @@ def test_two_pass_reproduces_single_pass():
     T = torch.tensor
     si, se = precompute_sigma(T(x["sigma"]))
     args = (T(x["beta"]), T(x["mu"]), T(x["eta0"]), si, se, T(x["words"]),
-            T(x["counts"]), T(x["doc_ok"]))
+            T(x["counts"]), torch.zeros(len(x["words"]), dtype=torch.int32),
+            T(x["doc_ok"]))
     cfg = estep.NewtonConfig()
     one = estep.run_estep(*args, cfg=cfg, batch_size=16)
     two = estep.run_estep(*args, cfg=cfg, batch_size=16, pass1_iters=2,

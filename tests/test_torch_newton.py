@@ -188,7 +188,8 @@ def _run_both(x, jcfg, tcfg, batch_size=16, **kw):
     si2, se2 = precompute_sigma(T(x["sigma"]))
     kw.pop("pallas_block", None)
     got = estep.run_estep(T(x["beta"]), T(x["mu"]), T(x["eta0"]), si2, se2, T(x["words"]),
-                          T(x["counts"]), T(x["doc_ok"]), cfg=tcfg, batch_size=batch_size,
+                          T(x["counts"]), torch.zeros(N, dtype=torch.int32),
+                          T(x["doc_ok"]), cfg=tcfg, batch_size=batch_size,
                           **kw)
     return got, want
 
@@ -252,7 +253,8 @@ def test_fused_iteration_path_equals_the_stage_path_on_cpu():
     same plain step: the E-steps agree bit for bit."""
     x = {k: torch.tensor(v) for k, v in _corpus(seed=17, N=32).items()}
     si, se = precompute_sigma(x["sigma"])
-    args = (x["beta"], x["mu"], x["eta0"], si, se, x["words"], x["counts"], x["doc_ok"])
+    args = (x["beta"], x["mu"], x["eta0"], si, se, x["words"], x["counts"],
+            torch.zeros(32, dtype=torch.int32), x["doc_ok"])
     a = estep.run_estep(*args, cfg=estep.NewtonConfig(), batch_size=16, pass1_iters=2)
     b = estep.run_estep(*args, cfg=estep.NewtonConfig(pallas_iter=True), batch_size=16,
                         pass1_iters=2)
@@ -269,7 +271,8 @@ def test_whole_loop_refuses_the_two_pass_schedule():
     si, se = precompute_sigma(x["sigma"])
     with pytest.raises(ValueError, match="incompatible with use_pallas"):
         estep.run_estep(x["beta"], x["mu"], x["eta0"], si, se, x["words"], x["counts"],
-                        x["doc_ok"], pass1_iters=2, use_pallas=True)
+                        torch.zeros(16, dtype=torch.int32), x["doc_ok"],
+                        pass1_iters=2, use_pallas=True)
 
 
 @pytest.mark.parametrize("flag", ["use_pallas", "pallas_iter"])

@@ -216,8 +216,10 @@ def test_serving_refuses_what_is_not_ported(tmp_path, wiki_request):
         srv.infer(bad, X=np.zeros(1))
     np.save(tmp_path / "beta_hat.npy", np.full((2, K, V), 1.0 / V, np.float32))
     np.save(tmp_path / "sigma_hat.npy", np.eye(K - 1, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        ThetaServer(str(tmp_path), device="cpu")
+    # a content model (per-aspect beta) serves only with beta_index
+    content = ThetaServer(str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="pass beta_index"):
+        content.infer([[(3, 1)]])
 
 
 def test_artifact_loader_refuses_pickled_objects(tmp_path):
@@ -238,9 +240,14 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu():
     choice the caller makes (as every CPU test here does)."""
     import inspect
 
+    from strutopy_tpu_torch.eval.heldout import eval_heldout_torch
     from strutopy_tpu_torch.models.serving import infer_theta
+    from strutopy_tpu_torch.ops.spectral import spectral_init
+    from strutopy_tpu_torch.pipeline import train_and_eval_heldout
+    from strutopy_tpu_torch.utils.checkpoint import load_checkpoint
 
-    for fn in (STM, ThetaServer, infer_theta, infer_from_artifacts):
+    for fn in (STM, ThetaServer, infer_theta, infer_from_artifacts, spectral_init,
+               train_and_eval_heldout, eval_heldout_torch, load_checkpoint):
         param = inspect.signature(fn).parameters["device"]
         assert param.kind is inspect.Parameter.KEYWORD_ONLY, fn
         assert param.default == "cuda", fn

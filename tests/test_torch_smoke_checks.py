@@ -409,3 +409,43 @@ def test_gather_check_fails_a_gather_that_drops_the_last_row():
     wrong = want.clone()
     wrong[-1, -1] = 0.0
     assert not torch.equal(wrong, want)
+
+
+def _anchor_verdict(Q_card, Q_cpu, a_card, a_cpu):
+    from strutopy_tpu_torch.ops import spectral
+
+    fails = cs.Failures()
+    cs.check_anchors(torch, spectral, fails, Q_card, Q_cpu, np.asarray(a_card),
+                     np.asarray(a_cpu))
+    return not fails
+
+
+def test_anchor_check_admits_a_tie_and_refuses_a_wrong_choice():
+    """Phase 6's anchor check: equal chains pass; chains that part where
+    the two candidates' scores tie pass; a chain that takes a row whose
+    score is clearly lower fails, on whichever device it ran."""
+    from strutopy_tpu_torch.ops import spectral
+
+    rng = np.random.default_rng(3)
+    Vp, K = 60, 6
+    Q = torch.tensor(rng.dirichlet(np.ones(Vp), size=Vp), dtype=torch.float32)
+    chain = spectral.fast_anchor(Q, K).numpy()
+    assert _anchor_verdict(Q, Q, chain, chain)
+
+    first = int(chain[0])
+    twin = (first + 7) % Vp
+    tied = Q.clone()
+    tied[:, twin] = tied[:, first]  # two columns with the same score, exactly
+    a = spectral.fast_anchor(tied, K).numpy()
+    assert a[0] == min(first, twin)
+    b = a.copy()
+    b[0] = max(first, twin)
+    assert _anchor_verdict(tied, tied, a, b)
+
+    rss = spectral.anchor_rss(Q, torch.zeros(Vp))
+    low = int(torch.argsort(rss)[Vp // 2])
+    assert cs.anchor_gap(torch, spectral, Q, chain, 0, first, low) > Vp * 2.0 ** -24
+    wrong = chain.copy()
+    wrong[0] = low
+    assert not _anchor_verdict(Q, Q, chain, wrong)
+    assert not _anchor_verdict(Q, Q, wrong, chain)
