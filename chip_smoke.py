@@ -59,7 +59,36 @@ end, without the final result line):
   8. heldout and resume: ``train_and_eval_heldout(fast=True)`` on an
      80/20 split of the bench corpus, ``eval_heldout_torch`` on the card
      against the float64 ``eval_heldout``; a fit of 4 iterations
-     checkpointed at 2 and resumed against the uninterrupted fit.
+     checkpointed at 2 and resumed against the uninterrupted fit;
+  9. out-of-core fits at full width: (a) ``STM(docs, K=100, X=X,
+     stream_parts=4)`` against phase 6's in-memory default fit (bounds,
+     beta, both straggler overflows, B1-B3 launches of each; held to the
+     tolerance on the cold iterations: the two-pass iteration's straggler
+     budget is a share of one part there and of the corpus here; on that
+     iteration the bound must rise and the overflow stay within the
+     in-memory fit's plus one chunk), a two-pass pair with and without
+     ``stream_parts=4`` whose budget of half the rows neither fit
+     overflows, held likewise, and from that pair's in-memory state one
+     single-pass and one two-pass EM iteration streamed against in memory
+     (bound within 1e-5, beta within 1e-5, eta within 1e-4: over several
+     iterations two fits part as two runs of one fit do); (b)
+     ``StreamedEM`` driven directly with prefetch on against off (results
+     equal bit for bit under deterministic ``index_add_``; wall and peak
+     device memory of each beside the bytes of one part); (c) the bench
+     corpus's padded arrays tiled 16 times on the host (N=131,072, 16
+     parts of 8,192 from a ``provider(p)``), 2 EM iterations: bound
+     finite, peak device memory against the resident state plus three
+     parts, documents per second; (d) one streamed iteration on each
+     fused Newton path from the stage path's state; (e) an A=2 content
+     model with ``stream_parts=2`` against phase 7's in-memory bounds;
+ 10. post-fit analysis of phase 6's model: ``simulate_theta`` on the card
+     (B1 in its float32 mode, one launch a chunk of 512 documents)
+     against the same call on the CPU for the first 1,024 documents, B1
+     against its plain version on that path's first chunk, timed beside
+     its bound and the chunk's other steps,
+     ``estimate_effect_composition``, ``label_topics``, ``topic_quality``,
+     ``check_residuals``, ``topic_corr``, ``to_ldavis``, ``summary``; a fit
+     with ``debug_checks=True``, and ``validate_state`` on a damaged state.
 
 The last three lines of standard output are the card line, one JSON
 object of per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -221,17 +250,25 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def hessian_ops(K, L):
+    """Operations of one document's B·Bᵀ: H is symmetric, so the function
+    needs its (K-1)K/2 upper-triangle entries, a dot product of length L
+    (2L operations) each."""
+    return 2 * ((K - 1) * K // 2) * L
+
+
 def stage_bounds(inputs, aux):
     """Each stage kernel's least time at phase 2's inputs: its inputs read
-    once, its outputs written once; fgh's product B·Bᵀ in bf16 (2(K-1)²L a
-    document) and its s, phi and operand in float32 (~6KL); cg's matvecs
+    once, its outputs written once; fgh's product B·Bᵀ in bf16 (H is
+    symmetric: its (K-1)K/2 entries, 2L operations each, a document) and
+    its s, phi and operand in float32 (~6KL); cg's matvecs
     (2(K-1)² a step); the sweep's T mixtures (2TKL) and prior terms
     (2T(K-1)²) in float32."""
     eta, bd, c, mu, siginv = inputs
     B, K, L = bd.shape
     Km1, T, it = K - 1, aux["ts"].shape[0], aux["iters"]
     out = {"fgh": roofline(nbytes(eta, bd, c, mu, siginv) + 4 * B * (1 + Km1 + Km1 * Km1),
-                           {"bf16": 2 * B * Km1 * Km1 * L, "f32": 6 * B * K * L}),
+                           {"bf16": B * hessian_ops(K, L), "f32": 6 * B * K * L}),
            "cg": roofline(nbytes(aux["H"], aux["g"]) + 4 * B * Km1,
                           {"f32": 2 * B * it * Km1 * Km1}),
            "ls": roofline(nbytes(eta, aux["p"], aux["ts"], bd, c, mu, siginv) + 4 * B * T,
@@ -243,7 +280,7 @@ def step_ops(B, K, L, T, cg_iters, fgh_only=0):
     """Operations of B full Newton steps (f/g/H, CG, sweep) and of
     ``fgh_only`` f/g/H evaluations that end a converged document's loop."""
     Km1 = K - 1
-    return {"bf16": 2 * (B + fgh_only) * Km1 * Km1 * L,
+    return {"bf16": (B + fgh_only) * hessian_ops(K, L),
             "f32": (B + fgh_only) * 6 * K * L
             + B * (2 * cg_iters * Km1 * Km1 + 2 * T * (K * L + Km1 * Km1))}
 
@@ -1105,16 +1142,42 @@ def check_anchors(torch, spectral, fails, Q_card, Q_cpu, a_card, a_cpu):
                 f"rounding of a {Vp}-term sum)")
 
 
+GC_EVENTS = []  # (start, seconds, generation) of each run of Python's cyclic collector
+
+
+def watch_collector():
+    """Record every run of Python's cyclic garbage collector: a full one
+    walks the corpus (a list of lists of tuples) and lands inside whatever
+    iteration happens to trigger it."""
+    import gc
+
+    began = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            began.append(time.time())
+        elif began:
+            t = began.pop()
+            GC_EVENTS.append((t, time.time() - t, info["generation"]))
+
+    gc.callbacks.append(on_gc)
+
+
 def run_fit(torch, stages, fails, model, n_iter, label, card):
     """``n_iter`` EM iterations through ``expectation_maximization`` with
     the launch counts of that run; bounds finite, B1-B3 launched."""
     model.config = model.config.replace(max_em_iter=n_iter, convergence_threshold=0.0)
     reset(stages)
+    t0 = time.time()
     model.expectation_maximization()
     launches = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
     for it, (b, sec) in enumerate(zip(model.last_bounds, model.iter_seconds)):
         print(f"  {label} EM {it}: bound {b:.6f}, {sec:.4f} s, {model.N / sec:.1f} docs/s "
               f"[{card}]")
+    slow = [(round(t - t0, 3), round(d, 3), g) for t, d, g in GC_EVENTS if t >= t0 and d > 0.01]
+    if slow:
+        print(f"  {label}: the host's garbage collector ran for more than 10 ms at "
+              f"(s into the fit, s, generation) {slow}")
     fails.check(len(model.last_bounds) == n_iter
                 and bool(np.all(np.isfinite(model.last_bounds)))
                 and all(v > 0 for v in launches.values()),
@@ -1176,7 +1239,7 @@ def phase_spectral(torch, stages, fails, corpus, X, card):
                 "the default STM starts from the spectral beta, two-pass schedule on")
     launches = run_fit(torch, stages, fails, model, 3, "default fit", card)
     print(f"phase 6 took {time.time() - t_phase:.1f} s [{card}]")
-    return launches
+    return launches, model
 
 
 def phase_content(torch, stages, fails, corpus, X, card, n_serve=2048):
@@ -1277,7 +1340,7 @@ def phase_content(torch, stages, fails, corpus, X, card, n_serve=2048):
             refused = "beta_index" in str(e)
         fails.check(refused, "a content model refuses a request without beta_index")
     print(f"phase 7 took {time.time() - t_phase:.1f} s [{card}]")
-    return launches
+    return launches, list(model.last_bounds)
 
 
 def phase_heldout(torch, stages, fails, docs, corpus, X, card):
@@ -1348,6 +1411,420 @@ def phase_heldout(torch, stages, fails, docs, corpus, X, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 9, 10: out-of-core fits and post-fit analysis
+# ---------------------------------------------------------------------------
+
+STREAM_RTOL = 2e-4  # streamed vs in-memory bounds (float32 summation order, per-part sort)
+STREAM_BETA_ATOL = 2e-4
+TWO_PASS_FRAC = 0.5  # a straggler budget that neither the corpus nor a part overflows
+# one streamed EM iteration vs one in-memory iteration from the same state
+STEP_RTOL = 1e-5  # the bound: float32 sums over the documents in another order
+STEP_BETA_ATOL = 1e-5
+STEP_ETA_ATOL = 1e-4  # per document the same arithmetic; nothing amplifies within one step
+SIM_ETA_ATOL = 5e-3  # simulate_theta's eta draws, card vs CPU
+
+
+def tensor_bytes(*objs):
+    """Bytes of the distinct tensors among the fields of the given states
+    (dataclasses); a tensor that several states share counts once."""
+    import dataclasses
+
+    seen = {}
+    for o in objs:
+        for f in dataclasses.fields(o):
+            t = getattr(o, f.name)
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def run_streamed(torch, sem, shared, parts, n_iter):
+    """``n_iter`` iterations of ``sem`` -> (shared, parts, bounds, seconds
+    per iteration, peak device bytes above what was allocated before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bounds, secs = [], []
+    for _ in range(n_iter):
+        (shared, parts), sec = timed(torch, lambda: sem.em_iteration(shared, parts))
+        bounds.append(float(shared.bound))
+        secs.append(sec)
+    return shared, parts, bounds, secs, torch.cuda.max_memory_allocated() - base
+
+
+def phase_streaming(torch, stages, fails, corpus, X, card, default_model, default_launches,
+                    content_bounds):
+    """Phase 9: the out-of-core fit on the card (see the module docstring)."""
+    import dataclasses
+
+    from strutopy_tpu_torch import STM, STMConfig, StreamedEM
+    from strutopy_tpu_torch.corpus.bucketing import make_bucket_plan, split_corpus_by_plan
+    from strutopy_tpu_torch.models.em import CorpusData, local_estep_stats
+    from strutopy_tpu_torch.models.state import init_state
+    from strutopy_tpu_torch.ops import mstep
+    from strutopy_tpu_torch.utils.precision import float32_matmul
+
+    t_phase = time.time()
+    K, V = K_BENCH, V_BENCH
+
+    # (a) STM(stream_parts=4) with default arguments against phase 6's fit
+    t0 = time.time()
+    ms = STM(corpus, K=K, X=X, stream_parts=4, device="cuda")
+    torch.cuda.synchronize()
+    print(f"phase 9a: STM(docs, K={K}, X=X, stream_parts=4) built in {time.time() - t0:.1f} s "
+          f"(plan: one bucket of {ms._plan.n_storage} rows, L={ms._plan.Ls}); _data is "
+          f"{ms._data}")
+    launches = run_fit(torch, stages, fails, ms, 3, "streamed default fit", card)
+
+    def gap(streamed, in_memory):
+        b_s, b_m = np.asarray(streamed.last_bounds), np.asarray(in_memory.last_bounds)
+        return (np.abs(b_s - b_m) / np.abs(b_m),
+                float(np.abs(streamed.beta - in_memory.beta).max()),
+                streamed.straggler_overflow, in_memory.straggler_overflow)
+
+    # A streamed and an in-memory fit sum the same per-document results in
+    # another order, and a cold Newton solve turns that rounding into other
+    # step choices for a few documents: over three iterations two fits part
+    # by as much as two runs of one fit do (their last bounds by up to 2e-4
+    # with no straggler budget in play).  So each pair of fits is held to the
+    # tolerance on its cold iterations, its last iteration is printed, and
+    # the streamed step itself is held to a far tighter tolerance below,
+    # from one and the same state.  The default fit's third iteration is
+    # two-pass, its straggler budget a share of one part there and of the
+    # corpus here: the documents beyond it are other documents.
+    cold = ms.config.newton_warmup_iters
+    rel, dbeta, ov_s, ov_m = gap(ms, default_model)
+    fails.check(ms._data is None and float(rel[:cold].max()) <= STREAM_RTOL,
+                f"streamed default fit vs the in-memory one (phase 6): bounds rel diff "
+                f"{rel.tolist()}, the first {cold} (cold) within {STREAM_RTOL:.0e}; max |beta "
+                f"diff| {dbeta:.3e} after the two-pass iteration; straggler overflow streamed "
+                f"{ov_s}, in memory {ov_m}; launches streamed {launches}, in memory "
+                f"{default_launches}")
+    # its two-pass iteration: the bound goes on rising, and the per-part
+    # budgets together leave no more documents over than the corpus's one
+    # budget does, give or take one chunk
+    fails.check(ms.last_bounds[cold] > ms.last_bounds[cold - 1]
+                and ov_s <= ov_m + ms.config.batch_size,
+                f"streamed default fit, two-pass iteration: bound {ms.last_bounds[cold]:.1f} "
+                f"above the iteration before's {ms.last_bounds[cold - 1]:.1f}; straggler "
+                f"overflow {ov_s} <= the in-memory fit's {ov_m} + one chunk "
+                f"({ms.config.batch_size})")
+    # a two-pass pair that neither fit overflows: a budget of half the rows
+    # (1,024 a part) against the ~36% of documents that pass 1 leaves
+    # unconverged here
+    cfg_2p = STMConfig(K=K, newton_pass1_iters=6, newton_straggler_frac=TWO_PASS_FRAC,
+                       max_em_iter=3, convergence_threshold=0.0)
+    pair, launches_2p = {}, {}
+    for n_parts in (0, 4):
+        pair[n_parts] = STM(corpus, K=K, X=X, config=cfg_2p, stream_parts=n_parts, device="cuda")
+        launches_2p[n_parts] = run_fit(torch, stages, fails, pair[n_parts], 3,
+                                       f"two-pass fit, stream_parts={n_parts}", card)
+    rel, dbeta, ov_s, ov_m = gap(pair[4], pair[0])
+    own = np.asarray([default_model.last_bounds[1], pair[0].last_bounds[1]])
+    fails.check(float(rel[:cold].max()) <= STREAM_RTOL and ov_s == 0 and ov_m == 0,
+                f"streamed vs in-memory fit, two-pass with newton_straggler_frac="
+                f"{TWO_PASS_FRAC}: bounds rel diff {rel.tolist()}, the first {cold} (cold) "
+                f"within {STREAM_RTOL:.0e} (the two in-memory fits of this run, one "
+                f"configuration until then, part by {abs(own[0] - own[1]) / abs(own[0]):.3e} at "
+                f"EM 1); max |beta diff| {dbeta:.3e} after the two-pass iteration; straggler "
+                f"overflow streamed {ov_s}, in memory {ov_m}; launches streamed "
+                f"{launches_2p[4]}, in memory {launches_2p[0]}")
+    # the streamed step against the in-memory step from one state (the
+    # in-memory fit's last): every document's eta is the same function of
+    # that state in both, so only the order of the M-step's sums differs
+    same_order = bool(np.array_equal(pair[0]._storage_index, pair[4]._storage_index))
+    for which, kind in (("_em_step_cold", "single-pass"), ("_em_step", "two-pass")):
+        state = pair[0]._state
+        with float32_matmul():
+            a = getattr(pair[0], which)(state, pair[0]._data)
+        b = getattr(pair[4], which)(state, None)
+        rel_b = abs(float(b.bound) - float(a.bound)) / abs(float(a.bound))
+        d_beta = float((b.beta - a.beta).abs().max())
+        d_eta = float((b.eta - a.eta).abs().max())
+        ov = (int(b.straggler_overflow), int(a.straggler_overflow))
+        fails.check(same_order and rel_b <= STEP_RTOL and d_beta <= STEP_BETA_ATOL
+                    and d_eta <= STEP_ETA_ATOL and ov == (0, 0),
+                    f"one {kind} EM iteration from the in-memory fit's state, streamed in 4 "
+                    f"parts vs in memory: bound {float(b.bound):.1f} vs {float(a.bound):.1f}, "
+                    f"rel diff {rel_b:.3e} (tol {STEP_RTOL:.0e}); max |beta diff| {d_beta:.3e} "
+                    f"(tol {STEP_BETA_ATOL:.0e}); max |eta diff| {d_eta:.3e} (tol "
+                    f"{STEP_ETA_ATOL:.0e}); straggler overflow {ov}; same storage order "
+                    f"{same_order}")
+    del pair, a, b, state
+    th, _ = ms.transform(to_docs(corpus, 64), X=X[:64])
+    fails.check(simplex_ok(th, 64, K), "the streamed model transforms 64 documents")
+
+    # the bench corpus as one padded bucket on the host, and its design
+    plan = make_bucket_plan(corpus, 256, n_devices=4, max_buckets=1)
+    bucket = split_corpus_by_plan(corpus, plan)[0]
+    Xs = np.zeros(plan.n_storage)
+    Xs[plan.storage_index[: corpus.N]] = X
+    D_np, design = mstep.make_prevalence_design(Xs, bucket.doc_ok, device="cuda")
+    aspects = np.zeros(plan.n_storage, np.int32)
+    n = plan.n_storage // 4
+
+    def part_of(p, size=n):
+        sl = slice(p * size, (p + 1) * size)
+        return (bucket.words[sl], bucket.counts[sl], aspects[sl], bucket.doc_ok[sl], D_np[sl])
+
+    part_bytes = sum(a.nbytes for a in part_of(0))
+    cfg = STMConfig(K=K, init_type="random", batch_size=256)
+    beta0 = random_beta(K, V, seed=5)
+
+    def fresh(sem, n_rows):
+        shared = init_state(K=K, V=V, N=n_rows, P=D_np.shape[1], beta_init=beta0,
+                            device="cuda")
+        return shared, sem.init_parts(None, K=K, V=V)
+
+    # (b) prefetch on against off: equal results, wall, peak memory
+    parts4 = [part_of(p) for p in range(4)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        outs = {}
+        for pf in (False, True):
+            sem = StreamedEM(cfg, design, parts4, prefetch=pf, device="cuda")
+            shared, pst, bounds, _secs, _peak = run_streamed(torch, sem, *fresh(sem, n), 2)
+            outs[pf] = (bounds, shared.beta, shared.sigma, torch.cat([s.eta for s in pst]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = (outs[True][0] == outs[False][0]
+            and all(bool(torch.equal(a, b)) for a, b in zip(outs[True][1:], outs[False][1:])))
+    fails.check(same, f"phase 9b: StreamedEM with prefetch on equals prefetch off bit for bit "
+                      f"(bounds, beta, sigma, eta; deterministic index_add_): bounds "
+                      f"{outs[True][0]} vs {outs[False][0]}")
+    del outs
+    for pf in (False, True):
+        sem = StreamedEM(cfg, design, parts4, prefetch=pf, device="cuda")
+        reset(stages)
+        _sh, _pst, bounds, secs, peak = run_streamed(torch, sem, *fresh(sem, n), 3)
+        print(f"  prefetch {'on ' if pf else 'off'}: 3 iterations of 4 parts x {n} documents "
+              f"{[round(s, 4) for s in secs]} s, bounds {bounds}; peak device memory "
+              f"{peak / 1e6:.1f} MB above the {torch.cuda.memory_allocated() / 1e6:.1f} MB "
+              f"allocated around the run; one part is {part_bytes / 1e6:.2f} MB; launches "
+              f"{ {k: stages.LAUNCHES[k] for k in ('fgh', 'cg', 'ls')} } [{card}]")
+        fails.check(bool(np.isfinite(bounds).all()) and sem.nonfinite_bound_count == 0,
+                    f"prefetch {pf}: bounds finite")
+
+    # (d) one streamed iteration on each fused path from the stage path's state
+    sem = StreamedEM(cfg, design, parts4, device="cuda")
+    s0, p0 = fresh(sem, n)
+    s1, p1 = sem.em_iteration(s0, p0)
+    s2, _ = sem.em_iteration(s1, p1)
+    ref = float(s2.bound)
+    for path in ("iter", "newton"):
+        sem_f = StreamedEM(cfg.replace(**FUSED_PATHS[path]), design, parts4, device="cuda")
+        reset(stages)
+        (sf, _), sec = timed(torch, lambda: sem_f.em_iteration(s1, p1))
+        got = {k: stages.LAUNCHES[k] for k in PATH_KERNELS[path]}
+        rel_f = abs(float(sf.bound) - ref) / abs(ref)
+        fails.check(rel_f <= FIT_RTOL and all(v > 0 for v in got.values())
+                    and all(stages.LAUNCHES[k] == 0 for k in ("fgh", "cg", "ls")),
+                    f"phase 9d: streamed iteration on the {path} path from the stage path's "
+                    f"state: bound {float(sf.bound):.6f} vs {ref:.6f}, rel diff {rel_f:.3e} "
+                    f"(tol {FIT_RTOL:.0e}), {sec:.4f} s; launches {got}")
+    del s0, p0, s1, p1, s2, sf
+
+    # (c) a corpus 16 times the bench corpus, tiled on the host
+    reps = 16
+    N_big = reps * plan.n_storage
+    W = np.tile(bucket.words, (reps, 1))
+    C = np.tile(bucket.counts, (reps, 1))
+    OK = np.tile(bucket.doc_ok, reps)
+    A_big = np.zeros(N_big, np.int32)
+    D_big, design_big = mstep.make_prevalence_design(np.tile(Xs, reps), OK, device="cuda")
+    n_big = plan.n_storage
+
+    def provider(p):
+        sl = slice(p * n_big, (p + 1) * n_big)
+        return (W[sl], C[sl], A_big[sl], OK[sl], D_big[sl])
+
+    big_part = sum(a.nbytes for a in provider(0))
+    corpus_bytes = W.nbytes + C.nbytes + A_big.nbytes + OK.nbytes + D_big.nbytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sem = StreamedEM(cfg, design_big, provider, n_parts=reps, device="cuda")
+    shared, pst = fresh(sem, n_big)
+    state_bytes = tensor_bytes(shared, *pst)
+    # what one part's E-step needs beside the part itself
+    d0 = CorpusData(*((torch.as_tensor(a, device="cuda"),) for a in provider(0)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a0 = torch.cuda.memory_allocated()
+    local_estep_stats(dataclasses.replace(pst[0], beta=shared.beta), d0, cfg)
+    torch.cuda.synchronize()
+    work = torch.cuda.max_memory_allocated() - a0
+    del d0
+    reset(stages)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bounds, secs = [], []
+    for _ in range(2):
+        # each iteration's states replace its input's here, so that within an
+        # iteration only the states it reads and the states it makes are alive
+        (shared, pst), sec = timed(torch, lambda: sem.em_iteration(shared, pst))
+        bounds.append(float(shared.bound))
+        secs.append(sec)
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = 2 * state_bytes + work + 3 * big_part
+    big_launches = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+    print(f"phase 9c: N={N_big} in {reps} parts of {n_big} from a provider, 2 EM iterations "
+          f"{[round(s, 3) for s in secs]} s = {[round(N_big / s, 1) for s in secs]} docs/s, "
+          f"bounds {bounds}; launches {big_launches} [{card}]")
+    fails.check(bool(np.isfinite(bounds).all()) and sem.nonfinite_bound_count == 0
+                and peak <= limit and all(v > 0 for v in big_launches.values()),
+                f"phase 9c: bounds finite; peak device memory {peak / 1e6:.1f} MB above the "
+                f"{base / 1e6:.1f} MB held before, limit {limit / 1e6:.1f} MB = 2 x state "
+                f"{state_bytes / 1e6:.1f} (an iteration's input and output) + one part's "
+                f"E-step workspace {work / 1e6:.1f} + 3 parts of {big_part / 1e6:.2f}; the "
+                f"corpus itself is "
+                f"{corpus_bytes / 1e6:.1f} MB on the host [{card}]")
+    del shared, pst, sem, W, C
+
+    # (e) the content model, streamed
+    bi = X.astype(np.int32)
+    mc = STM(corpus, K=K, X=X, content=True, beta_index=bi, init_type="random",
+             max_em_iter=2, stream_parts=2, device="cuda")
+    run_fit(torch, stages, fails, mc, 2, "streamed content fit", card)
+    b_c, b_ref = np.asarray(mc.last_bounds), np.asarray(content_bounds[:2])
+    rel_c = np.abs(b_c - b_ref) / np.abs(b_ref)
+    fails.check(float(rel_c.max()) <= STREAM_RTOL and mc.beta.shape == (2, K, V),
+                f"phase 9e: streamed content fit (stream_parts=2) vs phase 7's in-memory "
+                f"bounds: rel diff {rel_c.tolist()} (tol {STREAM_RTOL:.0e})")
+    print(f"phase 9 took {time.time() - t_phase:.1f} s [{card}]")
+    return launches
+
+
+def to_docs(corpus, n):
+    """The first ``n`` documents of a padded corpus as BoW lists."""
+    return [[(int(w), int(c)) for w, c in zip(corpus.words[d], corpus.counts[d]) if c > 0]
+            for d in range(n)]
+
+
+def sim_chunk_check(torch, stages, fails, model, card, chunk=512, n_draws=8):
+    """B1 where ``simulate_theta`` calls it: the fitted model's first chunk
+    of 512 documents in float32 mode, against its plain version and beside
+    its bound; and where the rest of that chunk's time goes."""
+    from strutopy_tpu_torch.ops.estep import _chol_pd_batched, _gather_beta
+
+    c_np = model._corpus
+    K, L = model.K, c_np.words.shape[1]
+    Km1 = K - 1
+
+    def put(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a[:chunk]), dtype=dt, device="cuda")
+
+    words, c = put(c_np.words, torch.int32), put(c_np.counts, torch.float32)
+    eta, mu = put(model.eta, torch.float32), put(model.mu, torch.float32)
+    asp = put(model.betaindex, torch.int32)
+    B = words.shape[0]
+    siginv = torch.as_tensor(np.linalg.inv(np.asarray(model.sigma, np.float64)),
+                             dtype=torch.float32, device="cuda")
+    beta_full = torch.as_tensor(model.beta[None], device="cuda")
+    bd, t_gather = timed(torch, lambda: _gather_beta(beta_full, words, asp))
+    got = stages.fgh(eta, bd, c, mu, siginv, bf16=False)
+    want = stages.fgh_plain(eta, bd, c, mu, siginv, bf16=False)
+    torch.cuda.synchronize()
+    g_sc, H_sc, _u = gh_scales(torch, stages, eta, bd, c, mu, siginv)
+    scales = {"f": f_scale(torch, eta[:, None, :], bd, c, mu, siginv)[:, 0], "g": g_sc,
+              "H": H_sc}
+    for (name, sc), g_, w_ in zip(scales.items(), got, want):
+        abs_e, worst = worst_ratio(g_, w_, RTOL["fgh." + name] * sc)
+        fails.check(bool(torch.isfinite(g_).all()) and worst <= 1.0,
+                    f"simulate_theta's chunk (B={B} K={K} L={L}, fitted model) fgh.{name} "
+                    f"bf16=False: max_abs_err={abs_e:.3e}, worst error/bound={worst:.3e} "
+                    f"(must be <= 1)")
+    ms, pms = time_pair(torch, lambda: stages.fgh(eta, bd, c, mu, siginv, bf16=False),
+                        lambda: stages.fgh_plain(eta, bd, c, mu, siginv, bf16=False))
+    bound_ms, by = roofline(nbytes(eta, bd, c, mu, siginv) + 4 * B * (1 + Km1 + Km1 * Km1),
+                            {"f32": B * hessian_ops(K, L) + 6 * B * K * L})
+    H = got[2]
+    (Lc, _), t_chol = timed(torch, lambda: _chol_pd_batched(H))
+    z = torch.randn(B, Km1, n_draws, device="cuda")
+    _, t_solve = timed(torch, lambda: torch.linalg.solve_triangular(Lc.mT, z, upper=True))
+    print(f"  one chunk of simulate_theta: B1 float32 mode {ms:.4f} ms (plain {pms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {by}, share {bound_ms / ms:.3f}; CUDA graph of 20 "
+          f"calls); by the host's clock the aspect gather {1e3 * t_gather:.2f} ms, "
+          f"{B} Cholesky factorizations {1e3 * t_chol:.2f} ms, the triangular solve of "
+          f"{n_draws} draws {1e3 * t_solve:.2f} ms [{card}]")
+
+
+def phase_analysis(torch, stages, fails, model, corpus, X, card, n_cpu=1024):
+    """Phase 10: post-fit analysis of the card's model (see the module
+    docstring)."""
+    import dataclasses
+    import types
+
+    from strutopy_tpu_torch import STM, STMConfig
+    from strutopy_tpu_torch.eval import estimate_effect_composition, simulate_theta
+    from strutopy_tpu_torch.utils.debug import NumericalCheckError, validate_state
+
+    t_phase = time.time()
+    K, N = K_BENCH, corpus.N
+    n_chunks = -(-N // 512)
+    reset(stages)
+    eta_card, sec = timed(torch, lambda: simulate_theta(model, n_draws=8, seed=0,
+                                                        return_eta=True))
+    fgh_launches = stages.LAUNCHES["fgh"]
+    print(f"phase 10: simulate_theta(n_draws=8) on {N} documents: {sec:.3f} s, "
+          f"{1e3 * sec / n_chunks:.3f} ms a chunk of 512, B1 launched {fgh_launches} times in "
+          f"its float32 mode [{card}]")
+    cpu_model = types.SimpleNamespace(
+        device=torch.device("cpu"), beta=model.beta, eta=model.eta[:n_cpu],
+        mu=model.mu[:n_cpu], sigma=model.sigma, betaindex=model.betaindex[:n_cpu],
+        _corpus=corpus.take(np.arange(n_cpu)))
+    eta_cpu = simulate_theta(cpu_model, n_draws=8, seed=0, return_eta=True)
+    conv = (model._state.opt_iters.cpu().numpy()[model._storage_index][:n_cpu]
+            < model.config.newton_max_iters)
+    diff = np.abs(eta_card[:, :n_cpu] - eta_cpu).max(axis=(0, 2))
+    fails.check(fgh_launches == n_chunks and eta_card.shape == (8, N, K - 1)
+                and bool(np.isfinite(eta_card).all()) and float(diff[conv].max()) <= SIM_ETA_ATOL,
+                f"simulate_theta on the card vs the CPU, first {n_cpu} documents: max |eta draw "
+                f"diff| {diff[conv].max():.3e} over the {int(conv.sum())} whose Newton solve "
+                f"converged (tol {SIM_ETA_ATOL:.0e}), {diff.max():.3e} over all; B1 launches "
+                f"{fgh_launches} = chunks {n_chunks}")
+    sim_chunk_check(torch, stages, fails, model, card)
+    theta_s = simulate_theta(model, n_draws=2, seed=1)
+    fails.check(theta_s.shape == (2, N, K) and bool(np.isfinite(theta_s).all())
+                and bool(np.allclose(theta_s.sum(-1), 1, atol=1e-4)) and bool((theta_s >= 0).all()),
+                "simulate_theta's theta draws finite on the simplex")
+    eff, sec = timed(torch, lambda: estimate_effect_composition(model, n_draws=4))
+    fails.check(eff["coef"].shape == (K, 2) and all(
+        bool(np.isfinite(eff[k]).all()) for k in ("coef", "se", "ci", "within", "between")),
+        f"estimate_effect_composition: coef {eff['coef'].shape} finite ({sec:.2f} s)")
+
+    prob, frex = model.label_topics(n=5)
+    tq = model.topic_quality()
+    res = model.check_residuals()
+    adj, edges = model.topic_corr("simple")
+    vis = model.to_ldavis(R=10)
+    text = model.summary(print_summary=False)
+    fails.check(len(prob) == K and len(frex) == K and all(len(r) == 5 for r in prob)
+                and all(np.asarray(tq[k]).shape == (K,) and bool(np.isfinite(tq[k]).all())
+                        for k in ("semantic_coherence", "exclusivity"))
+                and bool(np.isfinite(res["dispersion"])) and adj.shape == (K, K)
+                and bool(np.isfinite(np.asarray(vis["mdsDat"]["x"])).all())
+                and len(vis["mdsDat"]["x"]) == K and text.count("\n") >= K,
+                f"label_topics, topic_quality, check_residuals (dispersion "
+                f"{res['dispersion']:.4f}), topic_corr ({len(edges)} edges), to_ldavis and "
+                f"summary return finite values of the right shapes")
+
+    cfg = STMConfig(K=K, init_type="random", batch_size=256, max_em_iter=2,
+                    convergence_threshold=0.0, debug_checks=True)
+    checked = STM(corpus, K=K, X=X, config=cfg, device="cuda").expectation_maximization()
+    bad = dataclasses.replace(checked._state, beta=checked._state.beta.clone())
+    bad.beta[3, 7] = -1e-3
+    try:
+        validate_state(bad, 2)
+        raised = ""
+    except NumericalCheckError as e:
+        raised = str(e)
+    fails.check(len(checked.last_bounds) == 2 and "beta has negative entries" in raised,
+                f"a 2-iteration fit with debug_checks=True passes validate_state; a state with "
+                f"one negative beta entry raises NumericalCheckError ({raised!r})")
+    print(f"phase 10 took {time.time() - t_phase:.1f} s [{card}]")
+    return {"fgh": fgh_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1362,6 +1839,7 @@ def main() -> int:
     from strutopy_tpu_torch.ops import build, stages
 
     global CARD
+    watch_collector()
     fails = Failures()
     card = CARD = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1425,12 +1903,20 @@ def main() -> int:
     phase_wiki(torch, stages, fails)
 
     # ----- phases 6-8: the default fit, the content model, evaluation -----
+    default_launches, default_model = phase_spectral(torch, stages, fails, corpus, X, card)
+    content_launches, content_bounds = phase_content(torch, stages, fails, corpus, X, card)
     paths = {"bench fit (phase 4)": {k: launches[k] for k in ("fgh", "cg", "ls")},
-             "default spectral fit (phase 6)": phase_spectral(torch, stages, fails, corpus, X,
-                                                              card),
-             "content fit (phase 7)": phase_content(torch, stages, fails, corpus, X, card),
+             "default spectral fit (phase 6)": default_launches,
+             "content fit (phase 7)": content_launches,
              "heldout fit (phase 8)": phase_heldout(torch, stages, fails, docs, corpus,
                                                     X, card)}
+
+    # ----- phases 9-10: out-of-core fits, post-fit analysis -----
+    del model
+    paths["streamed default fit (phase 9a)"] = phase_streaming(
+        torch, stages, fails, corpus, X, card, default_model, default_launches, content_bounds)
+    paths["simulate_theta (phase 10)"] = phase_analysis(
+        torch, stages, fails, default_model, corpus, X, card)
     print(f"launches of B1-B3 by path: {paths}")
 
     print(f"total {time.time() - t_start:.1f} s")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Two diagnostics of the stage kernels, on one CUDA card.
+"""Diagnostics of the stage kernels and of the fit's wall time, on one CUDA card.
 
 Run from the root of a checkout:
 
@@ -7,6 +7,7 @@ Run from the root of a checkout:
     python3 kernel_diag.py stalls        # Newton documents left unconverged, per path
     python3 kernel_diag.py compare DIR   # the stage kernels against another checkout's
     python3 kernel_diag.py plans         # B5 on its streaming and its resident plan
+    python3 kernel_diag.py fits DIR      # the default fit's iteration walls against another checkout's
 
 ``ablate`` compiles ``csrc/stages.cu`` against copies of
 ``csrc/newton_doc.cuh``, where B1's and B3's bodies live (under
@@ -26,6 +27,19 @@ the whole loop, one block an SM), and times ``stm_newton`` of each in
 turns on 256 and on 128 documents of the bench recipe at K=100, and on
 256 at K=50.
 
+``fits`` runs ``STM(corpus, K=100, X=X)`` (spectral init, 2 cold
+single-pass EM iterations and 1 two-pass one) on the bench corpus in a
+process of its own for each checkout, in turns (theirs, ours, ours,
+theirs, twice over), each process importing the package of the checkout
+it runs in.  Every process fits once to warm up and then six times;
+where the checkout's single-pass E-step is one loop over the chunks,
+every second of the six runs the Newton solve and the finalize in two
+loops instead (the only difference between the two forms, within one
+process).  It prints every iteration's wall, the medians by checkout and
+form, and the runs of Python's cyclic garbage collector of more than 10
+ms that fell in a fit (the bench corpus is a list of 8,192 lists of ~200
+tuples, and a full collection walks all of it).
+
 ``stalls`` runs the first E-step's Newton solve of the bench fit (random
 init, 32 chunks of 256 documents, 24 iterations) on the stage kernels,
 on B4 (one fused kernel an iteration), on B5 (the whole loop in one
@@ -37,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -293,13 +308,95 @@ def stalls(torch):
               f"({(f - ref) / abs(ref):+.3e} relative to B5)")
 
 
+# Runs in a process of its own, from the root of the checkout it measures.
+FIT_CHILD = r"""
+import gc, json, sys, time
+import torch
+import chip_smoke as cs
+from strutopy_tpu_torch import STM
+from strutopy_tpu_torch.corpus.bow import pad_corpus
+from strutopy_tpu_torch.ops import estep
+
+docs, X = cs.make_corpus(cs.K_BENCH, cs.V_BENCH, cs.N_BENCH, cs.WORDS_BENCH)
+corpus = pad_corpus(docs, V=cs.V_BENCH)
+events, started = [], {}
+
+def on_gc(phase, info):
+    if phase == "start":
+        started["t"] = time.time()
+    else:
+        events.append((started["t"], time.time() - started["t"], info["generation"]))
+
+gc.callbacks.append(on_gc)
+
+def fit():
+    del events[:]
+    m = STM(corpus, K=cs.K_BENCH, X=X, device="cuda")
+    m.config = m.config.replace(max_em_iter=3, convergence_threshold=0.0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    m.expectation_maximization()
+    long = [[round(t - t0, 3), round(d, 3), g] for t, d, g in events if t >= t0 and d > 0.01]
+    return {"iter_seconds": [round(s, 4) for s in m.iter_seconds],
+            "bounds": list(m.last_bounds), "gc_over_10ms": long}
+
+def two_loops(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok, cfg, B,
+              use_pallas):
+    eta, iters, _ = estep._newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B)
+    beta_ss, sigma_ss, bound, theta = estep._finalize_all(
+        beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, doc_ok, B)
+    overflow = torch.zeros((), dtype=torch.int32, device=words.device)
+    return estep.EStepResult(beta_ss, sigma_ss, bound, eta, theta, iters, overflow)
+
+fit()  # warm-up: the kernels' build, the allocator, cuSOLVER's handles
+out = []
+one_loop = getattr(estep, "_single_pass_estep", None)
+for i in range(6):
+    form = "one loop" if one_loop is not None else "two loops"
+    if one_loop is not None and i % 2:
+        estep._single_pass_estep, form = two_loops, "two loops"
+    out.append(dict(fit(), form=form))
+    if one_loop is not None:
+        estep._single_pass_estep = one_loop
+print("FITS " + json.dumps(out))
+"""
+
+
+def fits(root):
+    import numpy as np
+
+    here = str(Path(__file__).resolve().parent)
+    print(f"fits: STM(corpus, K={cs.K_BENCH}, X=X), N={cs.N_BENCH}, 3 EM iterations (2 cold "
+          f"single-pass, 1 two-pass), a process a checkout, in turns [{cs.card_line()}]")
+    walls = {}
+    for where in (root, here, here, root) * 2:
+        run = subprocess.run([sys.executable, "-c", FIT_CHILD], cwd=where, capture_output=True,
+                             text=True)
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("FITS ")]
+        if run.returncode != 0 or not lines:
+            raise RuntimeError(f"fits: the process in {where} failed:\n{run.stdout[-2000:]}"
+                               f"\n{run.stderr[-4000:]}")
+        name = "this checkout" if where == here else str(where)
+        print(f"  {name}:")
+        for r in json.loads(lines[-1][5:]):
+            walls.setdefault((name, r["form"]), []).append(r["iter_seconds"])
+            print(f"    {r['form']}: EM 0, 1, 2 {r['iter_seconds']} s; collections over 10 ms "
+                  f"[s into the fit, s, generation] {r['gc_over_10ms']}; last bound "
+                  f"{r['bounds'][-1]:.1f}")
+    for (name, form), w in walls.items():
+        w = np.asarray(w)
+        print(f"  {name}, {form}: {len(w)} fits, median EM 0, 1, 2 "
+              f"{np.median(w, axis=0).round(4).tolist()} s, least {w.min(axis=0).tolist()} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("ablate", "stalls", "compare", "plans"))
-    ap.add_argument("other", nargs="?", help="compare: the root of the other checkout")
+    ap.add_argument("what", choices=("ablate", "stalls", "compare", "plans", "fits"))
+    ap.add_argument("other", nargs="?",
+                    help="compare, fits: the root of the other checkout")
     args = ap.parse_args()
-    if args.what == "compare" and not args.other:
-        ap.error("compare needs the other checkout's root")
+    if args.what in ("compare", "fits") and not args.other:
+        ap.error(f"{args.what} needs the other checkout's root")
     import torch
 
     if not torch.cuda.is_available():
@@ -307,6 +404,8 @@ def main() -> int:
         return 2
     if args.what == "compare":
         compare(torch, args.other)
+    elif args.what == "fits":
+        fits(args.other)
     else:
         {"ablate": ablate, "stalls": stalls, "plans": plans}[args.what](torch)
     return 0

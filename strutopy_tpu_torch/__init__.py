@@ -3,31 +3,28 @@
 The port of ``strutopy_tpu`` (JAX) to PyTorch, with the E-step's Newton
 solve as hand-written CUDA kernels for Hopper (``csrc/``): the fit
 (spectral or random init, LDA beta or the content model, checkpoints),
-heldout evaluation, and serving from saved artifacts.
+heldout evaluation, serving from saved artifacts, out-of-core fits
+(``StreamedEM``) and the post-fit analysis of ``eval/``.
 It imports torch and numpy only, never jax or ``strutopy_tpu``.
 
-Precision: every model quantity is true float32.  A float32 matmul or
-convolution on the GPU may otherwise run in TF32 (about three decimal
-digits), so TF32 is turned off here, once, for the process — the
-counterpart of the JAX package's ``Precision.HIGH`` on its finalize and
-linear algebra.
+Precision: every model quantity is true float32.  A float32 matmul on
+the GPU may run in TF32 (about three decimal digits) when the host
+program allows it, so every entry point runs inside
+``utils.precision.float32_matmul``, which turns TF32 off and restores the
+flags on exit; importing the package changes nothing.
 """
 
-import torch
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
-from strutopy_tpu_torch.corpus.bow import PaddedCorpus, Vocabulary, pad_corpus  # noqa: E402
-from strutopy_tpu_torch.dgp.corpus_creation import CorpusCreation  # noqa: E402
-from strutopy_tpu_torch.eval.heldout import cut_in_half, eval_heldout, split_corpus  # noqa: E402
-from strutopy_tpu_torch.models.config import STMConfig  # noqa: E402
-from strutopy_tpu_torch.models.serving import (  # noqa: E402
+from strutopy_tpu_torch.corpus.bow import PaddedCorpus, Vocabulary, pad_corpus
+from strutopy_tpu_torch.dgp.corpus_creation import CorpusCreation
+from strutopy_tpu_torch.eval.heldout import cut_in_half, eval_heldout, split_corpus
+from strutopy_tpu_torch.models.config import STMConfig
+from strutopy_tpu_torch.models.serving import (
     ThetaServer,
     infer_from_artifacts,
     infer_theta,
 )
-from strutopy_tpu_torch.models.stm import STM  # noqa: E402
+from strutopy_tpu_torch.models.stm import STM
+from strutopy_tpu_torch.models.streaming import StreamedEM
 
 __all__ = [
     "PaddedCorpus",
@@ -38,6 +35,7 @@ __all__ = [
     "ThetaServer",
     "infer_from_artifacts",
     "infer_theta",
+    "StreamedEM",
     "CorpusCreation",
     "eval_heldout",
     "cut_in_half",

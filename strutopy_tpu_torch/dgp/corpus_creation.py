@@ -165,10 +165,10 @@ class CorpusCreation:
         return self
 
     def display_props(self, path=None):
-        """Topic-proportion bar chart: the plots module is not ported."""
-        raise NotImplementedError(
-            "display_props needs eval/plots.py, which is not ported yet "
-            "(ROADMAP.md Queue A)")
+        """Topic-proportion bar chart (``eval/plots.py::display_props``)."""
+        from strutopy_tpu_torch.eval.plots import display_props as _dp
+
+        return _dp(self.theta, path=path)
 
     def _sample_documents(self):
         if self.dgp == "LDA" and self.treatment:

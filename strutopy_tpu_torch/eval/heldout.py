@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from strutopy_tpu_torch.corpus.bow import PaddedCorpus, to_bow
+from strutopy_tpu_torch.utils.precision import true_float32
 
 
 def eval_heldout(heldout, theta, beta) -> float:
@@ -38,6 +39,7 @@ def eval_heldout(heldout, theta, beta) -> float:
     return float(np.mean(doc_ll))
 
 
+@true_float32
 def eval_heldout_torch(words, counts, doc_ok, theta, beta, *, device="cuda"):
     """Batched heldout likelihood on ``device`` (twin of
     ``eval_heldout_jax``); returns a scalar tensor.

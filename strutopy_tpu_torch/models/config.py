@@ -17,9 +17,7 @@ Differences, all explicit:
   * knobs that steer the TPU compiler or its kernels (:data:`TPU_ONLY`)
     are fields with their JAX defaults and raise when set to anything
     else — a configuration tuned for the TPU must not be silently
-    reinterpreted;
-  * ``debug_checks`` is not ported yet and raises
-    ``NotImplementedError``.
+    reinterpreted.
 """
 
 from __future__ import annotations
@@ -146,10 +144,6 @@ class STMConfig:
                 "nu_method='ns' (Newton-Schulz inverse) is a TPU-only setting; "
                 "the PyTorch port computes nu from the Cholesky factor "
                 "(use 'chol' or 'blocked')"
-            )
-        if self.debug_checks:
-            raise NotImplementedError(
-                "debug_checks is not ported yet (strutopy_tpu/utils/debug.py)"
             )
 
     def to_json(self) -> str:

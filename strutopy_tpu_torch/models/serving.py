@@ -37,6 +37,7 @@ from strutopy_tpu_torch.models.em import CorpusData, local_estep_stats
 from strutopy_tpu_torch.models.state import STMState
 from strutopy_tpu_torch.ops import build
 from strutopy_tpu_torch.ops.mstep import encode_new_covariates
+from strutopy_tpu_torch.utils.precision import true_float32
 
 
 def _require_beta_index(beta, beta_index) -> None:
@@ -47,6 +48,7 @@ def _require_beta_index(beta, beta_index) -> None:
         )
 
 
+@true_float32
 def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
                 aspects_user=None, full_convergence: bool = True, *, device="cuda"):
     """One batched E-step under fixed (beta, sigma) with per-document
@@ -271,6 +273,7 @@ class ThetaServer:
         self._beta = torch.as_tensor(beta, device=self.device)
         self._sigma = torch.as_tensor(sigma, device=self.device)
 
+    @true_float32
     def infer(self, documents, X=None, beta_index=None, full_convergence: bool = True):
         """(theta, eta) for new documents, in document order.
         ``full_convergence=False`` keeps the training schedule's capped

@@ -5,14 +5,15 @@ Same construction, fitting, inference (``transform``) and artifact
 (``device="cuda"``, the default) unless the caller asks for the CPU
 (``device="cpu"``); nothing is detected.  Spectral or random
 initialization, the LDA beta or the content model (per-aspect beta from
-the kappa regression), resumable checkpoints.
-Not ported yet: meshes and streaming (``mesh=``, ``stream_parts=``;
-ROADMAP.md Queue A items 12 and 14) and the post-fit analysis methods
-(``eval/diagnostics.py``).
+the kappa regression), resumable checkpoints, out-of-core fits
+(``stream_parts=``, ``models/streaming.py``) and the post-fit analysis
+methods (``eval/``).  Not ported yet: meshes (``mesh=`` raises;
+ROADMAP.md Queue A item 8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from strutopy_tpu_torch.eval import diagnostics
 from strutopy_tpu_torch.corpus.bow import PaddedCorpus, Vocabulary, pad_corpus
 from strutopy_tpu_torch.corpus.bucketing import (
     gather_per_bucket,
@@ -34,7 +36,9 @@ from strutopy_tpu_torch.models.em import CorpusData, make_em_step
 from strutopy_tpu_torch.models.state import init_state
 from strutopy_tpu_torch.ops import mstep
 from strutopy_tpu_torch.ops.spectral import spectral_init
+from strutopy_tpu_torch.utils.debug import validate_state
 from strutopy_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from strutopy_tpu_torch.utils.precision import true_float32
 
 logger = logging.getLogger(__name__)
 
@@ -52,10 +56,15 @@ class STM:
     :class:`PaddedCorpus`.  ``content=True`` fits the content model:
     ``beta_index`` gives every document its aspect level in ``[0, A)``.
     ``init_beta`` injects an explicit (K, V)
-    initialization.  Advanced knobs live on :class:`STMConfig`
+    initialization.  ``stream_parts=P`` (P > 1) keeps the corpus in host
+    memory and moves one of P equal parts at a time to the device
+    (:class:`~strutopy_tpu_torch.models.streaming.StreamedEM`).
+    ``dtype`` is accepted and unused, as in the JAX package; ``mesh``
+    other than None raises.  Advanced knobs live on :class:`STMConfig`
     (``config=``), which then overrides the keyword arguments.
     """
 
+    @true_float32
     def __init__(
         self,
         documents,
@@ -70,17 +79,26 @@ class STM:
         lda_beta: bool = True,
         beta_index=None,
         A: Optional[int] = None,
+        dtype=np.float32,
         init_type: str = "spectral",
         model_type: str = "STM",
         mode: str = "ols",
         config: Optional[STMConfig] = None,
+        mesh=None,
         batch_size: Optional[int] = None,
         seed: int = 123456,
         beta_smoothing: float = 0.0,
+        stream_parts: int = 0,
         init_beta=None,
         *,
         device="cuda",
     ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "STM(mesh=...) is not ported: multi-device fits are "
+                "ROADMAP.md Queue A item 8"
+            )
+        self.mesh = None
         if config is not None and seed != 123456 and config.seed != seed:
             raise ValueError(
                 f"seed={seed} conflicts with config.seed={config.seed}: "
@@ -131,9 +149,15 @@ class STM:
         self.A = config.A
 
         # ----- length buckets -----
+        self._stream_parts = int(stream_parts or 0)
+        streamed = self._stream_parts > 1
+        # streaming needs equal single-bucket parts; bucket padding to a
+        # multiple of stream_parts * batch gives the part shape for free
         plan = make_bucket_plan(
-            corpus, config.batch_size, n_devices=1,
-            max_buckets=config.max_buckets if config.auto_bucket else 1,
+            corpus, config.batch_size,
+            n_devices=self._stream_parts if streamed else 1,
+            max_buckets=(1 if streamed or not config.auto_bucket
+                         else config.max_buckets),
         )
         self._plan = plan
         buckets = split_corpus_by_plan(corpus, plan)
@@ -224,21 +248,31 @@ class STM:
                      if (self._kappa_design is not None and not config.lda_beta)
                      else 0),
         )
-        self._data = CorpusData(
-            words=tuple(torch.as_tensor(b.words, device=dev) for b in buckets),
-            counts=tuple(torch.as_tensor(b.counts, device=dev) for b in buckets),
-            aspects=tuple(torch.as_tensor(a, device=dev) for a in aspect_buckets),
-            doc_ok=tuple(torch.as_tensor(b.doc_ok, device=dev) for b in buckets),
-            D=tuple(torch.as_tensor(d, device=dev) for d in D_buckets),
-        )
         kd_dev = wc_dev = None
         if not config.lda_beta:
             kd_dev = torch.as_tensor(self._kappa_design, dtype=torch.float32, device=dev)
             wc_dev = torch.as_tensor(self._wcounts, dtype=torch.float32, device=dev)
 
-        def build_step(c):
-            return make_em_step(c, self._design, kd_dev, wc_dev,
-                                bucket_batches=plan.batch_sizes)
+        if streamed:
+            # out-of-core: the corpus stays in host memory, one part at a
+            # time moves to the device
+            self._data = None
+
+            def build_step(c):
+                return self._make_streamed_step(
+                    c, buckets[0], aspect_buckets[0], D_buckets[0], kd_dev, wc_dev)
+        else:
+            self._data = CorpusData(
+                words=tuple(torch.as_tensor(b.words, device=dev) for b in buckets),
+                counts=tuple(torch.as_tensor(b.counts, device=dev) for b in buckets),
+                aspects=tuple(torch.as_tensor(a, device=dev) for a in aspect_buckets),
+                doc_ok=tuple(torch.as_tensor(b.doc_ok, device=dev) for b in buckets),
+                D=tuple(torch.as_tensor(d, device=dev) for d in D_buckets),
+            )
+
+            def build_step(c):
+                return make_em_step(c, self._design, kd_dev, wc_dev,
+                                    bucket_batches=plan.batch_sizes)
 
         self._em_step = build_step(config)
         # cold iterations (poor warm starts leave most documents
@@ -255,6 +289,70 @@ class STM:
         self.time_processed: Optional[float] = None
         self.docs_per_sec: Optional[float] = None
         self._overflow_warned = False
+
+    def _make_streamed_step(self, cfg, bucket, aspects_np, D_bucket, kappa_design,
+                            wcounts):
+        """(state, _) -> state over host-resident corpus parts.
+
+        Wraps :class:`~strutopy_tpu_torch.models.streaming.StreamedEM`
+        behind the signature of ``make_em_step``'s step, so
+        ``expectation_maximization`` (checkpoints, resume and the
+        two-pass warm-up switch included) works unchanged: per-part state
+        slices come from the assembled state each call, and the new parts
+        concatenate back.
+
+        The per-iteration reassembly transiently holds about twice the
+        per-document state (eta/mu/theta) on the device; for the tightest
+        memory budget drive ``StreamedEM`` directly and keep the part
+        states."""
+        from strutopy_tpu_torch.models.streaming import StreamedEM
+
+        P = self._stream_parts
+        n_total = bucket.words.shape[0]
+        if n_total % P:
+            # the bucket plan is built with n_devices=stream_parts, which
+            # guarantees divisibility today; pin the invariant so a plan
+            # change cannot silently drop tail documents
+            raise ValueError(
+                f"bucket size {n_total} is not divisible by "
+                f"stream_parts={P}; the padding plan must round to a "
+                "multiple of stream_parts * batch_size"
+            )
+        part = n_total // P
+        W, C, OK = bucket.words, bucket.counts, bucket.doc_ok
+        A = np.ascontiguousarray(aspects_np, np.int32)
+        D32 = np.ascontiguousarray(D_bucket, np.float32)
+
+        def provider(p):
+            s = slice(p * part, (p + 1) * part)
+            return (W[s], C[s], A[s], OK[s], D32[s])
+
+        sem = StreamedEM(
+            cfg, self._design, provider, n_parts=P,
+            kappa_design=kappa_design, wcounts=wcounts, device=self.device,
+        )
+
+        def step(state, _data):
+            parts = [
+                dataclasses.replace(
+                    state,
+                    eta=state.eta[i * part:(i + 1) * part],
+                    mu=state.mu[i * part:(i + 1) * part],
+                    theta=state.theta[i * part:(i + 1) * part],
+                    opt_iters=state.opt_iters[i * part:(i + 1) * part],
+                )
+                for i in range(P)
+            ]
+            shared, new_parts = sem.em_iteration(state, parts)
+            return dataclasses.replace(
+                shared,
+                eta=torch.cat([s.eta for s in new_parts]),
+                mu=torch.cat([s.mu for s in new_parts]),
+                theta=torch.cat([s.theta for s in new_parts]),
+                opt_iters=torch.cat([s.opt_iters for s in new_parts]),
+            )
+
+        return step
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -291,6 +389,7 @@ class STM:
         self._overflow_warned = False
         return self
 
+    @true_float32
     def expectation_maximization(
         self,
         saving: bool = False,
@@ -352,6 +451,8 @@ class STM:
                     )
                 elif ov > 0:
                     logger.debug("EM iteration %d: straggler overflow %d", it, ov)
+            if cfg.debug_checks:
+                validate_state(self._state, it)
             self.last_bounds.append(bound)
             self.iter_seconds.append(it_dt)
             self.docs_per_sec = self.N / max(it_dt, 1e-9)
@@ -434,6 +535,7 @@ class STM:
     # inference on new documents (serving)
     # ------------------------------------------------------------------
 
+    @true_float32
     def transform(self, documents, X=None, beta_index=None):
         """Infer (theta, eta) for NEW documents under the fitted model, in
         the documents' order: one batched E-step with the fitted beta and
@@ -515,3 +617,123 @@ class STM:
             f.write(self.config.to_json())
         with open(os.path.join(output_dir, "vocab.json"), "w") as f:
             json.dump(list(self.dictionary), f)
+
+    # ------------------------------------------------------------------
+    # post-fit analysis (host numpy; see eval/)
+    # ------------------------------------------------------------------
+
+    def label_topics(self, topics=None, n: int = 10, frexweight: float = 0.5,
+                     print_labels: bool = False):
+        return diagnostics.label_topics(
+            self.beta, self.dictionary, topics=topics, n=n,
+            frexweight=frexweight, print_labels=print_labels,
+        )
+
+    def frex(self, w: float = 0.5) -> np.ndarray:
+        beta = self.beta
+        if beta.ndim == 3:
+            beta = beta.mean(axis=0)
+        return diagnostics.frex(beta, w=w)
+
+    def find_thoughts(self, topics, threshold: float = 0.0, n: int = 3):
+        return diagnostics.find_thoughts(self.theta, topics, threshold=threshold, n=n)
+
+    def find_topic(self, query, n: int = 10, weighting: str = "prob",
+                   frexweight: float = 0.5):
+        """Topics most associated with a set of query words (R-stm
+        ``findTopic``; see eval/diagnostics.py::find_topic)."""
+        return diagnostics.find_topic(
+            self.beta, query, self.dictionary, n=n, weighting=weighting,
+            frexweight=frexweight, wcounts=self.wcounts,
+        )
+
+    def sage_labels(self, n: int = 7):
+        """Per-(aspect, topic) top words of a content model (R-stm
+        ``sageLabels`` analogue; see eval/diagnostics.py)."""
+        if self.beta.ndim != 3:
+            raise ValueError("sage_labels needs a content model (A-aspect beta)")
+        return diagnostics.sage_labels(
+            self.beta, self.dictionary, kappa=self.kappa,
+            kappa_design=self._kappa_design, n=n,
+        )
+
+    def exclusivity(self, M: int = 10, w: float = 0.7) -> np.ndarray:
+        beta = self.beta
+        if beta.ndim == 3:
+            beta = beta.mean(axis=0)
+        return diagnostics.exclusivity(beta, M=M, w=w)
+
+    def semantic_coherence(self, M: int = 10) -> np.ndarray:
+        beta = self.beta
+        if beta.ndim == 3:
+            beta = beta.mean(axis=0)
+        return diagnostics.semantic_coherence(beta, self._corpus, M=M)
+
+    def topic_quality(self, M: int = 10, w: float = 0.7) -> dict:
+        """Per-topic coherence/exclusivity pair (R-stm ``topicQuality``
+        axes); plot with :func:`eval.diagnostics.plot_topic_quality`."""
+        return diagnostics.topic_quality(self.beta, self._corpus, M=M, w=w)
+
+    def to_ldavis(self, R: int = 30, lambda_step: float = 0.01,
+                  path: Optional[str] = None) -> dict:
+        """LDAvis JSON payload for the standard topic browser (R-stm
+        ``toLDAvis``); see :func:`strutopy_tpu_torch.eval.ldavis.to_ldavis`."""
+        from strutopy_tpu_torch.eval.ldavis import model_to_ldavis
+
+        return model_to_ldavis(self, R=R, lambda_step=lambda_step, path=path)
+
+    def topic_corr(self, method: str = "simple", cutoff: float = 0.01,
+                   **huge_kwargs):
+        """Topic correlation graph (R-stm ``topicCorr``).
+
+        method="simple": threshold the fitted logistic-normal
+        correlations (returns (adjacency, edges)); method="huge":
+        sparse Gaussian-copula graph on theta via MB neighborhoods +
+        StARS (returns the :func:`eval.graph.topic_graph_huge` dict).
+        Plot either with :func:`eval.graph.plot_topic_graph`.
+        """
+        from strutopy_tpu_torch.eval import graph as _graph
+
+        if method == "simple":
+            return _graph.topic_graph(np.asarray(self.sigma), cutoff=cutoff)
+        if method == "huge":
+            return _graph.topic_graph_huge(np.asarray(self.theta),
+                                           **huge_kwargs)
+        raise ValueError(f"method must be 'simple' or 'huge', got {method!r}")
+
+    def check_residuals(self, tol: float = 0.01) -> dict:
+        """Multinomial dispersion of the fit's residuals (R-stm
+        ``checkResiduals``, Taddy 2012; see eval/residuals.py).
+        Dispersion >> 1 suggests raising K."""
+        from strutopy_tpu_torch.eval.residuals import check_residuals
+
+        beta = self.beta
+        aspect = self.betaindex if beta.ndim == 3 else None
+        return check_residuals(
+            self._corpus, self.theta, beta, tol=tol, aspect=aspect
+        )
+
+    def summary(self, n: int = 5, print_summary: bool = True) -> str:
+        """Printable model overview (R-stm ``summary.STM``): dimensions,
+        convergence, and each topic's highest-probability words."""
+        K = self.config.K
+        lines = [
+            f"A topic model with {K} topics, {self._corpus.N} documents "
+            f"and a {len(self.dictionary)} word dictionary.",
+            f"model_type={self.config.model_type} mode={self.config.mode} "
+            f"content={self.config.content} "
+            f"em_iterations={len(self.last_bounds)} "
+            f"final_bound={self.last_bounds[-1]:.2f}"
+            if self.last_bounds else "(not fitted yet)",
+        ]
+        if self.last_bounds:
+            prob_labels, _frex_labels = self.label_topics(n=n)
+            prop = self.theta.mean(axis=0)
+            lines.append("Topics (highest probability words, mean proportion):")
+            for k in range(K):
+                words = ", ".join(str(w) for w in prob_labels[k])
+                lines.append(f"  {k:>3} ({prop[k]:.3f}): {words}")
+        out = "\n".join(lines)
+        if print_summary:
+            print(out)
+        return out

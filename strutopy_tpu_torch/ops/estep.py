@@ -225,45 +225,76 @@ def _chunks(n: int, B: int):
     return [slice(i, i + B) for i in range(0, n, B)]
 
 
+class _StatsSum:
+    """The E-step's sums over chunks, added in storage order."""
+
+    def __init__(self, beta):
+        K = beta.shape[-2]
+        self.beta_ss = torch.zeros_like(beta)
+        self.sigma_ss = torch.zeros(K - 1, K - 1, dtype=beta.dtype, device=beta.device)
+        self.bound = torch.zeros((), dtype=beta.dtype, device=beta.device)
+        self.thetas = []
+
+    def finalize(self, eta, beta_doc, words, counts, aspects, mu, doc_ok, siginv,
+                 sigmaentropy):
+        """Finalize one chunk at its eta and add its statistics."""
+        theta, nu, bound_d, phi = _finalize_chunk(
+            eta, beta_doc, counts, mu, doc_ok.to(beta_doc.dtype), siginv,
+            sigmaentropy, torch.sum(counts, dim=1))
+        _scatter_phi(self.beta_ss, phi, words, aspects)
+        self.sigma_ss = self.sigma_ss + torch.sum(nu, dim=0)
+        self.bound = self.bound + torch.sum(bound_d)
+        self.thetas.append(theta)
+
+
 def _finalize_all(beta, eta, mu, siginv, sigmaentropy, words, counts, aspects,
                   doc_ok, B):
-    """Finalize every document in storage order, chunk by chunk."""
-    K = beta.shape[-2]
-    beta_ss = torch.zeros_like(beta)
-    sigma_ss = torch.zeros(K - 1, K - 1, dtype=beta.dtype, device=beta.device)
-    bound = torch.zeros((), dtype=beta.dtype, device=beta.device)
-    thetas = []
+    """Finalize every document in storage order, chunk by chunk, from a
+    fresh gather of beta_doc (the two-pass schedule's pass 3)."""
+    acc = _StatsSum(beta)
     for sl in _chunks(words.shape[0], B):
-        w, c = words[sl], counts[sl]
-        bd = _gather_beta(beta, w, aspects[sl])
-        theta, nu, bound_d, phi = _finalize_chunk(
-            eta[sl], bd, c, mu[sl], doc_ok[sl].to(beta.dtype), siginv,
-            sigmaentropy, torch.sum(c, dim=1))
-        _scatter_phi(beta_ss, phi, w, aspects[sl])
-        sigma_ss = sigma_ss + torch.sum(nu, dim=0)
-        bound = bound + torch.sum(bound_d)
-        thetas.append(theta)
-    return beta_ss, sigma_ss, bound, torch.cat(thetas)
+        bd = _gather_beta(beta, words[sl], aspects[sl])
+        acc.finalize(eta[sl], bd, words[sl], counts[sl], aspects[sl], mu[sl],
+                     doc_ok[sl], siginv, sigmaentropy)
+    return acc.beta_ss, acc.sigma_ss, acc.bound, torch.cat(acc.thetas)
 
 
-def _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B, done0=None,
-                use_pallas: bool = False):
-    """Newton over every chunk: (eta, n_iters, done) for all documents;
-    with ``use_pallas`` the whole-loop kernel reports no flags (done is
-    None), as ``pallas_newton_impl`` does."""
-    etas, iters, dones = [], [], []
+def _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
+                       doc_ok, cfg: NewtonConfig, B: int,
+                       use_pallas: bool) -> EStepResult:
+    """One loop over the chunks: gather beta_doc once, solve, finalize
+    (the JAX ``chunk_fn``).  With ``use_pallas`` the whole Newton loop of
+    a chunk is one kernel."""
+    acc = _StatsSum(beta)
+    etas, iters = [], []
     for sl in _chunks(words.shape[0], B):
         bd = _gather_beta(beta, words[sl], aspects[sl])
         if use_pallas:
             eta, it = _newton_loop(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
         else:
-            eta, it, done = _batched_newton(
-                bd, counts[sl], mu[sl], eta0[sl], siginv, cfg,
-                done0=None if done0 is None else done0[sl])
-            dones.append(done)
+            eta, it, _done = _batched_newton(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
+        acc.finalize(eta, bd, words[sl], counts[sl], aspects[sl], mu[sl],
+                     doc_ok[sl], siginv, sigmaentropy)
         etas.append(eta)
         iters.append(it)
-    return torch.cat(etas), torch.cat(iters), torch.cat(dones) if dones else None
+    overflow = torch.zeros((), dtype=torch.int32, device=words.device)
+    return EStepResult(acc.beta_ss, acc.sigma_ss, acc.bound, torch.cat(etas),
+                       torch.cat(acc.thetas), torch.cat(iters), overflow)
+
+
+def _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B, done0=None):
+    """Newton over every chunk (the two-pass schedule's passes 1 and 2):
+    (eta, n_iters, done) for all documents."""
+    etas, iters, dones = [], [], []
+    for sl in _chunks(words.shape[0], B):
+        bd = _gather_beta(beta, words[sl], aspects[sl])
+        eta, it, done = _batched_newton(
+            bd, counts[sl], mu[sl], eta0[sl], siginv, cfg,
+            done0=None if done0 is None else done0[sl])
+        etas.append(eta)
+        iters.append(it)
+        dones.append(done)
+    return torch.cat(etas), torch.cat(iters), torch.cat(dones)
 
 
 def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
@@ -338,9 +369,5 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_
     if pass1_iters:
         return _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts,
                                aspects, doc_ok, cfg, B, pass1_iters, straggler_frac)
-    eta, iters, _ = _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B,
-                                use_pallas=use_pallas)
-    beta_ss, sigma_ss, bound, theta = _finalize_all(
-        beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, doc_ok, B)
-    overflow = torch.zeros((), dtype=torch.int32, device=words.device)
-    return EStepResult(beta_ss, sigma_ss, bound, eta, theta, iters, overflow)
+    return _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts,
+                              aspects, doc_ok, cfg, B, use_pallas)

@@ -8,8 +8,8 @@ jitter.  ``torch.linalg.cholesky_ex`` reports a failed factorization in
 chosen by ``info == 0`` (and a finite factor, which is what the JAX
 ladder tests: JAX fills a failed factor with NaN).
 
-All products here are true float32: the package turns TF32 off at import
-(``strutopy_tpu_torch/__init__.py``), the counterpart of the JAX
+All products here are true float32: the package's entry points turn TF32
+off while they run (``utils/precision.py``), the counterpart of the JAX
 package's ``Precision.HIGH``.
 
 The JAX package's ``blocked_cholesky``, ``tri_lower_inverse`` and

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from strutopy_tpu_torch.corpus.bow import PaddedCorpus, pad_corpus
+from strutopy_tpu_torch.utils.precision import true_float32
 
 logger = logging.getLogger(__name__)
 
@@ -204,6 +205,7 @@ def expand_beta(beta_p, keep, K: int, V: int) -> np.ndarray:
     return beta / beta.sum(axis=1, keepdims=True)
 
 
+@true_float32
 def spectral_init(
     corpus,
     K: int,

@@ -11,8 +11,10 @@ import numpy as np
 from strutopy_tpu_torch.corpus.bow import Vocabulary
 from strutopy_tpu_torch.eval.heldout import cut_in_half, eval_heldout
 from strutopy_tpu_torch.models.stm import STM
+from strutopy_tpu_torch.utils.precision import true_float32
 
 
+@true_float32
 def train_and_eval_heldout(
     train_docs,
     test_docs,

@@ -179,11 +179,41 @@ def test_config_rejects_tpu_only_knobs(field):
     (dict(nu_method="ns"), ValueError),
     (dict(content=True, A=1), ValueError),  # a content model has >= 2 aspects
     (dict(init_type="anchor"), ValueError),
-    (dict(debug_checks=True), NotImplementedError),
+    # debug_checks is ported (tests/test_torch_debug.py); the whole-loop
+    # kernel still excludes the two-pass schedule, as in the JAX package
+    (dict(use_pallas=True, newton_pass1_iters=3), ValueError),
 ])
 def test_config_rejects_what_is_not_ported(kw, exc):
     with pytest.raises(exc):
         STMConfig(K=5, **kw)
+    assert STMConfig(K=5, debug_checks=True).debug_checks
+
+
+def test_stm_signature_is_the_jax_signature():
+    """Positional callers of either package reach the same parameters:
+    name by name and default by default up to ``init_beta``; the port
+    adds only the keyword-only ``device``."""
+    import inspect
+
+    ours = list(inspect.signature(STM.__init__).parameters.values())
+    theirs = list(inspect.signature(JaxSTM.__init__).parameters.values())
+    assert theirs[-1].name == "init_beta"
+    assert [p.name for p in ours[:len(theirs)]] == [p.name for p in theirs]
+    for a, b in zip(ours, theirs):
+        assert a.default is b.default or a.default == b.default, a.name
+        assert a.kind == b.kind, a.name
+    extra = ours[len(theirs):]
+    assert [p.name for p in extra] == ["device"]
+    assert extra[0].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_stm_accepts_dtype_and_refuses_mesh():
+    docs, X = _docs(N=8)
+    m = STM(docs, None, False, 3, X, False, 2, 0.0, 1e-5, True, None, None, np.float32,
+            "random", device="cpu")
+    assert m.config.init_type == "random" and m.config.max_em_iter == 2
+    with pytest.raises(NotImplementedError, match="Queue A"):
+        STM(docs, K=3, init_type="random", mesh=object(), device="cpu")
 
 
 def test_config_reads_the_jax_json():

@@ -178,3 +178,87 @@ def test_likelihood_temper_scales_the_search_only():
     eta_h, _, _ = estep._batched_newton(bd, 0.5 * T(x["counts"]), T(x["mu"]), T(x["eta0"]),
                                         si, estep.NewtonConfig())
     assert torch.equal(eta_t, eta_h)
+
+
+def _two_loop_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok,
+                    cfg, B, use_pallas):
+    """The single-pass E-step as it was before it became one loop: Newton
+    over every chunk, then a finalize over every chunk from a second
+    gather.  Kept here as the reference of the bit-equality test."""
+    N, K = words.shape[0], beta.shape[-2]
+    etas, iters = [], []
+    for lo in range(0, N, B):
+        sl = slice(lo, lo + B)
+        bd = estep._gather_beta(beta, words[sl], aspects[sl])
+        if use_pallas:
+            eta, it = estep._newton_loop(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
+        else:
+            eta, it, _ = estep._batched_newton(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
+        etas.append(eta)
+        iters.append(it)
+    eta, iters = torch.cat(etas), torch.cat(iters)
+    beta_ss = torch.zeros_like(beta)
+    sigma_ss = torch.zeros(K - 1, K - 1)
+    bound = torch.zeros(())
+    thetas = []
+    for lo in range(0, N, B):
+        sl = slice(lo, lo + B)
+        w, c = words[sl], counts[sl]
+        bd = estep._gather_beta(beta, w, aspects[sl])
+        theta, nu, bound_d, phi = estep._finalize_chunk(
+            eta[sl], bd, c, mu[sl], doc_ok[sl].to(beta.dtype), siginv, sigmaentropy,
+            torch.sum(c, dim=1))
+        estep._scatter_phi(beta_ss, phi, w, aspects[sl])
+        sigma_ss = sigma_ss + torch.sum(nu, dim=0)
+        bound = bound + torch.sum(bound_d)
+        thetas.append(theta)
+    return estep.EStepResult(beta_ss, sigma_ss, bound, eta, torch.cat(thetas), iters,
+                             torch.zeros((), dtype=torch.int32))
+
+
+def _count_gathers(monkeypatch):
+    calls = []
+    real = estep._gather_beta
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(estep, "_gather_beta", counted)
+    return calls, real
+
+
+@pytest.mark.parametrize("path", ["stages", "pallas_iter", "use_pallas"])
+def test_single_pass_gathers_once_a_chunk(path, monkeypatch):
+    """The single-pass E-step gathers beta_doc once a chunk (the JAX
+    ``chunk_fn``) and its result equals the two-loop form bit for bit:
+    the sums run in storage order either way."""
+    x = _corpus(seed=13)
+    T = torch.tensor
+    N, B = len(x["words"]), 16
+    si, se = precompute_sigma(T(x["sigma"]))
+    args = (T(x["beta"]), T(x["mu"]), T(x["eta0"]), si, se, T(x["words"]),
+            T(x["counts"]), torch.zeros(N, dtype=torch.int32), T(x["doc_ok"]))
+    cfg = estep.NewtonConfig(pallas_iter=path == "pallas_iter")
+    use_pallas = path == "use_pallas"
+    want = _two_loop_estep(*args, cfg, B, use_pallas)
+    calls, _ = _count_gathers(monkeypatch)
+    got = estep.run_estep(*args, cfg=cfg, batch_size=B, use_pallas=use_pallas)
+    assert len(calls) == N // B
+    for name in estep.EStepResult._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_two_pass_keeps_its_gathers(monkeypatch):
+    """Pass 1 gathers every chunk, pass 2 the straggler chunks, pass 3
+    every chunk again, as the JAX two-pass schedule does."""
+    x = _corpus(seed=13)
+    T = torch.tensor
+    N, B = len(x["words"]), 16
+    si, se = precompute_sigma(T(x["sigma"]))
+    calls, _ = _count_gathers(monkeypatch)
+    estep.run_estep(T(x["beta"]), T(x["mu"]), T(x["eta0"]), si, se, T(x["words"]),
+                    T(x["counts"]), torch.zeros(N, dtype=torch.int32), T(x["doc_ok"]),
+                    cfg=estep.NewtonConfig(), batch_size=B, pass1_iters=2,
+                    straggler_frac=0.5)
+    assert len(calls) == N // B + (N // 2) // B + N // B
