@@ -88,7 +88,26 @@ end, without the final result line):
      its bound and the chunk's other steps,
      ``estimate_effect_composition``, ``label_topics``, ``topic_quality``,
      ``check_residuals``, ``topic_corr``, ``to_ldavis``, ``summary``; a fit
-     with ``debug_checks=True``, and ``validate_state`` on a damaged state.
+     with ``debug_checks=True``, and ``validate_state`` on a damaged state;
+ 11. raw text to theta at full width: (a) the bench corpus rendered as
+     text (each word id a letters-only token, shuffled, with punctuation,
+     digits and upper case mixed in), ``build_corpus`` on its native path
+     (the ingest library built under ``build/native/``) and its Python
+     path, both equal to the rendered corpus, docs/s of each; (b)
+     ``pipeline.fit_model`` from that vocabulary (spectral, 3 EM
+     iterations): artifact set with ``vocab.json`` and ``fit_config.json``;
+     (c) 2,048 new documents as text, with tokens and two documents out of
+     the vocabulary, through ``ThetaServer.infer_text``: equal bit for bit
+     to ``infer(align_corpus(texts))``, the report's counts exact, eta
+     against the CPU port's on 256 of them where both converge, requests
+     of 1, 16, 256 and 2,048 texts timed with the host's encode apart from
+     the card's infer; (d) the CLI in this process: ``fit`` from a .mm file
+     read by the native reader (cold iterations against an in-process
+     ``fit_model``), ``find-k``, ``search-k``, ``select``, ``synth`` and
+     ``train-eval --fast`` at K=100, V=10,000, 8,192 documents, and
+     ``python -m strutopy_tpu_torch.cli infer --text`` in a subprocess
+     against (c); (e) ``select_model``'s peak device memory at 2 and 4
+     runs (stage-1 states parked on the host); ``native/`` unchanged.
 
 The last three lines of standard output are the card line, one JSON
 object of per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -99,6 +118,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1825,6 +1845,423 @@ def phase_analysis(torch, stages, fails, model, corpus, X, card, n_cpu=1024):
     return {"fgh": fgh_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: raw text to theta, the corpus readers, the pipeline and the CLI
+# ---------------------------------------------------------------------------
+
+FIT_ARTIFACTS = {"beta_hat.npy", "theta_hat.npy", "sigma_hat.npy", "eta_hat.npy",
+                 "mu_hat.npy", "gamma_hat.npy", "X.npy", "lower_bound.pickle",
+                 "fit_health.json", "stm_config.json", "vocab.json", "fit_config.json"}
+CLI_COLD_RTOL = 1e-4  # CLI fit vs the in-process fit, on its cold iterations
+TEXT_ETA_ATOL = 5e-3  # card vs CPU, and the CLI subprocess vs in-process, where converged
+OOV_WORDS = ("zzoovx", "zzoovy", "zzoovz")  # letters only, in no vocabulary
+
+
+def native_listing(root):
+    """(name, size, mtime) of every file under ``native/``: the port builds
+    its ingest library under ``build/native/`` and must change nothing here."""
+    from pathlib import Path
+
+    return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns)
+                  for p in (Path(root) / "native").iterdir())
+
+
+def token_names(V):
+    """Word id -> "q" + base-26 letters of fixed width: letters only, kept by
+    ``tokenize``, in no stopword list, and sorted as the ids are."""
+    width = 1
+    while 26 ** width < V:
+        width += 1
+    ids = np.arange(V)
+    letters = [np.array(list("abcdefghijklmnopqrstuvwxyz"))[(ids // 26 ** k) % 26]
+               for k in range(width - 1, -1, -1)]
+    return np.array(["q" + "".join(t) for t in zip(*letters)])
+
+
+def render_texts(docs, names, seed):
+    """Each BoW document as text: its tokens shuffled, some upper-cased,
+    joined by spaces, punctuation, digits, tabs and newlines."""
+    rng = np.random.default_rng(seed)
+    upper = np.char.upper(names)
+    seps = np.array([" ", " ", " ", ", ", ". ", "; ", " - ", " (", ") ", " 42 ", "7", "!\n",
+                     "\t", "'s "])
+    texts = []
+    for doc in docs:
+        if not doc:
+            texts.append("")
+            continue
+        ids, cnt = (np.array(x) for x in zip(*doc))
+        toks = rng.permutation(np.repeat(ids, cnt))
+        words = np.where(rng.random(len(toks)) < 0.1, upper[toks], names[toks])
+        gaps = seps[rng.integers(0, len(seps), len(toks))]
+        texts.append("".join(np.column_stack([words, gaps]).ravel().tolist()))
+    return texts
+
+
+def expected_encoding(docs, names, vocab):
+    """What encoding ``docs``' texts against ``vocab`` must give: each
+    document's (vocabulary id, count) pairs, and its word ids outside it."""
+    index = {t: i for i, t in enumerate(vocab)}
+    bow, oov = [], []
+    for doc in docs:
+        bow.append(sorted((index[names[w]], int(c)) for w, c in doc if names[w] in index))
+        oov.append([(int(w), int(c)) for w, c in doc if names[w] not in index])
+    return bow, oov
+
+
+def text_requests(docs, names, vocab, seed=12):
+    """``docs`` rendered as texts, the first 16 with out-of-vocabulary words
+    appended and the last two replaced by such words and stopwords only;
+    with the encoding and the report that ``align_corpus`` must give
+    against ``vocab``: (texts, bow, report)."""
+    docs = list(docs[:-2]) + [[], []]
+    texts = render_texts(docs, names, seed)
+    for d in range(16):
+        texts[d] += " " + " ".join([OOV_WORDS[d % 3]] * (d % 3 + 1))
+    texts[-2:] = ["zzoovx, the and! 12", "ZZOOVY zzoovz of"]
+    bow, oov = expected_encoding(docs, names, vocab)
+    report = {
+        "tokens_dropped": sum(c for doc in oov for _, c in doc)
+        + sum(d % 3 + 1 for d in range(16)) + 3,
+        "oov_types": len({names[w] for doc in oov for w, _ in doc} | set(OOV_WORDS)),
+        "docs_emptied": 2 + sum(1 for doc, b in zip(docs[:-2], bow) if doc and not b),
+    }
+    return texts, bow, report
+
+
+def check_text_corpus(fails, native_out, python_out, docs, names):
+    """11a: the native and Python paths of ``build_corpus`` give the same
+    vocabulary and documents, and those are the rendered corpus's: the
+    tokens of the ids that occur, in id order, each document's counts."""
+    (bow_n, vocab_n), (bow_p, vocab_p) = native_out, python_out
+    used = sorted({w for doc in docs for w, _ in doc})
+    want_vocab = [str(names[w]) for w in used]
+    want_bow, _ = expected_encoding(docs, names, want_vocab)
+    same = list(vocab_n) == list(vocab_p) and bow_n == bow_p
+    fails.check(same and list(vocab_n) == want_vocab and bow_n == want_bow,
+                f"build_corpus: native and Python paths identical ({same}); vocabulary of "
+                f"{len(vocab_n)} tokens, {len(bow_n)} documents, equal to the rendered corpus's "
+                f"({len(want_vocab)} tokens)")
+
+
+def check_fit_artifacts(fails, files, bounds, launches, label):
+    """11b / 11d: the artifact set with ``vocab.json`` and ``fit_config.json``,
+    every bound finite, B1-B3 launched."""
+    missing = sorted(FIT_ARTIFACTS - set(files))
+    fails.check(not missing and len(bounds) > 0 and bool(np.all(np.isfinite(bounds)))
+                and all(launches.get(k, 0) > 0 for k in ("fgh", "cg", "ls")),
+                f"{label}: artifact set complete (missing {missing}), {len(bounds)} bounds "
+                f"finite, launches {launches}")
+
+
+def check_infer_text(fails, got, via_align, want_bow, want_report, K):
+    """11c: ``infer_text`` is ``align_corpus`` then ``infer``, exactly; its
+    report carries the encoded BoW and the right out-of-vocabulary counts."""
+    theta, eta, report = got
+    theta2, eta2, bow2 = via_align
+    counts = {k: report.get(k) for k in ("tokens_dropped", "oov_types", "docs_emptied")}
+    fails.check(report.get("bow") == bow2 == want_bow and counts == want_report
+                and np.array_equal(theta, theta2) and np.array_equal(eta, eta2)
+                and simplex_ok(theta, len(want_bow), K),
+                f"infer_text({len(want_bow)} texts) equals infer(align_corpus(texts)) bit for bit; "
+                f"report {counts} (want {want_report}), report['bow'] the expected encoding")
+
+
+def check_parking(fails, peaks, state_bytes):
+    """11e: select_model parks stage-1 states on the host: its peak device
+    memory grows by less than one state from runs=2 to runs=4."""
+    grow = peaks[4] - peaks[2]
+    fails.check(grow < state_bytes,
+                f"select_model peak device memory above base: runs=2 {peaks[2] / 1e6:.2f} MB, "
+                f"runs=4 {peaks[4] / 1e6:.2f} MB, growth {grow / 1e6:.2f} MB < one state "
+                f"{state_bytes / 1e6:.2f} MB")
+
+
+def check_eta_where_converged(fails, gm, gm_ref, eta, eta_ref, label):
+    """Two serves of the same documents: eta within TEXT_ETA_ATOL on every
+    document both bring below STALL_G (a document stalled at the float32
+    floor stops where its path took it)."""
+    both = (gm <= STALL_G) & (gm_ref <= STALL_G)
+    d = float(np.abs(eta - eta_ref)[both].max()) if both.any() else float("inf")
+    fails.check(d <= TEXT_ETA_ATOL and both.sum() >= 0.9 * len(gm),
+                f"{label}: max |diff| {d:.3e} on the {int(both.sum())} of {len(gm)} documents "
+                f"both bring below {STALL_G:.0e} (tol {TEXT_ETA_ATOL:.0e}); over all "
+                f"{float(np.abs(eta - eta_ref).max()):.3e}")
+
+
+def state_nbytes(state):
+    import dataclasses
+
+    return sum(getattr(state, f.name).numel() * getattr(state, f.name).element_size()
+               for f in dataclasses.fields(state))
+
+
+def run_cli(stages, argv):
+    """``cli.main(argv)`` in this process (so launches are counted):
+    (standard output, seconds, B1-B3 launches)."""
+    import contextlib
+    import io
+
+    from strutopy_tpu_torch import cli
+
+    reset(stages)
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue(), time.time() - t0, {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+
+
+def phase_text_fit(torch, stages, fails, docs, X, card, model_dir):
+    """11a and 11b: the bench corpus rendered as text, encoded on both paths
+    of ``build_corpus``, then fitted from its vocabulary with ``fit_model``.
+    Returns (names, bow, vocab, model, B1-B3 launches of the fit)."""
+    from strutopy_tpu_torch.corpus import native
+    from strutopy_tpu_torch.corpus.preprocess import build_corpus
+    from strutopy_tpu_torch.pipeline import fit_model
+
+    t0 = time.time()
+    names = token_names(V_BENCH)
+    texts = render_texts(docs, names, seed=21)
+    t_render = time.time() - t0
+    t0 = time.time()
+    built = native.available()  # compiles the library at first use: outside the timed calls
+    t_build = time.time() - t0
+    lib = native.LIB_PATH
+    fails.check(built and lib.exists() and lib.parent.parts[-2:] == ("build", "native"),
+                f"native ingest library at {lib}, ready in {t_build:.2f} s")
+    walls = {}
+    outs = {}
+    for path, use_native in (("native", True), ("python", False)):
+        t0 = time.time()
+        outs[path] = build_corpus(texts, use_native=use_native)
+        walls[path] = time.time() - t0
+    n_tok = sum(c for doc in docs for _, c in doc)
+    print(f"phase 11a: {len(texts)} texts ({n_tok} tokens, {sum(map(len, texts))} characters) "
+          f"rendered in {t_render:.2f} s; build_corpus native {walls['native']:.3f} s = "
+          f"{len(texts) / walls['native']:.1f} docs/s, Python {walls['python']:.3f} s = "
+          f"{len(texts) / walls['python']:.1f} docs/s [{card}]")
+    check_text_corpus(fails, outs["native"], outs["python"], docs, names)
+    bow, vocab = outs["native"]
+
+    reset(stages)
+    model, sec = timed(torch, lambda: fit_model(
+        bow, K=K_BENCH, X=X, dictionary=vocab, init_type="spectral", max_em_iter=3,
+        output_dir=model_dir, device="cuda"))
+    launches = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+    print(f"phase 11b: fit_model(bow, K={K_BENCH}, dictionary=vocab, spectral, 3 EM) {sec:.2f} s: "
+          f"bounds {[round(b, 2) for b in model.last_bounds]}, per iteration "
+          f"{[round(s, 4) for s in model.iter_seconds]} s [{card}]")
+    check_fit_artifacts(fails, os.listdir(model_dir), model.last_bounds, launches,
+                        "fit_model from text")
+    return names, bow, vocab, model, launches
+
+
+def phase_text_serve(torch, stages, fails, model_dir, names, card, n_docs=2048, n_cpu=256):
+    """11c: 2,048 new documents of the recipe as text, served from the
+    text-built model by ``ThetaServer.infer_text``; some tokens and two
+    whole documents out of the vocabulary.  Returns (texts, X, theta, max|g|
+    of each served document, B1-B3 launches of the request)."""
+    from strutopy_tpu_torch import ThetaServer
+    from strutopy_tpu_torch.corpus.preprocess import align_corpus
+
+    new_docs, Xn = make_corpus(K_BENCH, V_BENCH, n_docs, WORDS_BENCH, seed=11)
+    srv = ThetaServer(model_dir, device="cuda")
+    texts, want_bow, want_report = text_requests(new_docs, names, srv.vocab)
+
+    srv.warmup()
+    reset(stages)
+    got, sec = timed(torch, lambda: srv.infer_text(texts, X=Xn))
+    launches = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+    bow, _rep = align_corpus(texts, srv.vocab)
+    theta2, eta2 = srv.infer(bow, X=Xn)
+    print(f"phase 11c: infer_text({n_docs} texts) {sec:.3f} s, launches {launches} [{card}]")
+    check_infer_text(fails, got, (theta2, eta2, bow), want_bow, want_report, K_BENCH)
+    theta, eta, _report = got
+
+    srv_cpu = ThetaServer(model_dir, device="cpu")
+    (_t, eta_cpu, rep_cpu), sec_cpu = timed(torch, lambda: srv_cpu.infer_text(
+        texts[:n_cpu], X=Xn[:n_cpu]))
+    gm, gm_cpu = served_gmax(torch, stages, srv, bow[:n_cpu], Xn[:n_cpu],
+                             (eta[:n_cpu], eta_cpu))
+    fails.check(rep_cpu["bow"] == bow[:n_cpu], f"the CPU port encodes the first {n_cpu} texts "
+                                                f"as the card's server does")
+    check_eta_where_converged(fails, gm, gm_cpu, eta[:n_cpu], eta_cpu,
+                              f"infer_text eta, card vs CPU ({sec_cpu:.1f} s), {n_cpu} texts")
+    gmax = served_gmax(torch, stages, srv, bow, Xn, (eta,))[0]
+
+    for n in (1, 16, 256, n_docs):
+        srv.infer_text(texts[:n], X=Xn[:n])  # warm this request's shapes
+        enc, inf = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            b, _ = align_corpus(texts[:n], srv.vocab)
+            t1 = time.perf_counter()
+            srv.infer(b, X=Xn[:n])
+            enc.append(t1 - t0)
+            inf.append(time.perf_counter() - t1)
+        e, i = 1e3 * float(np.median(enc)), 1e3 * float(np.median(inf))
+        print(f"  infer_text {n} texts: encode (host) {e:.3f} ms + infer (card) {i:.3f} ms = "
+              f"{1e3 * n / (e + i):.1f} docs/s (median of 3) [{card}]")
+    return texts, Xn, theta, gmax, launches
+
+
+def phase_cli(torch, stages, fails, work, bow, vocab, X, texts, Xn, theta_text, gmax, card):
+    """11d: the CLI in this process on the default device: fit from a .mm
+    file read natively, find-k, search-k, select, synth and train-eval; then
+    ``infer --text`` in a subprocess.  Returns each call's B1-B3 launches."""
+    import pickle
+
+    from strutopy_tpu_torch.cli import _load_corpus
+    from strutopy_tpu_torch.corpus.bow import PaddedCorpus, pad_corpus, to_bow
+    from strutopy_tpu_torch.corpus.io import write_mm
+    from strutopy_tpu_torch.pipeline import fit_model
+
+    launches = {}
+    pc = pad_corpus(bow, V=len(vocab))
+    mm, Xp = os.path.join(work, "bench.mm"), os.path.join(work, "X.npy")
+    t0 = time.time()
+    write_mm(mm, pc)
+    t_write = time.time() - t0
+    np.save(Xp, X)
+    loaded, t_read = timed(torch, lambda: _load_corpus(mm))
+    same = (isinstance(loaded, PaddedCorpus) and loaded.V == pc.V
+            and [sorted(d) for d in to_bow(loaded)] == [sorted(d) for d in to_bow(pc)])
+    fails.check(same, f"write_mm ({t_write:.2f} s, {os.path.getsize(mm) / 1e6:.1f} MB) and the "
+                      f"native .mm reader ({t_read:.3f} s): the same documents and V={loaded.V}")
+
+    out_dir = os.path.join(work, "cli_fit")
+    text, sec, launches["fit"] = run_cli(stages, ["fit", "--corpus", mm, "--X", Xp, "--K",
+                                                  str(K_BENCH), "--max-em-iter", "3",
+                                                  "--out", out_dir])
+    with open(os.path.join(out_dir, "lower_bound.pickle"), "rb") as f:
+        bounds = pickle.load(f)
+    check_fit_artifacts(fails, os.listdir(out_dir), bounds, launches["fit"], "CLI fit")
+    ref = fit_model(pc, K=K_BENCH, X=X, init_type="spectral", max_em_iter=3, device="cuda")
+    cold = ref.config.newton_warmup_iters
+    rel = [abs(a - b) / abs(b) for a, b in zip(bounds, ref.last_bounds)]
+    print(f"phase 11d: CLI fit {sec:.2f} s: bounds {[round(b, 2) for b in bounds]}; in-process "
+          f"fit_model on the same PaddedCorpus {[round(b, 2) for b in ref.last_bounds]}; "
+          f"relative gaps {[f'{r:.2e}' for r in rel]} [{card}]")
+    fails.check(len(bounds) == len(ref.last_bounds) == 3
+                and max(rel[:cold]) <= CLI_COLD_RTOL,
+                f"CLI fit vs in-process fit, cold iterations EM 0..{cold - 1}: relative gap "
+                f"{max(rel[:cold]):.2e} (tol {CLI_COLD_RTOL:.0e}); later ones printed, not held")
+    del ref
+
+    ks = [str(K_BENCH // 2), str(K_BENCH)]
+    text, sec, launches["find-k"] = run_cli(stages, ["find-k", "--corpus", mm, "--K", *ks,
+                                                     "--fast", "--max-em-iter", "3"])
+    res = json.loads(text[text.index("{"):])["STM"]
+    print(f"  CLI find-k {sec:.2f} s: {res}; launches {launches['find-k']} [{card}]")
+    fails.check(set(res) == set(ks) and all(np.isfinite(v) for v in res.values()),
+                "CLI find-k: a finite heldout value at each K")
+
+    text, sec, launches["search-k"] = run_cli(stages, ["search-k", "--corpus", mm, "--K",
+                                                       str(K_BENCH), "--max-em-iter", "3"])
+    row = json.loads(text[text.index("{"):])[str(K_BENCH)]
+    print(f"  CLI search-k {sec:.2f} s: {row} [{card}]")
+    fails.check(all(np.isfinite(row[k]) for k in ("heldout", "bound", "coherence",
+                                                  "exclusivity", "dispersion")),
+                "CLI search-k: heldout, bound, coherence, exclusivity, dispersion finite")
+
+    text, sec, launches["select"] = run_cli(stages, [
+        "select", "--corpus", mm, "--K", str(K_BENCH), "--runs", "4", "--cast-iters", "2",
+        "--keep", "2", "--max-em-iter", "4"])
+    res = json.loads(text[text.index("{"):])
+    print(f"  CLI select {sec:.2f} s: cast bounds {[round(r['cast_bound'], 2) for r in res['runs']]}, "
+          f"kept {res['kept']}, selected {res['selected']}; launches {launches['select']} [{card}]")
+    fails.check(len(res["runs"]) == 4 and len(res["kept"]) == 2 and res["selected"] in res["kept"]
+                and all(np.isfinite(res["runs"][r]["bound"]) for r in res["kept"]),
+                "CLI select: 4 runs cast, 2 kept and run on, the selected one among them")
+
+    synth = os.path.join(work, "synth")
+    _text, sec, _ = run_cli(stages, ["synth", "--K", str(K_BENCH), "--n-corpora", "1",
+                                     "--n-docs", str(N_BENCH), "--n-words", str(WORDS_BENCH),
+                                     "--V", str(V_BENCH), "--gamma-factors", "1", "--out", synth])
+    print(f"  CLI synth ({N_BENCH} documents) {sec:.2f} s [{card}]")
+    text, sec, launches["train-eval"] = run_cli(stages, [
+        "train-eval", "--corpus-dir", os.path.join(synth, f"K{K_BENCH}_gf1.0", "0"),
+        "--K", str(K_BENCH), "--fast", "--max-em-iter", "3"])
+    ll = float(text.split("heldout log-likelihood:")[1].split()[0])
+    print(f"  CLI train-eval --fast {sec:.2f} s: heldout {ll:.6f}; launches "
+          f"{launches['train-eval']} [{card}]")
+    fails.check(bool(np.isfinite(ll)) and ll < 0, f"CLI train-eval: heldout {ll:.6f} finite")
+
+    req, Xnp, out = (os.path.join(work, n) for n in ("requests.json", "Xn.npy", "theta.npy"))
+    with open(req, "w") as f:
+        json.dump([{"text": t} for t in texts], f)
+    np.save(Xnp, Xn)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "strutopy_tpu_torch.cli", "infer",
+                           "--model-dir", os.path.join(work, "text_model"), "--text", req,
+                           "--X", Xnp, "--out", out], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    sec = time.time() - t0
+    ok = proc.returncode == 0 and os.path.exists(out)
+    theta_sub = np.load(out) if ok else np.full_like(theta_text, np.nan)
+    print(f"  python -m strutopy_tpu_torch.cli infer --text ({len(texts)} texts) in a subprocess: "
+          f"{sec:.2f} s, rc {proc.returncode}; {proc.stdout.strip().splitlines()[:1]} [{card}]")
+    if not ok:
+        print(proc.stderr[-2000:])
+    conv = gmax <= STALL_G
+    d = float(np.abs(theta_sub - theta_text)[conv].max()) if conv.any() else float("inf")
+    fails.check(ok and d <= TEXT_ETA_ATOL,
+                f"CLI infer --text in a subprocess vs infer_text in this one: max |theta diff| "
+                f"{d:.3e} on the {int(conv.sum())} converged documents (tol {TEXT_ETA_ATOL:.0e})")
+    return launches
+
+
+def phase_parking(torch, fails, corpus, state_bytes, card):
+    """11e: select_model's peak device memory at runs=2 and runs=4."""
+    import gc
+
+    from strutopy_tpu_torch.pipeline import select_model
+
+    peaks = {}
+    for runs in (2, 4):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, sec = timed(torch, lambda: select_model(corpus, K=K_BENCH, runs=runs, cast_iters=1,
+                                                   keep=1, max_em_iter=2, return_models=False,
+                                                   device="cuda"))
+        peaks[runs] = torch.cuda.max_memory_allocated() - base
+        print(f"phase 11e: select_model(runs={runs}, cast 1, keep 1, 2 EM) {sec:.2f} s, peak "
+              f"{peaks[runs] / 1e6:.2f} MB above base [{card}]")
+    check_parking(fails, peaks, state_bytes)
+
+
+def phase_text_cli(torch, stages, fails, docs, corpus, X, card, native_before):
+    """Phase 11 (see the module docstring).  Returns B1-B3 launches by path."""
+    import tempfile
+
+    from strutopy_tpu_torch.ops import build
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
+        model_dir = os.path.join(work, "text_model")
+        names, bow, vocab, model, fit_launches = phase_text_fit(
+            torch, stages, fails, docs, X, card, model_dir)
+        state_bytes = state_nbytes(model._state)
+        del model
+        texts, Xn, theta, gmax, serve_launches = phase_text_serve(
+            torch, stages, fails, model_dir, names, card)
+        cli_launches = phase_cli(torch, stages, fails, work, bow, vocab, X, texts, Xn, theta,
+                                 gmax, card)
+    phase_parking(torch, fails, corpus, state_bytes, card)
+    after = native_listing(os.path.dirname(os.path.abspath(__file__)))
+    fails.check(after == native_before, f"native/ unchanged: {after}")
+    print(f"phase 11 took {time.time() - t_phase:.1f} s [{card}]")
+    return {"text fit (phase 11)": fit_launches, "infer_text (phase 11)": serve_launches,
+            "CLI fit (phase 11)": cli_launches["fit"], "select (phase 11)": cli_launches["select"],
+            "CLI find-k, train-eval (phase 11)": {
+                k: cli_launches["find-k"][k] + cli_launches["train-eval"][k]
+                for k in ("fgh", "cg", "ls")}}
+
+
 def main() -> int:
     import torch
 
@@ -1839,6 +2276,7 @@ def main() -> int:
     from strutopy_tpu_torch.ops import build, stages
 
     global CARD
+    native_before = native_listing(os.path.dirname(os.path.abspath(__file__)))
     watch_collector()
     fails = Failures()
     card = CARD = card_line()
@@ -1917,6 +2355,14 @@ def main() -> int:
         torch, stages, fails, corpus, X, card, default_model, default_launches, content_bounds)
     paths["simulate_theta (phase 10)"] = phase_analysis(
         torch, stages, fails, default_model, corpus, X, card)
+    del default_model
+
+    # ----- phase 11: raw text to theta, the corpus readers, the pipeline and the CLI -----
+    text_paths = phase_text_cli(torch, stages, fails, docs, corpus, X, card, native_before)
+    paths.update(text_paths)
+    for path in ("CLI fit (phase 11)", "select (phase 11)", "infer_text (phase 11)"):
+        fails.check(all(text_paths[path][k] > 0 for k in ("fgh", "cg", "ls")),
+                    f"{path}: B1-B3 launched {text_paths[path]}")
     print(f"launches of B1-B3 by path: {paths}")
 
     print(f"total {time.time() - t_start:.1f} s")

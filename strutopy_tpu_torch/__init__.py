@@ -3,8 +3,11 @@
 The port of ``strutopy_tpu`` (JAX) to PyTorch, with the E-step's Newton
 solve as hand-written CUDA kernels for Hopper (``csrc/``): the fit
 (spectral or random init, LDA beta or the content model, checkpoints),
-heldout evaluation, serving from saved artifacts, out-of-core fits
-(``StreamedEM``) and the post-fit analysis of ``eval/``.
+heldout evaluation, serving from saved artifacts and from raw text,
+out-of-core fits (``StreamedEM``), the post-fit analysis of ``eval/``,
+text preprocessing and corpus readers (``corpus/``, with the native
+ingest library built from ``native/``), the experiment pipeline
+(``pipeline.py``) and the command line (``python -m strutopy_tpu_torch.cli``).
 It imports torch and numpy only, never jax or ``strutopy_tpu``.
 
 Precision: every model quantity is true float32.  A float32 matmul on
@@ -26,6 +29,8 @@ from strutopy_tpu_torch.models.serving import (
 from strutopy_tpu_torch.models.stm import STM
 from strutopy_tpu_torch.models.streaming import StreamedEM
 
+__version__ = "0.1.0"
+
 __all__ = [
     "PaddedCorpus",
     "Vocabulary",
@@ -40,4 +45,5 @@ __all__ = [
     "eval_heldout",
     "cut_in_half",
     "split_corpus",
+    "__version__",
 ]

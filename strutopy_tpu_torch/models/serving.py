@@ -10,11 +10,12 @@ training corpus::
     srv.warmup()
     theta, eta = srv.infer(new_docs, X=X_new)
 
-The E-step runs on whichever Newton path the configuration selects: the
-stage kernels (default), the fused iteration (``pallas_iter``) or the
-whole-loop kernel (``use_pallas``).  Not ported yet: raw-text requests
-(``infer_text`` needs ``corpus/preprocess.py``) and the mesh paths
-(ROADMAP.md Queue A items 12 and 14).
+Raw-text requests go through ``ThetaServer.infer_text``, which encodes
+them against the model's saved ``vocab.json`` (``corpus/preprocess.py::
+align_corpus``) and infers.  The E-step runs on whichever Newton path the
+configuration selects: the stage kernels (default), the fused iteration
+(``pallas_iter``) or the whole-loop kernel (``use_pallas``).  Not ported:
+the mesh paths (ROADMAP.md Queue A item 8).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from strutopy_tpu_torch.corpus.bucketing import (
     split_corpus_by_plan,
 )
 from strutopy_tpu_torch.corpus.io import load_model_artifacts
+from strutopy_tpu_torch.corpus.preprocess import DEFAULT_STOPWORDS, align_corpus
 from strutopy_tpu_torch.models.config import STMConfig
 from strutopy_tpu_torch.models.em import CorpusData, local_estep_stats
 from strutopy_tpu_torch.models.state import STMState
@@ -287,12 +289,22 @@ class ThetaServer:
 
     def infer_text(self, texts, X=None, beta_index=None, full_convergence: bool = True,
                    stopwords="default"):
-        """Raw-text requests: not ported yet."""
-        raise NotImplementedError(
-            "infer_text needs the text preprocessing of corpus/preprocess.py, "
-            "not ported yet: ROADMAP.md Queue A item 12; pass pre-encoded BoW "
-            "documents to infer()"
-        )
+        """(theta, eta, report) for RAW TEXT requests: tokenizes and
+        encodes against the model's saved vocabulary (align_corpus),
+        then infers.  ``report`` is align_corpus's OOV loss summary
+        plus the encoded BoW under ``"bow"``."""
+        if self.vocab is None:
+            raise ValueError(
+                "this artifact directory has no vocab.json (written by "
+                "save_model); re-save the model or pass pre-encoded BoW "
+                "documents to infer()"
+            )
+        if stopwords == "default":
+            stopwords = DEFAULT_STOPWORDS
+        bow, report = align_corpus(texts, self.vocab, stopwords=stopwords)
+        theta, eta = self.infer(bow, X=X, beta_index=beta_index,
+                                full_convergence=full_convergence)
+        return theta, eta, dict(report, bow=bow)
 
     def warmup(self, n_docs: int = 1, doc_len: int = 64) -> None:
         """Build the kernels (on a GPU) and serve one request of ``n_docs``

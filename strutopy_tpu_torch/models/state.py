@@ -73,3 +73,10 @@ def init_state(K: int, V: int, N: int, P: int, beta_init: np.ndarray,
         opt_iters=zeros(N, dt=torch.int32),
         straggler_overflow=zeros(dt=torch.int32),
     )
+
+
+def state_to(state: STMState, device) -> STMState:
+    """A copy of ``state`` with every tensor on ``device`` (``"cpu"`` parks a
+    state on the host, as the JAX package's ``jax.device_get`` does)."""
+    return STMState(**{f.name: getattr(state, f.name).to(device)
+                       for f in dataclasses.fields(state)})

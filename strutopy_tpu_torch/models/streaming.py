@@ -103,6 +103,17 @@ class StreamedEM:
         self.wcounts = wcounts
         self.mesh = None
         self.device = torch.device(device)
+        on = design.DtD.device
+        if on.type != self.device.type or (
+            self.device.index is not None and on.index != self.device.index
+        ):
+            # the design is used as given: on another device the first
+            # M-step would fail mid-iteration
+            raise ValueError(
+                f"the prevalence design is on {on} but StreamedEM runs on "
+                f"{self.device}: build it with make_prevalence_design(..., "
+                f"device={str(self.device)!r})"
+            )
         if callable(parts):
             if n_parts is None:
                 raise ValueError("n_parts is required with a callable provider")

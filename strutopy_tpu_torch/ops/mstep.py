@@ -130,9 +130,10 @@ def make_prevalence_design(
     doc_ok: np.ndarray,
     fit_intercept: bool = True,
     ridge_alpha: float = 0.1,
-    device="cpu",
+    device="cuda",
 ):
-    """Returns (D (N, P) float32 numpy, PrevalenceDesign on ``device``).
+    """Returns (D (N, P) float32 numpy, PrevalenceDesign on ``device``, the
+    card unless the caller asks for the CPU, as every entry point).
 
     The OLS pseudoinverse and the ridge inverse of the normal equations
     are computed here in float64 (rcond matched to the float32 moments,

@@ -90,7 +90,7 @@ def test_em_iterations_match_jax(model_type, pass1_iters):
     plan = make_bucket_plan(c, 8)
     bk = split_corpus_by_plan(c, plan)
     assert plan.batch_sizes == jplan.batch_sizes and plan.Ls == jplan.Ls
-    D1, d1 = mstep.make_prevalence_design(Xs, ok)
+    D1, d1 = mstep.make_prevalence_design(Xs, ok, device="cpu")
     np.testing.assert_array_equal(D1, D0)
     data = em.CorpusData(
         words=tuple(torch.tensor(b.words) for b in bk),

@@ -34,7 +34,7 @@ def _designs(kind, seed=0, ridge_alpha=0.1, fit_intercept=True):
     D0, d0 = jax_mstep.make_prevalence_design(X, _doc_ok(), fit_intercept=fit_intercept,
                                               ridge_alpha=ridge_alpha)
     D1, d1 = mstep.make_prevalence_design(X, _doc_ok(), fit_intercept=fit_intercept,
-                                          ridge_alpha=ridge_alpha)
+                                          ridge_alpha=ridge_alpha, device="cpu")
     return (D0, d0), (D1, d1)
 
 

@@ -13,7 +13,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
-from strutopy_tpu_torch import STM, STMConfig, StreamedEM, ThetaServer, infer_theta
+from strutopy_tpu_torch import STM, STMConfig, StreamedEM, ThetaServer, infer_theta, pipeline
 from strutopy_tpu_torch.corpus.bow import pad_corpus
 from strutopy_tpu_torch.eval.effects import simulate_theta
 from strutopy_tpu_torch.eval.heldout import eval_heldout_torch
@@ -139,7 +139,7 @@ def _stm_fit(fitted, toy_corpus, toy_dictionary):
 def _streamed(fitted, toy_corpus, toy_dictionary):
     c = pad_corpus(toy_corpus.train_docs[:32], V=len(toy_dictionary))
     n = 16
-    D_np, design = mstep.make_prevalence_design(None, c.doc_ok)
+    D_np, design = mstep.make_prevalence_design(None, c.doc_ok, device="cpu")
     parts = [(c.words[i:i + n], c.counts[i:i + n], np.zeros(n, np.int32), c.doc_ok[i:i + n],
               D_np[i:i + n]) for i in (0, n)]
     cfg = STMConfig(K=3, batch_size=16, model_type="CTM")
@@ -157,6 +157,13 @@ ENTRY_POINTS = {
         f[0].config, device="cpu"),
     "ThetaServer.infer": lambda f, tc, td: functools.partial(
         ThetaServer(f[1], device="cpu").infer, tc.train_docs[:4], X=np.zeros(4)),
+    "ThetaServer.infer_text": lambda f, tc, td: functools.partial(
+        ThetaServer(f[1], device="cpu").infer_text, ["alpha beta", "gamma"], X=np.zeros(2)),
+    "fit_model": lambda f, tc, td: lambda: pipeline.fit_model(
+        tc.train_docs, 3, max_em_iter=1, model_type="CTM", device="cpu"),
+    "select_model": lambda f, tc, td: lambda: pipeline.select_model(
+        tc.train_docs, 3, runs=2, cast_iters=1, max_em_iter=2, model_type="CTM",
+        return_models=False, device="cpu"),
     "train_and_eval_heldout": lambda f, tc, td: lambda: train_and_eval_heldout(
         tc.train_docs, tc.test_docs, 3, init_type="random", max_em_iter=1, fast=True,
         model_type="CTM", device="cpu"),

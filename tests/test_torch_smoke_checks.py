@@ -449,3 +449,128 @@ def test_anchor_check_admits_a_tie_and_refuses_a_wrong_choice():
     wrong[0] = low
     assert not _anchor_verdict(Q, Q, chain, wrong)
     assert not _anchor_verdict(Q, Q, wrong, chain)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: raw text to theta, the pipeline and the CLI
+# ---------------------------------------------------------------------------
+
+
+def _verdict(check, *args):
+    fails = cs.Failures()
+    check(fails, *args)
+    return not fails
+
+
+def _text_corpus(V=300, N=40, seed=3):
+    from strutopy_tpu_torch.corpus.preprocess import build_corpus
+
+    docs, X = cs.make_corpus(5, V, N, 50, seed=seed)
+    names = cs.token_names(V)
+    texts = cs.render_texts(docs, names, seed=21)
+    return docs, X, names, {u: build_corpus(texts, use_native=u) for u in (True, False)}
+
+
+def _change_one_count(out):
+    bow = [list(d) for d in out[0]]
+    w, c = bow[3][0]
+    bow[3][0] = (w, c + 1)
+    return bow, out[1]
+
+
+def _drop_a_word(out):
+    # both paths lose the vocabulary's last word (and its counts) alike
+    last = len(out[1]) - 1
+    return [[(w, c) for w, c in d if w != last] for d in out[0]], list(out[1])[:-1]
+
+
+def test_token_names_sort_as_the_ids_and_survive_tokenize():
+    from strutopy_tpu_torch.corpus.preprocess import DEFAULT_STOPWORDS, tokenize
+
+    for V in (26, 300, cs.V_BENCH):
+        names = cs.token_names(V)
+        assert len(set(names)) == V and list(names) == sorted(names)
+        assert tokenize(" ".join(names)) == list(names)
+        assert not set(names) & DEFAULT_STOPWORDS
+
+
+@pytest.mark.parametrize("fault", [None, "native count", "both paths drop a word"])
+def test_text_corpus_check(fault):
+    docs, _X, names, out = _text_corpus()
+    native, python = out[True], out[False]
+    if fault == "native count":
+        native = _change_one_count(native)
+    elif fault == "both paths drop a word":
+        native, python = _drop_a_word(native), _drop_a_word(python)
+    assert _verdict(cs.check_text_corpus, native, python, docs, names) == (fault is None)
+
+
+@pytest.fixture(scope="module")
+def text_model(tmp_path_factory):
+    """The port's fit_model on a rendered corpus, saved, on the CPU."""
+    import os
+
+    from strutopy_tpu_torch.pipeline import fit_model
+
+    docs, X, names, out = _text_corpus()
+    bow, vocab = out[True]
+    d = str(tmp_path_factory.mktemp("text_model"))
+    model = fit_model(bow, K=3, X=X, dictionary=vocab, init_type="random", max_em_iter=2,
+                      output_dir=d, device="cpu")
+    return d, names, model, os.listdir(d)
+
+
+def test_fit_artifacts_check(text_model):
+    d, _names, model, files = text_model
+    launches = {"fgh": 1, "cg": 1, "ls": 1}  # the plain versions count none on the CPU
+    check = cs.check_fit_artifacts
+    assert _verdict(check, files, model.last_bounds, launches, "fit")
+    assert not _verdict(check, [f for f in files if f != "vocab.json"], model.last_bounds,
+                        launches, "fit")
+    assert not _verdict(check, files, model.last_bounds[:1] + [float("nan")], launches, "fit")
+    assert not _verdict(check, files, model.last_bounds, dict(launches, cg=0), "fit")
+
+
+@pytest.mark.parametrize("fault", [None, "report dropped", "counts off by one",
+                                   "another encoding"])
+def test_infer_text_check(text_model, fault):
+    from strutopy_tpu_torch import ThetaServer
+    from strutopy_tpu_torch.corpus.preprocess import align_corpus
+
+    d, names, _model, _files = text_model
+    srv = ThetaServer(d, device="cpu")
+    new_docs, Xn = cs.make_corpus(5, 300, 24, 50, seed=11)
+    texts, want_bow, want_report = cs.text_requests(new_docs, names, srv.vocab)
+    got = srv.infer_text(texts, X=Xn)
+    bow, _ = align_corpus(texts, srv.vocab)
+    theta2, eta2 = srv.infer(bow, X=Xn)
+    if fault == "report dropped":
+        got = got[:2] + ({},)
+    elif fault == "counts off by one":
+        got = got[:2] + (dict(got[2], tokens_dropped=got[2]["tokens_dropped"] + 1),)
+    elif fault == "another encoding":  # an encoder that loses each document's last term
+        other = [doc[:-1] for doc in bow]
+        got = srv.infer(other, X=Xn) + (dict(got[2], bow=other),)
+    assert _verdict(cs.check_infer_text, got, (theta2, eta2, bow), want_bow, want_report,
+                    3) == (fault is None)
+
+
+def test_parking_check():
+    state = 13.84e6
+    assert _verdict(cs.check_parking, {2: 275.92e6, 4: 276.31e6}, state)
+    # a select_model that keeps every run's stage-1 state on the device
+    assert not _verdict(cs.check_parking, {2: 275.92e6 + 2 * state, 4: 275.92e6 + 4 * state},
+                        state)
+
+
+def test_eta_check_where_converged():
+    rng = np.random.default_rng(0)
+    eta = rng.normal(size=(40, 4))
+    gm = np.full(40, 1e-6)
+    gm_stalled = gm.copy()
+    gm_stalled[3] = 1.0
+    moved = eta.copy()
+    moved[3] += 1.0  # a stalled document may end anywhere
+    assert _verdict(cs.check_eta_where_converged, gm, gm_stalled, moved, eta, "eta")
+    assert not _verdict(cs.check_eta_where_converged, gm, gm, moved, eta, "eta")
+    assert not _verdict(cs.check_eta_where_converged, gm, gm, eta + 1e-2, eta, "eta")

@@ -70,7 +70,7 @@ def test_streamed_matches_in_memory(n_parts):
     kw = dict(K=K, model_type="STM", init_type="random", batch_size=16,
               sort_by_difficulty=False)
     cfg = STMConfig(**kw)
-    D_np, design = mstep.make_prevalence_design(X, doc_ok)
+    D_np, design = mstep.make_prevalence_design(X, doc_ok, device="cpu")
     jstate0, init_np = _jax_state_np(K, V, N, D_np.shape[1])
 
     T = torch.tensor
@@ -123,7 +123,7 @@ def test_streamed_provider_callable():
     words, counts, aspects, doc_ok, X = _corpus(N=N, K=K, V=V, seed=1)
     cfg = STMConfig(K=K, model_type="STM", init_type="random", batch_size=16,
                     sort_by_difficulty=False)
-    D_np, design = mstep.make_prevalence_design(X, doc_ok)
+    D_np, design = mstep.make_prevalence_design(X, doc_ok, device="cpu")
     n = N // n_parts
     calls = []
 
@@ -255,7 +255,7 @@ def test_prefetch_matches_no_prefetch(tensors):
     words, counts, aspects, doc_ok, X = _corpus(N=N, K=K, V=V, seed=3)
     cfg = STMConfig(K=K, model_type="STM", init_type="random", batch_size=16,
                     sort_by_difficulty=False)
-    D_np, design = mstep.make_prevalence_design(X, doc_ok)
+    D_np, design = mstep.make_prevalence_design(X, doc_ok, device="cpu")
     n = N // 3
     parts = _parts((words, counts, aspects, doc_ok), D_np, 3)
     if tensors:
@@ -284,7 +284,7 @@ def test_streamed_n_parts_mismatch_raises():
     N, K, V = 32, 3, 60
     words, counts, aspects, doc_ok, X = _corpus(N=N, K=K, V=V)
     cfg = STMConfig(K=K, model_type="STM", init_type="random", batch_size=16)
-    D_np, design = mstep.make_prevalence_design(X, doc_ok)
+    D_np, design = mstep.make_prevalence_design(X, doc_ok, device="cpu")
     parts = _parts((words, counts, aspects, doc_ok), D_np, 2)
     with pytest.raises(ValueError, match="does not match"):
         StreamedEM(cfg, design, parts, n_parts=1, device="cpu")
@@ -299,7 +299,7 @@ def test_streamed_ragged_part_raises(prefetch):
     N, K, V = 64, 3, 60
     words, counts, aspects, doc_ok, X = _corpus(N=N, K=K, V=V)
     cfg = STMConfig(K=K, model_type="STM", init_type="random", batch_size=16)
-    D_np, design = mstep.make_prevalence_design(X, doc_ok)
+    D_np, design = mstep.make_prevalence_design(X, doc_ok, device="cpu")
     parts = _parts((words, counts, aspects, doc_ok), D_np, 2)
     parts.append(tuple(a[:16] for a in parts[1]))
     sem = StreamedEM(cfg, design, parts, prefetch=prefetch, device="cpu")
