@@ -107,7 +107,24 @@ end, without the final result line):
      ``train-eval --fast`` at K=100, V=10,000, 8,192 documents, and
      ``python -m strutopy_tpu_torch.cli infer --text`` in a subprocess
      against (c); (e) ``select_model``'s peak device memory at 2 and 4
-     runs (stage-1 states parked on the host); ``native/`` unchanged.
+     runs (stage-1 states parked on the host); ``native/`` unchanged;
+ 12. the E-step options at the bench width: (a) B1, B3 and B4 in their
+     bf16-beta_doc modes (``newton_bf16_beta``) against their plain
+     versions given the same bf16 beta_doc, bf16 Hessian on and off, at
+     phase 2's chunks and then at phase 2b's widths (L=201 takes the
+     ragged copies), timed beside their bounds and, in turns, against
+     their float32-beta_doc modes; (b) from one state after phase 4's 2
+     cold iterations, one two-pass iteration with ``two_pass_fused`` and
+     one without: eta and Newton counts bit-equal, overflow equal, bound
+     and beta within 1e-5, walls printed; again with a straggler fraction
+     of 0.01 and a pass-1 cap of 2, which overflow, so the fallback sweep
+     runs; (c) from that
+     state one iteration with ``newton_bf16_beta`` on the stage path and
+     on B4 (bounds within 1e-4 of each other, only bf16-beta_doc modes
+     launched), its bound gap to the float32 beta_doc's iteration, and on
+     B5, which must equal B5 without the option bit for bit; (d) both
+     options through ``STM.expectation_maximization`` on the stage path
+     and on B4, 3 iterations each: the bf16-beta_doc modes' launches.
 
 The last three lines of standard output are the card line, one JSON
 object of per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -134,7 +151,12 @@ REPLACES = {
     "newton": "strutopy_tpu/ops/pallas_estep.py:77",
     "gather": "strutopy_tpu/ops/pallas_stages.py:504",
 }
-SOURCES = {k: "strutopy_tpu_torch/csrc/" + ("stages.cu" if k in ("fgh", "cg", "ls") else "newton.cu")
+# the bf16-beta_doc modes of B1, B3 and B4 (newton_bf16_beta), each an
+# entry of its own, replacing the same TPU kernel given a bf16 beta_doc
+BETA_MODES = {"fgh_bf16_beta": "fgh", "ls_bf16_beta": "ls", "iter_bf16_beta": "iter"}
+REPLACES.update({mode: REPLACES[base] for mode, base in BETA_MODES.items()})
+SOURCES = {k: "strutopy_tpu_torch/csrc/"
+           + ("stages.cu" if BETA_MODES.get(k, k) in ("fgh", "cg", "ls") else "newton.cu")
            for k in REPLACES}
 # Kernel against plain on the card, element by element:
 #     |kernel - plain| <= RTOL[output] * scale + allowance.
@@ -151,10 +173,16 @@ SOURCES = {k: "strutopy_tpu_torch/csrc/" + ("stages.cu" if k in ("fgh", "cg", "l
 # output must lie far closer to its own mode's plain version than the
 # other bf16 mode's plain version does (DISCRIMINATE, in Frobenius norm
 # over the chunk), so a kernel that rounds where it should not, or not
-# where it should, fails.
+# where it should, fails.  A bf16-beta_doc mode is held to the plain
+# version of the same bf16 beta_doc, and its error must not lean toward
+# the float32 beta_doc's plain outputs: projected on their difference
+# from plain, it is at most LEAN_MAX of that difference (1 for a kernel
+# that reads the unrounded beta_doc, ~0 for float32 rounding noise, which
+# is as large as that difference in the sweep's values; phase 12).
 RTOL = {"fgh.f": 1e-5, "fgh.g": 1e-5, "fgh.H": 1e-5, "cg": 1e-4, "ls": 1e-5}
 BF16_FLIPS = 4 * 2.0 ** -7
 DISCRIMINATE = 0.05
+LEAN_MAX = 0.5
 FIT_RTOL = 1e-4  # CUDA vs CPU bound per EM iteration (the f64-oracle invariant)
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
 # dense): device-memory bytes/s, and operations/s by type.
@@ -371,20 +399,35 @@ def plain_outputs(torch, stages, inputs, bf16):
             dict(g=g, H=H, p=p, ts=ts, iters=iters, other=other))
 
 
-def kernel_outputs(stages, inputs, aux, bf16):
+def kernel_outputs(stages, inputs, aux, bf16, cg=True):
     """The kernels' outputs on the same chunk; cg and the sweep take the
-    plain H, g and p, so each kernel's own error is measured."""
+    plain H, g and p, so each kernel's own error is measured.  Without
+    ``cg``, B1 and B3 only (they read beta_doc; CG does not)."""
     eta, bd, c, mu, siginv = inputs
     f, g, H = stages.fgh(eta, bd, c, mu, siginv, bf16=bf16)
-    x = stages.cg(aux["H"], aux["g"], aux["iters"], bf16=bf16)
-    fs = stages.linesearch(eta, aux["p"], aux["ts"], bd, c, mu, siginv)
-    return {"fgh.f": f, "fgh.g": g, "fgh.H": H, "cg": x, "ls": fs}
+    out = {"fgh.f": f, "fgh.g": g, "fgh.H": H,
+           "ls": stages.linesearch(eta, aux["p"], aux["ts"], bd, c, mu, siginv)}
+    if cg:
+        out["cg"] = stages.cg(aux["H"], aux["g"], aux["iters"], bf16=bf16)
+    return out
+
+
+def lean(torch, got, want, other):
+    """How far ``got`` leans from ``want`` toward ``other``: the projection
+    of got - want on other - want, in units of other - want."""
+    d = (other - want).reshape(-1).double()
+    e = (got - want).reshape(-1).double()
+    return float(torch.dot(e, d) / torch.clamp_min(torch.dot(d, d), 1e-300))
 
 
 def judge(torch, stages, inputs, got, want, aux, bf16):
-    """Per output: (max abs error, worst error / bound over its elements,
-    every value finite).  Passing means worst <= 1 and finite.  For H and
-    cg the worst also covers the DISCRIMINATE check (as its ratio)."""
+    """Per output in ``got``: (max abs error, worst error / bound over its
+    elements, every value finite).  Passing means worst <= 1 and finite.
+    For H and cg the worst also covers the DISCRIMINATE check (as its
+    ratio), and for every output in ``aux["other_beta"]`` (the float32
+    beta_doc's plain outputs, against a bf16-beta_doc mode) the LEAN_MAX
+    check.  ``inputs`` holds beta_doc in float32 (the rounded values of a
+    bf16 one)."""
     eta, bd, c, mu, siginv = inputs
     f_sc = f_scale(torch, eta[:, None, :], bd, c, mu, siginv)[:, 0]
     fs_sc = f_scale(torch, eta[:, None, :] + aux["ts"][None, :, None] * aux["p"][:, None, :],
@@ -399,11 +442,16 @@ def judge(torch, stages, inputs, got, want, aux, bf16):
               "ls": RTOL["ls"] * fs_sc}
     out = {}
     for name, bound in bounds.items():
+        if name not in got:
+            continue
         abs_e, worst = worst_ratio(got[name], want[name], bound)
         if name in aux["other"]:
             gap = float(torch.linalg.vector_norm(aux["other"][name] - want[name]))
             err = float(torch.linalg.vector_norm(got[name] - want[name]))
             worst = max(worst, err / max(DISCRIMINATE * gap, 1e-30))
+        if name in aux.get("other_beta", {}):
+            worst = max(worst, abs(lean(torch, got[name], want[name],
+                                        aux["other_beta"][name])) / LEAN_MAX)
         out[name] = (abs_e, worst, bool(torch.isfinite(got[name]).all()))
     return out
 
@@ -521,12 +569,19 @@ def phase_determinism(torch, stages, fails, inputs, aux, seed=9):
 def check_smem_plans(fails, lib, stages):
     """The kernels' shared memory per block at every K the port takes:
     within what a block may opt in to (it does not depend on L); and the
-    fused kernels' (B4/B5) plan in each bf16 mode."""
+    fused kernels' (B4/B5) plan in each bf16 mode; with a bf16 beta_doc
+    too (B1, B3, B4)."""
     for K in (3, 10, 50, 100, 200, 400):
-        plan = {"fgh bf16": lib.stm_fgh_smem(K, 1), "fgh f32": lib.stm_fgh_smem(K, 0),
-                "ls": lib.stm_ls_smem(K)}
+        plan = {"fgh bf16": lib.stm_fgh_smem(K, 1, 0), "fgh f32": lib.stm_fgh_smem(K, 0, 0),
+                "ls": lib.stm_ls_smem(K, 0),
+                "fgh bf16, bf16 beta": lib.stm_fgh_smem(K, 1, 1),
+                "fgh f32, bf16 beta": lib.stm_fgh_smem(K, 0, 1),
+                "ls bf16 beta": lib.stm_ls_smem(K, 1)}
         fused = {f"{what} {mode}": stages.newton_plan(K, 384, mode == "bf16", what == "newton")
                  for what in ("newton", "iter") for mode in ("bf16", "f32")}
+        fused.update({f"iter {mode}, bf16 beta": stages.newton_plan(K, 384, mode == "bf16", False,
+                                                                    beta_bf16=True)
+                      for mode in ("bf16", "f32")})
         fails.check(all(0 < v <= SMEM_LIMIT for v in plan.values())
                     and all(f is not None and 0 < f["bytes"] <= SMEM_LIMIT
                             for f in fused.values()),
@@ -647,11 +702,15 @@ def direction_bound(torch, stages, parts, H_bound):
     return RTOL["cg"] * x.abs().amax(1) + 2 * move
 
 
-def judge_iter(torch, stages, inputs, parts, got):
+def judge_iter(torch, stages, inputs, parts, got, lean_other=False):
     """B4 (or B5 after one step) against the plain step.  ``got`` is
     (eta, done, advance); done may be None (B5 reports no flags).
     Returns (worst error / bound, margin documents, flags equal off the
-    margin, done documents unchanged, every value finite)."""
+    margin, done documents unchanged, every value finite).  With
+    ``lean_other`` the other bf16 mode's step is held off by LEAN_MAX in
+    place of DISCRIMINATE (phase 12: a Frobenius norm over the chunk is
+    set by its largest error, which one document sensitive to rounding can
+    give within its own bound)."""
     eta, bd, c, mu, siginv = inputs
     eta_k, done_k, adv_k = got
     eta_p, done_p, adv_p = parts["want"]
@@ -692,10 +751,17 @@ def judge_iter(torch, stages, inputs, parts, got):
     err = (eta_k - eta_p).abs()
     worst = float((err[off] / torch.clamp_min(bound[off], 1e-30)).max()) if off.any() else 0.0
     step = off & (t > 0) & adv_p & (parts["other"][0] != eta).any(1)
-    if step.any():
+    if step.any() and lean_other:
+        worst = max(worst, abs(lean(torch, eta_k[step], eta_p[step],
+                                    parts["other"][0][step])) / LEAN_MAX)
+    elif step.any():
         gap = float(torch.linalg.vector_norm(parts["other"][0][step] - eta_p[step]))
         e = float(torch.linalg.vector_norm(eta_k[step] - eta_p[step]))
         worst = max(worst, e / max(DISCRIMINATE * gap, 1e-30))
+    # a bf16-beta_doc mode: no lean toward the float32 beta_doc's step
+    if "other_beta" in parts and off.any():
+        worst = max(worst, abs(lean(torch, eta_k[off], eta_p[off],
+                                    parts["other_beta"][0][off])) / LEAN_MAX)
     finite = bool(torch.isfinite(eta_k).all())
     return worst, int(margin.sum()), flags_ok, kept, finite
 
@@ -1854,6 +1920,12 @@ FIT_ARTIFACTS = {"beta_hat.npy", "theta_hat.npy", "sigma_hat.npy", "eta_hat.npy"
                  "fit_health.json", "stm_config.json", "vocab.json", "fit_config.json"}
 CLI_COLD_RTOL = 1e-4  # CLI fit vs the in-process fit, on its cold iterations
 TEXT_ETA_ATOL = 5e-3  # card vs CPU, and the CLI subprocess vs in-process, where converged
+# more documents a serve may leave above STALL_G than its reference: the
+# slack tests/test_torch_estep.py::_check_iters gives the port against JAX.
+# Which documents stall moves with the model, whose fit adds phi with
+# index_add_ in no fixed order: 18 to 28 of 256 stalled in one serve or
+# the other over four card runs of phase 11c
+TEXT_STALL_FRAC = 0.05
 OOV_WORDS = ("zzoovx", "zzoovy", "zzoovz")  # letters only, in no vocabulary
 
 
@@ -1980,12 +2052,17 @@ def check_parking(fails, peaks, state_bytes):
 def check_eta_where_converged(fails, gm, gm_ref, eta, eta_ref, label):
     """Two serves of the same documents: eta within TEXT_ETA_ATOL on every
     document both bring below STALL_G (a document stalled at the float32
-    floor stops where its path took it)."""
+    floor stops where its path took it), and no more documents left above
+    STALL_G than the reference leaves plus TEXT_STALL_FRAC of them, as
+    check_served holds a fused path to the stage path."""
     both = (gm <= STALL_G) & (gm_ref <= STALL_G)
     d = float(np.abs(eta - eta_ref)[both].max()) if both.any() else float("inf")
-    fails.check(d <= TEXT_ETA_ATOL and both.sum() >= 0.9 * len(gm),
+    stalls, stalls_ref = int((gm > STALL_G).sum()), int((gm_ref > STALL_G).sum())
+    allowed = math.ceil(TEXT_STALL_FRAC * len(gm))
+    fails.check(d <= TEXT_ETA_ATOL and stalls <= stalls_ref + allowed,
                 f"{label}: max |diff| {d:.3e} on the {int(both.sum())} of {len(gm)} documents "
-                f"both bring below {STALL_G:.0e} (tol {TEXT_ETA_ATOL:.0e}); over all "
+                f"both bring below {STALL_G:.0e} (tol {TEXT_ETA_ATOL:.0e}); above it {stalls} "
+                f"vs the reference's {stalls_ref} (at most {allowed} more); over all "
                 f"{float(np.abs(eta - eta_ref).max()):.3e}")
 
 
@@ -2261,6 +2338,304 @@ def phase_text_cli(torch, stages, fails, docs, corpus, X, card, native_before):
                 k: cli_launches["find-k"][k] + cli_launches["train-eval"][k]
                 for k in ("fgh", "cg", "ls")}}
 
+# ---------------------------------------------------------------------------
+# phase 12: the E-step options (two_pass_fused, newton_bf16_beta)
+# ---------------------------------------------------------------------------
+#
+# newton_bf16_beta runs the Newton search on beta_doc rounded to bf16:
+# B1, B3 and B4 in their bf16-input modes, each held to its plain version
+# given the same bf16 beta_doc (the float32 function of the rounded
+# values: the same bounds as phase 2), and to DISCRIMINATE against the
+# float32 beta_doc's plain outputs.  two_pass_fused moves the finalize
+# into passes 1 and 2; its Newton trajectories are the unfused schedule's
+# bit for bit, only the statistics' float32 summation order differs.
+
+
+def beta_plain(torch, stages, inputs, bf16):
+    """A chunk's inputs with beta_doc rounded to bf16, the plain outputs
+    on them, and the float32 beta_doc's plain f, g, H and sweep in
+    ``aux["other_beta"]``: (bf16 inputs, the same in float32 for judge,
+    want, aux)."""
+    eta, bd, c, mu, siginv = inputs
+    bd_b = bd.to(torch.bfloat16)
+    inputs_b = (eta, bd_b, c, mu, siginv)
+    want, aux = plain_outputs(torch, stages, inputs_b, bf16)
+    f, g, H = stages.fgh_plain(eta, bd, c, mu, siginv, bf16=bf16)
+    aux["other_beta"] = {"fgh.f": f, "fgh.g": g, "fgh.H": H, "ls": stages.linesearch_plain(
+        eta, aux["p"], aux["ts"], bd, c, mu, siginv)}
+    return inputs_b, (eta, bd_b.float(), c, mu, siginv), want, aux
+
+
+def check_stages_beta(torch, stages, fails, inputs, label):
+    """B1 and B3 on the bf16 rounding of the chunk's beta_doc, bf16
+    Hessian off and on.  Returns each mode's max abs error (bf16 Hessian
+    on), the bf16 inputs and the plain step's values."""
+    for bf16 in (False, True):
+        inputs_b, inputs_r, want, aux = beta_plain(torch, stages, inputs, bf16)
+        got = kernel_outputs(stages, inputs_b, aux, bf16, cg=False)
+        torch.cuda.synchronize()
+        errs = judge(torch, stages, inputs_r, got, want, aux, bf16)
+        for name, (abs_e, worst, finite) in errs.items():
+            fails.check(finite and worst <= 1.0,
+                        f"{label} {name} bf16 beta_doc, bf16={bf16}: max_abs_err={abs_e:.3e}, "
+                        f"worst error/bound={worst:.3e} (must be <= 1)")
+    max_abs = {"fgh_bf16_beta": max(errs[k][0] for k in ("fgh.f", "fgh.g", "fgh.H")),
+               "ls_bf16_beta": errs["ls"][0]}
+    return max_abs, inputs_b, aux
+
+
+def beta_iter_parts(torch, stages, inputs_loop, bf16):
+    """The plain step on a chunk's beta_doc rounded to bf16 from a point
+    part-way along its trajectory, with the float32 beta_doc's step in
+    ``parts["other_beta"]``: (the step's bf16 inputs, the same in float32
+    for judge_iter, parts)."""
+    bd, c, mu, siginv = inputs_loop
+    bd_b = bd.to(torch.bfloat16)
+    eta, done = midway(torch, stages, (bd_b, c, mu, siginv), bf16)
+    inputs_r = (eta, bd_b.float(), c, mu, siginv)
+    parts = iter_plain_parts(torch, stages, inputs_r, done, bf16)
+    parts["other_beta"] = stages.newton_iter_plain(eta, bd, c, mu, siginv, parts["ts"], done,
+                                                   GRAD_TOL, parts["cg_iters"], bf16)
+    return (eta, bd_b, c, mu, siginv), inputs_r, parts
+
+
+def check_iter_beta(torch, stages, fails, inputs_loop, label):
+    """B4 on the bf16 rounding of the chunk's beta_doc against the plain
+    step on the same bf16 beta_doc, from a point part-way along the
+    trajectory, bf16 Hessian off and on: phase 2's iteration check, with
+    LEAN_MAX against the other bf16 mode's step and the float32 beta_doc's.
+    Prints how many documents B4 steps as the stage path's iteration does
+    (B1 and B3 in their bf16-beta_doc modes, B2, the PyTorch glue) bit for
+    bit: the same bodies, gᵀp summed in another order.  Returns max
+    |kernel - plain| (bf16 Hessian on)."""
+    B = inputs_loop[2].shape[0]
+    for bf16 in (False, True):
+        (eta, bd_b, c, mu, siginv), inputs_r, parts = beta_iter_parts(torch, stages, inputs_loop,
+                                                                      bf16)
+        args = (eta, bd_b, c, mu, siginv, parts["ts"], parts["done"], GRAD_TOL,
+                parts["cg_iters"], bf16)
+        got, stage = stages.newton_iter(*args), stages.stage_iter(*args)
+        torch.cuda.synchronize()
+        worst, n_margin, flags_ok, kept, finite = judge_iter(torch, stages, inputs_r, parts, got,
+                                                             lean_other=True)
+        err = float((got[0] - parts["want"][0]).abs().max())
+        same = int((got[0] == stage[0]).all(1).sum())
+        fails.check(finite and flags_ok and kept and worst <= 1.0,
+                    f"{label} iter bf16 beta_doc, bf16={bf16}: max_abs_err={err:.3e}, worst "
+                    f"error/bound={worst:.3e}, flags equal off the margin {flags_ok}, done "
+                    f"documents kept {kept}; {n_margin} of {B} documents on the margin; eta "
+                    f"bit-equal to the stage path's iteration on {same} of {B}")
+    return err
+
+
+def time_beta_modes(torch, stages, results, name, bf16_fn, plain_fn, f32_fn):
+    """A bf16-beta_doc mode's time and its plain version's, timed in turns;
+    then the mode against the same kernel's float32-beta_doc mode, in
+    turns."""
+    ms, pms = time_pair(torch, bf16_fn, plain_fn)
+    ms2, f32_ms = time_pair(torch, bf16_fn, f32_fn)
+    results[name].update(ms=ms, plain_ms=pms, library_ms=None)
+    print(f"  {name} in turns with the float32 beta_doc mode: {ms2:.4f} vs {f32_ms:.4f} ms "
+          f"[{CARD}]")
+
+
+def phase_beta_kernels(torch, stages, fails, words, counts, beta_true):
+    """Phase 12a: B1, B3 and B4 in their bf16-beta_doc modes at the main
+    path's shapes (B1/B3 on phase 2's random chunk, B4 on the bench chunk
+    with the true beta), timed beside their bounds and their float32-beta_doc
+    modes; then at phase 2b's widths."""
+    from strutopy_tpu_torch.corpus.bow import PaddedCorpus
+
+    inputs = stage_inputs(torch, words, counts, K_BENCH, seed=1)
+    B, L = words.shape
+    print(f"phase 12a: bf16 beta_doc modes vs plain, B={B} K={K_BENCH} L={L} T=12")
+    max_abs, inputs_b, aux = check_stages_beta(torch, stages, fails, inputs, f"K={K_BENCH}")
+    corpus = PaddedCorpus(words, counts, counts.sum(1) > 0, V_BENCH)
+    inputs_loop = dgp_inputs(torch, corpus, beta_true)
+    max_abs["iter_bf16_beta"] = check_iter_beta(torch, stages, fails, inputs_loop,
+                                                f"K={K_BENCH}")
+    results = {k: {"max_abs_err": v} for k, v in max_abs.items()}
+
+    eta, bd, c, mu, siginv = inputs
+    bd_b = inputs_b[1]
+    p, ts = aux["p"], aux["ts"]
+    time_beta_modes(torch, stages, results, "fgh_bf16_beta",
+                    lambda: stages.fgh(eta, bd_b, c, mu, siginv, bf16=True),
+                    lambda: stages.fgh_plain(eta, bd_b, c, mu, siginv, bf16=True),
+                    lambda: stages.fgh(eta, bd, c, mu, siginv, bf16=True))
+    time_beta_modes(torch, stages, results, "ls_bf16_beta",
+                    lambda: stages.linesearch(eta, p, ts, bd_b, c, mu, siginv),
+                    lambda: stages.linesearch_plain(eta, p, ts, bd_b, c, mu, siginv),
+                    lambda: stages.linesearch(eta, p, ts, bd, c, mu, siginv))
+    bounds = stage_bounds(inputs_b, aux)
+    for mode in ("fgh_bf16_beta", "ls_bf16_beta"):
+        b_ms, b_by = bounds[BETA_MODES[mode]]
+        results[mode].update(bound_ms=b_ms, bound_by=b_by)
+
+    lbd, lc, lmu, lsig = inputs_loop
+    lbd_b = lbd.to(torch.bfloat16)
+    lts = step_sizes(torch, lmu.device)
+    leta, ldone = midway(torch, stages, (lbd_b, lc, lmu, lsig), True)
+    Km1 = K_BENCH - 1
+    adv = stages.newton_iter_plain(leta, lbd_b, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True)[2]
+    n_step, n_conv = int(adv.sum()), int((~ldone & ~adv).sum())
+    results["iter_bf16_beta"]["bound_ms"], results["iter_bf16_beta"]["bound_by"] = roofline(
+        nbytes(lbd_b, lc, lmu, lsig, lts, leta, ldone) + B * (4 * Km1 + 2),
+        step_ops(n_step, K_BENCH, L, N_STEPS, 6, fgh_only=n_conv))
+    time_beta_modes(
+        torch, stages, results, "iter_bf16_beta",
+        lambda: stages.newton_iter(leta, lbd_b, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True),
+        lambda: stages.newton_iter_plain(leta, lbd_b, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6,
+                                         True),
+        lambda: stages.newton_iter(leta, lbd, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True))
+    print_times(results, "bf16 Hessian on, bf16 beta_doc; median of 3 rounds of a CUDA graph "
+                         "of 20 calls")
+    # the same arithmetic in the same order once the ring is read: each
+    # mode against its float32 mode given the rounded values (the same slab
+    # plan at this width), bit for bit
+    same = {
+        "fgh_bf16_beta": all(bool(torch.equal(a, b)) for a, b in zip(
+            stages.fgh(eta, bd_b, c, mu, siginv), stages.fgh(eta, bd_b.float(), c, mu, siginv))),
+        "ls_bf16_beta": bool(torch.equal(
+            stages.linesearch(eta, p, ts, bd_b, c, mu, siginv),
+            stages.linesearch(eta, p, ts, bd_b.float(), c, mu, siginv))),
+        "iter_bf16_beta": all(bool(torch.equal(a, b)) for a, b in zip(
+            stages.newton_iter(leta, lbd_b, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True),
+            stages.newton_iter(leta, lbd_b.float(), lc, lmu, lsig, lts, ldone, GRAD_TOL, 6,
+                               True)))}
+    print(f"  bf16 beta_doc modes vs their float32 modes given the same rounded values, bit for "
+          f"bit: {same}")
+
+    rng = np.random.default_rng(5)
+    for K, L in WIDTHS:
+        wb = np.stack([rng.choice(V_BENCH, L, replace=False) for _ in range(32)]).astype(np.int32)
+        cb = np.zeros((32, L), np.float32)
+        live = min(200, L - 7)
+        cb[:, :live] = rng.integers(1, 5, (32, live))
+        print(f"phase 12a: bf16 beta_doc modes vs plain, B=32 K={K} L={L}")
+        check_stages_beta(torch, stages, fails, stage_inputs(torch, wb, cb, K, seed=K),
+                          f"K={K} L={L}")
+        cw = PaddedCorpus(wb, cb, cb.sum(1) > 0, V_BENCH)
+        check_iter_beta(torch, stages, fails,
+                        dgp_inputs(torch, cw, random_beta(K, V_BENCH, seed=K)), f"K={K} L={L}")
+    return results
+
+
+def one_iteration(torch, model, state, cfg):
+    """One EM iteration of ``cfg`` from ``state`` on ``model``'s corpus
+    (the step ``expectation_maximization`` builds for that configuration):
+    (new state, wall s)."""
+    from strutopy_tpu_torch.models.em import make_em_step
+
+    step = make_em_step(cfg, model._design, None, None,
+                        bucket_batches=model._plan.batch_sizes)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = step(state, model._data)
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def step_gap(a, b):
+    """(rel bound diff, max |beta diff|, max |eta diff|) of two EM states."""
+    rel = abs(float(a.bound) - float(b.bound)) / abs(float(b.bound))
+    return rel, float((a.beta - b.beta).abs().max()), float((a.eta - b.eta).abs().max())
+
+
+BETA_FIT_RTOL = FIT_RTOL  # bf16 beta_doc on the stage path vs on B4, one iteration
+# (straggler fraction, pass-1 cap) of phase 12b's second pair: a budget of
+# one chunk against most of the corpus unconverged after 2 steps
+OVERFLOW = (0.01, 2)
+
+
+def phase_options(torch, stages, fails, docs, X, cfg, card, words, counts, beta_true,
+                  bench_bounds):
+    """Phase 12: the two E-step options at the bench width (see the module
+    docstring).  Returns the bf16-beta_doc modes' kernel results and their
+    launches on the fits that drive them."""
+    from strutopy_tpu_torch import STM
+
+    t_phase = time.time()
+    results = phase_beta_kernels(torch, stages, fails, words, counts, beta_true)
+
+    # (b), (c): from one state after phase 4's 2 cold iterations
+    base = STM(docs, K=K_BENCH, X=X, config=cfg.replace(max_em_iter=2), device="cuda")
+    state = base._state
+    for it in range(2):
+        state = em_step_fn(base, it)(state, base._data)
+    for frac, cap in ((cfg.newton_straggler_frac, cfg.newton_pass1_iters), OVERFLOW):
+        c = cfg.replace(newton_straggler_frac=frac, newton_pass1_iters=cap)
+        (two, sec2), (fused, secf) = (one_iteration(torch, base, state, c.replace(
+            two_pass_fused=f)) for f in (False, True))
+        rel, d_beta, _ = step_gap(fused, two)
+        same = (bool(torch.equal(fused.eta, two.eta))
+                and bool(torch.equal(fused.opt_iters, two.opt_iters)))
+        ov = (int(two.straggler_overflow), int(fused.straggler_overflow))
+        fails.check(same and ov[0] == ov[1] and (ov[0] > 0 or (frac, cap) != OVERFLOW)
+                    and rel <= STEP_RTOL and d_beta <= STEP_BETA_ATOL,
+                    f"phase 12b: two-pass iteration from one state, straggler fraction {frac}, "
+                    f"pass-1 cap {cap}: "
+                    f"fused vs unfused eta and Newton counts bit-equal {same}, overflow "
+                    f"{ov[1]} vs {ov[0]}, bound rel diff {rel:.3e} (tol {STEP_RTOL:.0e}), max "
+                    f"|beta diff| {d_beta:.3e} (tol {STEP_BETA_ATOL:.0e}); wall fused {secf:.4f} "
+                    f"s, unfused {sec2:.4f} s [{card}]")
+        if frac == cfg.newton_straggler_frac:
+            ref, ref_sec = two, sec2
+
+    paths = {}
+    for path, extra in (("stage", {}), ("iter", {"pallas_iter": True}),
+                        ("newton", {"use_pallas": True, "newton_pass1_iters": 0})):
+        reset(stages)
+        out, sec = one_iteration(torch, base, state, cfg.replace(newton_bf16_beta=True, **extra))
+        paths[path] = (out, sec, {k: v for k, v in stages.LAUNCHES.items() if v})
+    rel, d_beta, d_eta = step_gap(paths["stage"][0], ref)
+    print(f"phase 12c: bf16 beta_doc, stage path, one two-pass iteration: bound "
+          f"{float(paths['stage'][0].bound):.6f} vs float32 beta_doc {float(ref.bound):.6f} (rel "
+          f"gap {rel:.3e}), max |beta diff| {d_beta:.3e}, max |eta diff| {d_eta:.3e}; "
+          f"{paths['stage'][1]:.4f} s vs {ref_sec:.4f} s [{card}]")
+    rel, _, _ = step_gap(paths["iter"][0], paths["stage"][0])
+    launches = {p: v[2] for p, v in paths.items()}
+    fails.check(rel <= BETA_FIT_RTOL and launches["iter"].get("iter_bf16_beta", 0) > 0
+                and "iter" not in launches["iter"]
+                and launches["stage"].get("fgh_bf16_beta", 0) > 0
+                and launches["stage"].get("ls_bf16_beta", 0) > 0
+                and not {"fgh", "ls"} & set(launches["stage"]),
+                f"phase 12c: bf16 beta_doc on B4 vs the stage path from one state: bound rel "
+                f"diff {rel:.3e} (tol {BETA_FIT_RTOL:.0e}); launches {launches['stage']} / "
+                f"{launches['iter']}; {paths['iter'][1]:.4f} s [{card}]")
+    f32, _sec = one_iteration(torch, base, state, cfg.replace(use_pallas=True,
+                                                               newton_pass1_iters=0))
+    b5 = paths["newton"][0]
+    same = all(bool(torch.equal(getattr(b5, f), getattr(f32, f)))
+               for f in ("eta", "opt_iters", "theta", "bound", "sigma"))
+    fails.check(same and not any(k.endswith("bf16_beta") for k in launches["newton"]),
+                f"phase 12c: B5 with newton_bf16_beta equals B5 without it bit for bit {same} "
+                f"(eta, Newton counts, theta, bound, sigma); launches {launches['newton']}")
+    del base, state, paths, ref, f32, b5
+
+    # (d) both options through STM.expectation_maximization, on the stage
+    # path and on B4: the bf16-beta_doc modes' main paths
+    counted = {}
+    for path, extra, modes in (("stage", {}, ("fgh_bf16_beta", "ls_bf16_beta")),
+                               ("iter", {"pallas_iter": True}, ("iter_bf16_beta",))):
+        c = cfg.replace(max_em_iter=3, two_pass_fused=True, newton_bf16_beta=True, **extra)
+        model = STM(docs, K=K_BENCH, X=X, config=c, device="cuda")
+        reset(stages)
+        model.expectation_maximization()
+        got = {k: v for k, v in stages.LAUNCHES.items() if v}
+        counted.update({m: got.get(m, 0) for m in modes})
+        b = np.asarray(model.last_bounds)
+        gap = np.abs(b - bench_bounds[:3]) / np.abs(bench_bounds[:3])
+        fails.check(len(b) == 3 and bool(np.isfinite(b).all())
+                    and all(got.get(m, 0) > 0 for m in modes)
+                    and not {BETA_MODES[m] for m in modes} & set(got),
+                    f"phase 12d: fit with both options on the {path} path, 3 EM iterations: "
+                    f"bounds {b.tolist()} (rel gap to phase 4's {gap.tolist()}), "
+                    f"{[round(s, 4) for s in model.iter_seconds]} s; launches {got} [{card}]")
+        del model
+    print(f"phase 12 took {time.time() - t_phase:.1f} s [{card}]")
+    return results, counted
+
 
 def main() -> int:
     import torch
@@ -2286,7 +2661,8 @@ def main() -> int:
     t0 = time.time()
     lib_path = build.build()
     build.load()
-    print(f"  built {lib_path.name} in {time.time() - t0:.1f} s; ptxas:")
+    print(f"  built {lib_path.name} in {time.time() - t0:.1f} s (nvcc, one process a source, "
+          f"in parallel); ptxas:")
     print("\n".join("    " + ln for ln in build.ptxas_report().strip().splitlines()))
     check_smem_plans(fails, build.load(), stages)
 
@@ -2329,6 +2705,7 @@ def main() -> int:
     for k in ("fgh", "cg", "ls"):
         fails.check(launches[k] > 0, f"main path launched {k} {launches[k]} times")
     theta, beta = model.theta, model.beta
+    bench_bounds = np.asarray(model.last_bounds)
     fails.check(theta.shape == (N_BENCH, K_BENCH) and beta.shape == (K_BENCH, V_BENCH)
                 and bool(np.isfinite(theta).all() and np.isfinite(beta).all())
                 and np.allclose(theta.sum(1), 1, atol=1e-4)
@@ -2364,6 +2741,12 @@ def main() -> int:
         fails.check(all(text_paths[path][k] > 0 for k in ("fgh", "cg", "ls")),
                     f"{path}: B1-B3 launched {text_paths[path]}")
     print(f"launches of B1-B3 by path: {paths}")
+
+    # ----- phase 12: the E-step options -----
+    beta_kernels, beta_launches = phase_options(torch, stages, fails, docs, X, cfg, card, words,
+                                                counts, beta_true, bench_bounds)
+    kernels.update(beta_kernels)
+    launches.update(beta_launches)
 
     print(f"total {time.time() - t_start:.1f} s")
     if fails:

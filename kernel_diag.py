@@ -67,9 +67,9 @@ PARTS = (
          "    if (4 * tg < T && !(ABLATE & 1)) {\n      for (int j = jj;"),
     ]),
     (2, "fgh's division by s_l, ls's logarithm", [
-        ("e[k] * slab[k * W + col] / sl[u] : 0.f",
-         "(ABLATE & 2 ? e[k] * slab[k * W + col] * sl[u] : e[k] * slab[k * W + col] / sl[u])"
-         " : 0.f"),
+        ("e[k] * ldf(slab + k * W + col) / sl[u] : 0.f",
+         "(ABLATE & 2 ? e[k] * ldf(slab + k * W + col) * sl[u]"
+         " : e[k] * ldf(slab + k * W + col) / sl[u]) : 0.f"),
         ("logf(fmaxf(sm, kTiny))", "(ABLATE & 2 ? sm : logf(fmaxf(sm, kTiny)))"),
     ]),
     (4, "the product (fgh's MMA, ls's FMA loop)", [
@@ -80,9 +80,9 @@ PARTS = (
     ]),
     (8, "all slab work but the stream", [
         ("    // s_l: warp w sums", "    if (ABLATE & 8) continue;\n    // s_l: warp w sums"),
-        ("    const float* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n\n"
+        ("    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n\n"
          "    if (4 * tg",
-         "    const float* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n"
+         "    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n"
          "    if (ABLATE & 8) continue;\n\n    if (4 * tg"),
     ]),
     (16, "fgh's H stores to device memory", [
@@ -160,7 +160,7 @@ def bench_chunk(torch):
 
     calls = {
         "fgh": lambda lib: lambda: lib.stm_fgh(
-            *(t.data_ptr() for t in (siginv, eta, mu, bd, c, f, g, H)), B, K, L, 1, stream()),
+            *(t.data_ptr() for t in (siginv, eta, mu, bd, c, f, g, H)), B, K, L, 1, 0, stream()),
         "cg": lambda lib: lambda: lib.stm_cg(
             aux["H"].data_ptr(), aux["g"].data_ptr(), x.data_ptr(), B, K - 1, aux["iters"], 1,
             stream()),
@@ -169,7 +169,7 @@ def bench_chunk(torch):
             aux["H"].data_ptr(), aux["g"].data_ptr(), x.data_ptr(), B, K - 1, 0, 1, stream()),
         "ls": lambda lib: lambda: lib.stm_ls(
             *(t.data_ptr() for t in (siginv, aux["ts"], eta, aux["p"], mu, bd, c, fs)), B, K, L,
-            T, stream()),
+            T, 0, stream()),
     }
     return (B, K, L, T), calls
 
@@ -256,7 +256,7 @@ def plans(torch):
 
         for name, lib in libs.items():
             plan = (ctypes.c_int * 8)()
-            lib.stm_newton_plan(K, L, 1, 1, plan)
+            lib.stm_newton_plan(K, L, 1, 0, 1, plan)
             assert run(name)() == 0, name
             print(f"  {name} plan at L={L}: {list(plan)}")
         torch.cuda.synchronize()
@@ -310,7 +310,7 @@ def stalls(torch):
 
 # Runs in a process of its own, from the root of the checkout it measures.
 FIT_CHILD = r"""
-import gc, json, sys, time
+import gc, inspect, json, sys, time
 import torch
 import chip_smoke as cs
 from strutopy_tpu_torch import STM
@@ -342,9 +342,15 @@ def fit():
 
 def two_loops(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok, cfg, B,
               use_pallas):
-    eta, iters, _ = estep._newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B)
-    beta_ss, sigma_ss, bound, theta = estep._finalize_all(
-        beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, doc_ok, B)
+    eta, iters = estep._newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B)[:2]
+    if "acc" in inspect.signature(estep._finalize_all).parameters:  # sums into an accumulator
+        acc = estep._StatsSum(beta)
+        theta = estep._finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts,
+                                    aspects, doc_ok, B)
+        beta_ss, sigma_ss, bound = acc.beta_ss, acc.sigma_ss, acc.bound
+    else:
+        beta_ss, sigma_ss, bound, theta = estep._finalize_all(
+            beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, doc_ok, B)
     overflow = torch.zeros((), dtype=torch.int32, device=words.device)
     return estep.EStepResult(beta_ss, sigma_ss, bound, eta, theta, iters, overflow)
 

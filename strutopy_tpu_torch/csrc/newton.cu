@@ -47,6 +47,12 @@
 //     bytes written, about as many read from the L2-resident beta_T).
 //     One warp per output row, 16-byte loads and stores where K % 4 == 0.
 //
+// stm_iter also takes a bf16 beta_doc (beta_bf16 = 1, the Newton search
+// under newton_bf16_beta): the streaming plans then ring bf16 slabs, half
+// the bytes.  stm_newton (and the resident plan) takes float32 only: the
+// whole-loop path reads the float32 beta_doc whatever the option, as in
+// the JAX package.
+//
 // Plain C interface (loaded with ctypes): each entry point launches on
 // the stream it is given, allocates nothing, does not synchronise, and
 // returns cudaGetLastError().  Booleans are 1-byte (torch.bool).
@@ -54,6 +60,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "newton_doc.cuh"
 
@@ -80,7 +87,7 @@ __host__ __device__ constexpr int newton_np(int W, int stages) {
 }
 
 inline NewtonPlan newton_layout(int K, int L, int bf16, int W, int stages, int bps,
-                                int resident) {
+                                int resident, int beta_bytes) {
   const int Km1 = K - 1;
   NewtonPlan o{};
   o.W = W;
@@ -89,8 +96,8 @@ inline NewtonPlan newton_layout(int K, int L, int bf16, int W, int stages, int b
   o.resident = resident;
   o.groups = fgh_groups(K);
   const int ring = resident ? (L + W - 1) / W : stages;
-  const FghLayout fl = fgh_layout(K, W, ring, bf16);
-  const LsLayout ll = ls_layout(K, W, ring);
+  const FghLayout fl = fgh_layout(K, W, ring, bf16, beta_bytes);
+  const LsLayout ll = ls_layout(K, W, ring, beta_bytes);
   size_t at = round4(fl.floats > ll.floats ? fl.floats : ll.floats);
   for (size_t* v : {&o.red, &o.f}) {
     *v = at;
@@ -148,14 +155,15 @@ inline NewtonPlan newton_layout(int K, int L, int bf16, int W, int stages, int b
 // 32-slot slabs three deep at two, 32-slot slabs two deep at one.  On the
 // bench recipe (kernel_diag.py plans, H100 at 700 W) the resident plan
 // took 2.08 ms against 2.37 at K=100, the streaming one 0.91 against 1.03
-// at K=50, where it keeps siginv on chip.
-inline NewtonPlan newton_plan(int K, int L, int bf16, int loop) {
+// at K=50, where it keeps siginv on chip.  A bf16 beta_doc (beta_bytes 2)
+// takes the streaming plans only.
+inline NewtonPlan newton_plan(int K, int L, int bf16, int loop, int beta_bytes) {
   const int cand[5][5] = {  // W, stages, blocks an SM, resident, siginv in shared memory
       {64, 3, 2, 0, 1}, {64, 3, 1, 1, 0}, {64, 3, 2, 0, 0}, {32, 3, 2, 0, 0}, {32, 2, 1, 0, 0}};
   for (const auto& c : cand) {
-    if (c[3] && !loop) continue;
+    if (c[3] && (!loop || beta_bytes != (int)sizeof(float))) continue;
     if ((STM_NEWTON_PLAN == 1 && c[3]) || (STM_NEWTON_PLAN == 2 && !c[3])) continue;
-    const NewtonPlan plan = newton_layout(K, L, bf16, c[0], c[1], c[2], c[3]);
+    const NewtonPlan plan = newton_layout(K, L, bf16, c[0], c[1], c[2], c[3], beta_bytes);
     if (plan.ok && (plan.sig_smem || !c[4])) return plan;
   }
   return NewtonPlan{};
@@ -170,10 +178,10 @@ struct NewtonShape {
 // One damped-Newton iteration of a document that is not done: the body
 // of ops/estep.py::_batched_newton for one document.  Updates eta in
 // shared memory in place and returns (done, advance), the same in every
-// thread.
-template <int W, int STAGES, bool BF16, bool RESIDENT>
+// thread.  TB: beta_doc's element type.
+template <int W, int STAGES, bool BF16, bool RESIDENT, typename TB>
 __device__ __forceinline__ int2 newton_step(const NewtonPlan& pl, float* smem, const float* sig,
-                                            bool sig_shared, const float* __restrict__ beta_d,
+                                            bool sig_shared, const TB* __restrict__ beta_d,
                                             const float* __restrict__ cnt_d, float* H_glob,
                                             int K, int L, int T, int vec16, float grad_tol,
                                             int cg_iters) {
@@ -198,7 +206,7 @@ __device__ __forceinline__ int2 newton_step(const NewtonPlan& pl, float* smem, c
     hout.sm = smem + pl.h;
   for (int grp = 0; grp < pl.groups; ++grp) {
     if (grp > 0) __syncthreads();  // the previous group's epilogue is done
-    fgh_body<W, STAGES, BF16, true, RESIDENT>(sig, sig_shared, eta, mu, beta_d, cnt_d, f, g,
+    fgh_body<W, STAGES, BF16, true, RESIDENT, TB>(sig, sig_shared, eta, mu, beta_d, cnt_d, f, g,
                                               hout, 0, K, L, vec16, grp, smem);
   }
   __syncthreads();
@@ -233,7 +241,7 @@ __device__ __forceinline__ int2 newton_step(const NewtonPlan& pl, float* smem, c
     gTp = -block_sum(part, red);  // also publishes p
   }
 
-  ls_body<W, STAGES, RESIDENT>(sig, sig_shared, ts, T, eta, p, mu, beta_d, cnt_d, fs, 0, K, L,
+  ls_body<W, STAGES, RESIDENT, TB>(sig, sig_shared, ts, T, eta, p, mu, beta_d, cnt_d, fs, 0, K, L,
                                vec16, smem);
   __syncthreads();
 
@@ -259,16 +267,17 @@ __device__ __forceinline__ int2 newton_step(const NewtonPlan& pl, float* smem, c
 // document is frozen and counts no further iterations, so this equals
 // running all max_iters).  B4 (max_iters = 1) passes done_in, whose done
 // documents keep their eta, and takes the done/advance flags; B5 takes
-// the Newton count.
-template <int W, int STAGES, bool BF16, bool RESIDENT>
+// the Newton count.  The resident plan rings float32 slabs only.
+template <int W, int STAGES, bool BF16, bool RESIDENT, typename TB>
 __global__ void __launch_bounds__(kThreads, (NewtonShape<W, STAGES, RESIDENT>::kBlocksPerSM))
 newton_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
-              const float* __restrict__ beta_doc, const float* __restrict__ counts,
+              const TB* __restrict__ beta_doc, const float* __restrict__ counts,
               const float* __restrict__ mu, const float* __restrict__ eta0,
               const uint8_t* __restrict__ done_in, float* H_scratch,
               float* __restrict__ eta_out, int* __restrict__ iters_out,
               uint8_t* __restrict__ done_out, uint8_t* __restrict__ adv_out, int K, int L,
               int T, int max_iters, float grad_tol, int cg_iters, int vec16, NewtonPlan pl) {
+  static_assert(!RESIDENT || std::is_same<TB, float>::value, "resident slabs are float32");
   extern __shared__ __align__(16) float smem[];
   const int Km1 = K - 1;
   const size_t d = blockIdx.x;
@@ -291,11 +300,11 @@ newton_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
   if (pl.sig_smem) {
     for (int i = threadIdx.x; i < Km1 * Km1; i += kThreads) smem[pl.sig + i] = siginv[i];
   }
-  const float* beta_d = beta_doc + d * K * L;
+  const TB* beta_d = beta_doc + d * K * L;
   const float* cnt_d = counts + d * L;
   if (RESIDENT) {  // every slab of the document, once for the whole loop
     for (int s = 0; s * W < L; ++s)
-      load_slab<W>(smem + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
+      load_slab<W>(reinterpret_cast<TB*>(smem) + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
     cp_async_commit();
     cp_async_wait<0>();
   }
@@ -304,7 +313,7 @@ newton_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
   float* H_glob = pl.h_where == kHGlobal ? H_scratch + d * Km1 * Km1 : nullptr;
   int n = 0, done = 0;
   for (int it = 0; it < max_iters; ++it) {
-    const int2 r = newton_step<W, STAGES, BF16, RESIDENT>(pl, smem, sig, pl.sig_smem, beta_d,
+    const int2 r = newton_step<W, STAGES, BF16, RESIDENT, TB>(pl, smem, sig, pl.sig_smem, beta_d,
                                                           cnt_d, H_glob, K, L, T, vec16,
                                                           grad_tol, cg_iters);
     n += r.y;
@@ -325,28 +334,36 @@ newton_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
   }
 }
 
-// Launch newton_kernel on the plan's instantiation.
+// Launch newton_kernel on the plan's instantiation for a beta_doc of TB
+// (16-byte copies where each row is a whole number of 16-byte chunks).
+template <typename TB>
 cudaError_t launch_newton(const NewtonPlan& pl, int bf16, int B, void* stream,
-                          const float* siginv, const float* ts, const float* beta_doc,
+                          const float* siginv, const float* ts, const TB* beta_doc,
                           const float* counts, const float* mu, const float* eta0,
                           const uint8_t* done_in, float* H_scratch, float* eta_out,
                           int* iters_out, uint8_t* done_out, uint8_t* adv_out, int K, int L,
                           int T, int max_iters, float grad_tol, int cg_iters) {
-  const int vec16 = L % 4 == 0 && (uintptr_t)beta_doc % 16 == 0;
+  const int vec16 = L % (16 / sizeof(TB)) == 0 && (uintptr_t)beta_doc % 16 == 0;
   auto args = [&](auto kernel) {
     return launch(kernel, dim3(B), sizeof(float) * pl.floats, stream, siginv, ts, beta_doc,
                   counts, mu, eta0, done_in, H_scratch, eta_out, iters_out, done_out, adv_out,
                   K, L, T, max_iters, grad_tol, cg_iters, vec16, pl);
   };
-  if (pl.resident)
-    return bf16 ? args(newton_kernel<64, 3, true, true>) : args(newton_kernel<64, 3, false, true>);
+  if constexpr (std::is_same<TB, float>::value) {
+    if (pl.resident)
+      return bf16 ? args(newton_kernel<64, 3, true, true, TB>)
+                  : args(newton_kernel<64, 3, false, true, TB>);
+  } else {
+    if (pl.resident) return cudaErrorInvalidValue;
+  }
   if (pl.W == 64)
-    return bf16 ? args(newton_kernel<64, 3, true, false>)
-                : args(newton_kernel<64, 3, false, false>);
+    return bf16 ? args(newton_kernel<64, 3, true, false, TB>)
+                : args(newton_kernel<64, 3, false, false, TB>);
   if (pl.stages == 3)
-    return bf16 ? args(newton_kernel<32, 3, true, false>)
-                : args(newton_kernel<32, 3, false, false>);
-  return bf16 ? args(newton_kernel<32, 2, true, false>) : args(newton_kernel<32, 2, false, false>);
+    return bf16 ? args(newton_kernel<32, 3, true, false, TB>)
+                : args(newton_kernel<32, 3, false, false, TB>);
+  return bf16 ? args(newton_kernel<32, 2, true, false, TB>)
+              : args(newton_kernel<32, 2, false, false, TB>);
 }
 
 // B6: one warp per output row.  An id outside [0, V) gives a row of NaN
@@ -377,14 +394,15 @@ gather_rows_kernel(const float* __restrict__ beta_T, const int* __restrict__ wor
 
 extern "C" {
 
-// The fused kernel's plan at (K, L, bf16) for a loop (B5, loop = 1) or one
-// step (B4, loop = 0) into out[8]: shared-memory bytes
+// The fused kernel's plan at (K, L, bf16) for a beta_doc of float32
+// (beta_bf16 = 0) or bf16, for a loop (B5, loop = 1) or one step (B4,
+// loop = 0) into out[8]: shared-memory bytes
 // a block, W, ring depth, blocks an SM, tile groups, where H lives (0 the
 // ring, 1 a shared region, 2 a (B, K-1, K-1) float32 global scratch the
 // caller passes), siginv in shared memory (1) or not, beta_doc resident
 // (1) or streamed.  Returns -1 where no plan fits.
-int stm_newton_plan(int K, int L, int bf16, int loop, int* out) {
-  const NewtonPlan pl = newton_plan(K, L, bf16, loop);
+int stm_newton_plan(int K, int L, int bf16, int beta_bf16, int loop, int* out) {
+  const NewtonPlan pl = newton_plan(K, L, bf16, loop, beta_bf16 ? 2 : 4);
   if (!pl.ok) return -1;
   const int v[8] = {(int)(sizeof(float) * pl.floats), pl.W, pl.stages, pl.blocks_per_sm,
                     pl.groups, pl.h_where, pl.sig_smem, pl.resident};
@@ -395,17 +413,20 @@ int stm_newton_plan(int K, int L, int bf16, int loop, int* out) {
 int stm_iter(const void* siginv, const void* ts, const void* eta, const void* mu,
              const void* done, const void* beta_doc, const void* counts, void* H_scratch,
              void* eta_out, void* done_out, void* adv_out, int B, int K, int L, int T,
-             float grad_tol, int cg_iters, int bf16, void* stream) {
+             float grad_tol, int cg_iters, int bf16, int beta_bf16, void* stream) {
   if (B == 0) return 0;
   if (T < 1 || T > kMaxT || L < 1) return (int)cudaErrorInvalidValue;
-  const NewtonPlan pl = newton_plan(K, L, bf16, 0);
+  const NewtonPlan pl = newton_plan(K, L, bf16, 0, beta_bf16 ? 2 : 4);
   if (!pl.ok || (pl.h_where == kHGlobal && H_scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_newton(pl, bf16, B, stream, (const float*)siginv, (const float*)ts,
-                            (const float*)beta_doc, (const float*)counts, (const float*)mu,
-                            (const float*)eta, (const uint8_t*)done, (float*)H_scratch,
-                            (float*)eta_out, nullptr, (uint8_t*)done_out, (uint8_t*)adv_out, K,
-                            L, T, 1, grad_tol, cg_iters);
+  auto go = [&](const auto* beta) {
+    return (int)launch_newton(pl, bf16, B, stream, (const float*)siginv, (const float*)ts, beta,
+                              (const float*)counts, (const float*)mu, (const float*)eta,
+                              (const uint8_t*)done, (float*)H_scratch, (float*)eta_out, nullptr,
+                              (uint8_t*)done_out, (uint8_t*)adv_out, K, L, T, 1, grad_tol,
+                              cg_iters);
+  };
+  return beta_bf16 ? go((const __nv_bfloat16*)beta_doc) : go((const float*)beta_doc);
 }
 
 int stm_newton(const void* siginv, const void* ts, const void* beta_doc, const void* counts,
@@ -414,7 +435,7 @@ int stm_newton(const void* siginv, const void* ts, const void* beta_doc, const v
                int cg_iters, int bf16, void* stream) {
   if (B == 0) return 0;
   if (T < 1 || T > kMaxT || L < 1) return (int)cudaErrorInvalidValue;
-  const NewtonPlan pl = newton_plan(K, L, bf16, max_iters > 1);
+  const NewtonPlan pl = newton_plan(K, L, bf16, max_iters > 1, sizeof(float));
   if (!pl.ok || (pl.h_where == kHGlobal && H_scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   return (int)launch_newton(pl, bf16, B, stream, (const float*)siginv, (const float*)ts,

@@ -27,8 +27,14 @@
 // fast-math).  No atomics: a document's outputs depend only on its own
 // inputs, in a fixed order.
 //
+// beta_doc's element type TB is float32, or bf16 for the Newton search
+// under newton_bf16_beta: the ring then holds bf16 slabs (half the bytes),
+// and every read of the ring converts to float32 (ldf, ld4), so all the
+// arithmetic after that read is the float32 path's, on the rounded values.
+//
 // Notation: K topics, Km1 = K - 1 free coordinates, L padded word slots,
-// T step sizes, W word slots a slab; row-major float32 throughout.
+// T step sizes, W word slots a slab; row-major float32 throughout but
+// beta_doc.
 
 #pragma once
 
@@ -46,6 +52,29 @@ constexpr float kTiny = 1e-35f;  // floor of the per-word mixture s_l
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// One slot of a beta_doc slab as float32 (exact for bf16).
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// Four consecutive slots as float32: one 16-byte shared-memory read of
+// float32, one 8-byte read of bf16 (p aligned to that size).
+struct __align__(8) Bf16x4 {
+  __nv_bfloat162 lo, hi;
+};
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const Bf16x4 v = *reinterpret_cast<const Bf16x4*>(p);
+  const float2 a = __bfloat1622float2(v.lo), b = __bfloat1622float2(v.hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Floats of shared memory that n beta_doc elements of TB take (n even).
+__host__ __device__ inline size_t beta_floats(size_t n, int beta_bytes) {
+  return n * beta_bytes / sizeof(float);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -107,25 +136,32 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Slab [K, W] of a document's beta_doc block (K rows of stride L) from
 // word slot l0, into dst (row stride W).  Slots at or past L are filled
-// with zeros.  vec16: L % 4 == 0 and the block 16-byte aligned, so each
-// 4-slot chunk is wholly in or out; else one 4-byte copy per slot.
-template <int W>
-__device__ __forceinline__ void load_slab(float* dst, const float* __restrict__ src, int K,
-                                          int L, int l0, int vec16) {
+// with zeros.  vec16: L a multiple of the slots in 16 bytes (4 float32, 8
+// bf16) and the block 16-byte aligned, so each 16-byte chunk is wholly in
+// or out.  Else float32 slots go one 4-byte cp.async each, and bf16 slots
+// (2 bytes, below cp.async's smallest copy) by plain loads and stores,
+// which the barrier that publishes the cp.async groups publishes too.
+template <int W, typename TB>
+__device__ __forceinline__ void load_slab(TB* dst, const TB* __restrict__ src, int K, int L,
+                                          int l0, int vec16) {
+  constexpr int kPer = 16 / sizeof(TB);  // slots a 16-byte chunk
   if (vec16) {
-    constexpr int kChunks = W / 4;
+    constexpr int kChunks = W / kPer;
     for (int idx = threadIdx.x; idx < K * kChunks; idx += kThreads) {
       const int k = idx / kChunks, c = idx - k * kChunks;
-      const int l = l0 + 4 * c;
+      const int l = l0 + kPer * c;
       const bool in = l < L;
-      cp_async16(dst + k * W + 4 * c, in ? src + (size_t)k * L + l : src, in ? 16 : 0);
+      cp_async16(dst + k * W + kPer * c, in ? src + (size_t)k * L + l : src, in ? 16 : 0);
     }
   } else {
     for (int idx = threadIdx.x; idx < K * W; idx += kThreads) {
       const int k = idx / W, c = idx - k * W;
       const int l = l0 + c;
       const bool in = l < L;
-      cp_async4(dst + k * W + c, in ? src + (size_t)k * L + l : src, in ? 4 : 0);
+      if constexpr (sizeof(TB) == sizeof(float))
+        cp_async4(dst + k * W + c, in ? src + (size_t)k * L + l : src, in ? 4 : 0);
+      else
+        dst[k * W + c] = in ? src[(size_t)k * L + l] : __float2bfloat16(0.f);
     }
   }
 }
@@ -175,7 +211,7 @@ __device__ __forceinline__ void ldmatrix_b(uint32_t* b, const __nv_bfloat16* op,
 // ---------------------------------------------------------------------------
 //
 // Bound on the H100 by device memory: per document it reads beta_doc
-// (K·L·4 bytes) and writes H ((K-1)²·4 bytes); the B·Bᵀ product is
+// (K·L·4 bytes, 2 in bf16) and writes H ((K-1)²·4 bytes); the B·Bᵀ product is
 // 2·(K-1)²·L flops, ~0.04 flop a byte in bf16.  Design: one block per
 // document (times a tile group, below) streams beta_doc once, in slabs of
 // W word slots (64 where two blocks with a three-slab ring fit an SM,
@@ -201,16 +237,18 @@ __host__ __device__ constexpr int op_stride_f(int W) { return W + 1; }
 constexpr int kTilesPerWarp = 8;
 constexpr int kTilesPerGroup = kTilesPerWarp * kWarps;
 
-// Shared-memory layout of B1, in floats.
+// Shared-memory layout of B1, in floats; the ring holds `stages` slabs of
+// beta_doc elements of beta_bytes (4 or 2) each.
 struct FghLayout {
   size_t ring, part, qpart, e, diff, sdiff, q, red, op, floats;
 };
 
-__host__ __device__ inline FghLayout fgh_layout(int K, int W, int stages, int bf16) {
+__host__ __device__ inline FghLayout fgh_layout(int K, int W, int stages, int bf16,
+                                                int beta_bytes) {
   const int Km1 = K - 1, Kp = round16(Km1);
   FghLayout o;
   size_t at = 0;
-  o.ring = at;   at += (size_t)stages * K * W;  // the slabs
+  o.ring = at;   at += beta_floats((size_t)stages * K * W, beta_bytes);  // the slabs
   o.part = at;   at += (size_t)kWarps * W;       // per-warp partial s_l
   o.qpart = at;  at += (size_t)Km1 * 32;         // per-lane partial q_k
   o.e = at;      at += K;
@@ -254,18 +292,20 @@ struct HOut {
 // mu is mu[d·Km1 ..].  They are addressed where they are used, so that no
 // pointer stays live in a register across the stream.  RESIDENT: the ring
 // holds all of the document's slabs already (the fused kernel loads them
-// once for the whole Newton loop), so nothing is streamed.
-template <int W, int STAGES, bool BF16, bool FUSED, bool RESIDENT = false>
+// once for the whole Newton loop), so nothing is streamed.  TB: beta_doc's
+// element type.
+template <int W, int STAGES, bool BF16, bool FUSED, bool RESIDENT = false, typename TB = float>
 __device__ __forceinline__ void fgh_body(
     const float* __restrict__ siginv, bool sig_shared, const float* eta_d, const float* mu,
-    const float* __restrict__ beta_d, const float* __restrict__ cnt_d, float* f_out,
+    const TB* __restrict__ beta_d, const float* __restrict__ cnt_d, float* f_out,
     float* g_out, const HOut& hout, size_t d, int K, int L, int vec16, int grp, float* smem) {
   constexpr int kOpStrideBf = op_stride_bf(W), kOpStrideF = op_stride_f(W);
   constexpr int kCols = W / 32;  // word slots of a lane in a slab
   const int Km1 = K - 1, Kp = round16(Km1);
   const int n_slabs = (L + W - 1) / W;
-  const FghLayout lay = fgh_layout(K, W, RESIDENT ? n_slabs : STAGES, BF16);
-  float* ring = smem + lay.ring;
+  const FghLayout lay = fgh_layout(K, W, RESIDENT ? n_slabs : STAGES, BF16, sizeof(TB));
+  TB* ring = reinterpret_cast<TB*>(smem + lay.ring);
+  float* sig_buf = reinterpret_cast<float*>(ring + K * W);  // the ring's buffers 1 ..
   float* part = smem + lay.part;
   float* qpart = smem + lay.qpart;
   float* e = smem + lay.e;
@@ -283,9 +323,9 @@ __device__ __forceinline__ void fgh_body(
   // memory already), it comes in first, for the prior term to read from
   // shared memory; the later slabs follow it.
   const bool sig_ring = !RESIDENT && !sig_shared && grp == 0 &&
-                        (size_t)Km1 * Km1 <= (size_t)(STAGES - 1) * K * W;
+                        (size_t)Km1 * Km1 <= beta_floats((size_t)(STAGES - 1) * K * W, sizeof(TB));
   if (sig_ring) {
-    load_siginv(ring + K * W, siginv, Km1 * Km1);
+    load_siginv(sig_buf, siginv, Km1 * Km1);
     cp_async_commit();
   }
   for (int s = 0; !RESIDENT && s < (sig_ring ? 1 : STAGES - 1); ++s) {
@@ -331,7 +371,7 @@ __device__ __forceinline__ void fgh_body(
       cp_async_wait<1>();  // siginv has landed (slab 0 may not have)
       __syncthreads();
     }
-    const float* sig = sig_ring ? ring + K * W : siginv;
+    const float* sig = sig_ring ? sig_buf : siginv;
     const int half = Km1 / 2;
     for (int idx = tid; idx < 2 * Km1; idx += kThreads) {
       const int h = idx >= Km1, j = idx - h * Km1;
@@ -393,7 +433,7 @@ __device__ __forceinline__ void fgh_body(
         load_slab<W>(ring + (size_t)(sn % STAGES) * K * W, beta_d, K, L, sn * W, vec16);
       cp_async_commit();
     }
-    const float* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;
+    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;
 
     // s_l: warp w sums the topics k ≡ w (mod kWarps) of its lane's slots
     float ps[kCols];
@@ -402,7 +442,7 @@ __device__ __forceinline__ void fgh_body(
 #pragma unroll 4
     for (int k = warp; k < K; k += kWarps) {
 #pragma unroll
-      for (int u = 0; u < kCols; ++u) ps[u] += e[k] * slab[k * W + lane + 32 * u];
+      for (int u = 0; u < kCols; ++u) ps[u] += e[k] * ldf(slab + k * W + lane + 32 * u);
     }
 #pragma unroll
     for (int u = 0; u < kCols; ++u) part[warp * W + lane + 32 * u] = ps[u];
@@ -429,7 +469,7 @@ __device__ __forceinline__ void fgh_body(
 #pragma unroll
       for (int u = 0; u < kCols; ++u) {
         const int col = lane + 32 * u;
-        const float ph = live[u] ? e[k] * slab[k * W + col] / sl[u] : 0.f;
+        const float ph = live[u] ? e[k] * ldf(slab + k * W + col) / sl[u] : 0.f;
         qv += ph * cl[u];
         const float v = ph * rc[u];
         if (BF16) {
@@ -744,13 +784,13 @@ __device__ __forceinline__ void cg_body(const HM hm, const float* diag, const fl
 // B3: the Armijo sweep
 // ---------------------------------------------------------------------------
 //
-// Bound on the H100 by reading beta_doc once (K·L·4 bytes a document);
-// the T mixtures are 2·T·K·L flops, far below the float32 peak at that
-// byte count.  Design: one block per document; slabs of W word slots
-// (64, or 32 where K is large) stream through a cp.async ring.  Thread
-// (ks, tg, cg) forms the partial mixtures of 4 step sizes (tg) by 4 slots
-// (cg) over the topics k ≡ ks (mod KS) in float32 FMAs, from 16-byte
-// shared-memory reads of the slab and of the transposed candidate rows
+// Bound on the H100 by reading beta_doc once (K·L·4 bytes a document, 2
+// in bf16); the T mixtures are 2·T·K·L flops, far below the float32 peak
+// at that byte count.  Design: one block per document; slabs of W word
+// slots (64, or 32 where K is large) stream through a cp.async ring.
+// Thread (ks, tg, cg) forms the partial mixtures of 4 step sizes (tg) by 4
+// slots (cg) over the topics k ≡ ks (mod KS) in float32 FMAs, from 16-byte
+// shared-memory reads of the slab (8-byte of a bf16 slab) and of the transposed candidate rows
 // etT[k][t]; the KS partials of each s[t,l] are added in ks order, and
 // each (t, l) thread keeps its own log-likelihood sum across slabs.  The
 // prior term ½ dᵀΣ⁻¹d of each candidate is computed as before, once per
@@ -767,11 +807,11 @@ struct LsLayout {
   size_t ring, part, etT, dT, eta, p, mu, ts, mt, lse, llw, qw, red, floats;
 };
 
-__host__ __device__ inline LsLayout ls_layout(int K, int W, int stages) {
+__host__ __device__ inline LsLayout ls_layout(int K, int W, int stages, int beta_bytes) {
   const int Km1 = K - 1;
   LsLayout o;
   size_t at = 0;
-  o.ring = at;  at += (size_t)stages * K * W;
+  o.ring = at;  at += beta_floats((size_t)stages * K * W, beta_bytes);
   o.part = at;  at += (size_t)(kThreads / W) * kMaxT * W;  // KS x kMaxT x W
   o.etT = at;   at += (size_t)K * kMaxT;
   o.dT = at;    at += (size_t)Km1 * kMaxT;
@@ -790,18 +830,19 @@ __host__ __device__ inline LsLayout ls_layout(int K, int W, int stages) {
 
 // Document d's eta, p and mu are rows d of `eta`, `pdir` and `mu`, its
 // sweep values row d of `fs` (addressed where they are used, as in
-// fgh_body).  RESIDENT as in fgh_body.
-template <int W, int STAGES, bool RESIDENT = false>
+// fgh_body).  RESIDENT and TB as in fgh_body.
+template <int W, int STAGES, bool RESIDENT = false, typename TB = float>
 __device__ __forceinline__ void ls_body(
     const float* __restrict__ siginv, bool sig_shared, const float* ts, int T, const float* eta,
-    const float* pdir, const float* mu, const float* __restrict__ beta_d,
+    const float* pdir, const float* mu, const TB* __restrict__ beta_d,
     const float* __restrict__ cnt_d, float* fs, size_t d, int K, int L, int vec16,
     float* smem) {
   using S = LsShape<W>;
   const int Km1 = K - 1;
   const int n_slabs = (L + W - 1) / W;
-  const LsLayout lay = ls_layout(K, W, RESIDENT ? n_slabs : STAGES);
-  float* ring = smem + lay.ring;
+  const LsLayout lay = ls_layout(K, W, RESIDENT ? n_slabs : STAGES, sizeof(TB));
+  TB* ring = reinterpret_cast<TB*>(smem + lay.ring);
+  float* sig_buf = reinterpret_cast<float*>(ring + K * W);  // the ring's buffers 1 ..
   float* part = smem + lay.part;
   float* etT = smem + lay.etT;
   float* dT = smem + lay.dT;
@@ -818,10 +859,10 @@ __device__ __forceinline__ void ls_body(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // as in fgh: siginv first where the ring's other buffers hold it
-  const bool sig_ring =
-      !RESIDENT && !sig_shared && (size_t)Km1 * Km1 <= (size_t)(STAGES - 1) * K * W;
+  const bool sig_ring = !RESIDENT && !sig_shared &&
+                        (size_t)Km1 * Km1 <= beta_floats((size_t)(STAGES - 1) * K * W, sizeof(TB));
   if (sig_ring) {
-    load_siginv(ring + K * W, siginv, Km1 * Km1);
+    load_siginv(sig_buf, siginv, Km1 * Km1);
     cp_async_commit();
   }
   for (int s = 0; !RESIDENT && s < (sig_ring ? 1 : STAGES - 1); ++s) {
@@ -870,7 +911,7 @@ __device__ __forceinline__ void ls_body(
     __syncthreads();
   }
   {
-    const float* sig = sig_ring ? ring + K * W : siginv;
+    const float* sig = sig_ring ? sig_buf : siginv;
     const int tg = tid >> 6, jj = tid & 63;
     float qs[4] = {0.f, 0.f, 0.f, 0.f};
     if (4 * tg < T) {
@@ -926,7 +967,7 @@ __device__ __forceinline__ void ls_body(
         load_slab<W>(ring + (size_t)(sn % STAGES) * K * W, beta_d, K, L, sn * W, vec16);
       cp_async_commit();
     }
-    const float* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;
+    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;
 
     if (4 * tg < T) {
       float a[4][4];
@@ -935,7 +976,7 @@ __device__ __forceinline__ void ls_body(
 #pragma unroll
         for (int v = 0; v < 4; ++v) a[u][v] = 0.f;
       for (int k = ks; k < K; k += S::kKS) {
-        const float4 b = *reinterpret_cast<const float4*>(slab + k * W + 4 * cg);
+        const float4 b = ld4(slab + k * W + 4 * cg);
         const float4 ev = *reinterpret_cast<const float4*>(etT + k * kMaxT + 4 * tg);
         const float ea[4] = {ev.x, ev.y, ev.z, ev.w};
 #pragma unroll

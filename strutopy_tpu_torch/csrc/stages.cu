@@ -15,7 +15,8 @@
 //
 // Notation: K topics, Km1 = K - 1 free coordinates, L padded unique-term
 // slots of the document, T step sizes.  All arrays are row-major,
-// contiguous float32:
+// contiguous float32, but beta_doc, which stm_fgh and stm_ls also take as
+// bf16 (beta_bf16 = 1: the Newton search under newton_bf16_beta):
 //   siginv (Km1, Km1) symmetric; eta, mu, p, g (B, Km1);
 //   beta_doc (B, K, L); counts (B, L); H (B, Km1, Km1); f (B,); fs (B, T).
 //
@@ -42,32 +43,32 @@ namespace {
 
 // B1: one block per document and tile group (blockIdx.y); H assembled in
 // the free ring and written in whole rows where one group covers it.
-template <int W, int STAGES, bool BF16>
+template <int W, int STAGES, bool BF16, typename TB>
 __global__ void __launch_bounds__(kThreads, 2)
 fgh_kernel(const float* __restrict__ siginv, const float* __restrict__ eta,
-           const float* __restrict__ mu, const float* __restrict__ beta_doc,
+           const float* __restrict__ mu, const TB* __restrict__ beta_doc,
            const float* __restrict__ counts, float* __restrict__ f_out,
            float* __restrict__ g_out, float* __restrict__ H_out, int K, int L, int vec16) {
   extern __shared__ __align__(16) float smem[];
   const size_t d = blockIdx.x;
   HOut hout{};
   hout.glob = H_out;
-  fgh_body<W, STAGES, BF16, false>(siginv, false, eta + d * (K - 1), mu, beta_doc + d * K * L,
+  fgh_body<W, STAGES, BF16, false, false, TB>(siginv, false, eta + d * (K - 1), mu, beta_doc + d * K * L,
                                    counts + d * L, f_out, g_out, hout, d, K, L, vec16,
                                    blockIdx.y, smem);
 }
 
 // B3: one block per document.
-template <int W, int STAGES>
+template <int W, int STAGES, typename TB>
 __global__ void __launch_bounds__(kThreads)
 ls_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
           const float* __restrict__ eta, const float* __restrict__ pdir,
-          const float* __restrict__ mu, const float* __restrict__ beta_doc,
+          const float* __restrict__ mu, const TB* __restrict__ beta_doc,
           const float* __restrict__ counts, float* __restrict__ fs, int K, int L, int T,
           int vec16) {
   extern __shared__ __align__(16) float smem[];
   const size_t d = blockIdx.x;
-  ls_body<W, STAGES>(siginv, false, ts, T, eta, pdir, mu, beta_doc + d * K * L, counts + d * L,
+  ls_body<W, STAGES, false, TB>(siginv, false, ts, T, eta, pdir, mu, beta_doc + d * K * L, counts + d * L,
                      fs, d, K, L, vec16, smem);
 }
 
@@ -148,57 +149,109 @@ cg_kernel(const float* __restrict__ H, const float* __restrict__ g,
     cg_body<NP>(HGlobal<BF16>{H_d, Km1}, diag, gs, x_out + d * Km1, Km1, iters, scratch);
 }
 
+// B1's ring: 64-slot slabs three deep where two blocks fit an SM, then
+// 32-slot slabs three deep, then 32-slot slabs two deep up to the whole
+// opt-in shared memory; the first that fits is taken.  A bf16 beta_doc's
+// slabs take half the bytes of float32 ones.
+struct FghPlan {
+  int W, stages;
+  size_t bytes;
+};
+
+inline FghPlan fgh_plan(int K, int bf16, int beta_bytes) {
+  const size_t optin = (size_t)max_optin_smem();
+  const int cand[3][3] = {{64, 3, 2}, {32, 3, 2}, {32, 2, 1}};  // W, stages, blocks an SM
+  for (const auto& c : cand) {
+    const size_t bytes = sizeof(float) * fgh_layout(K, c[0], c[1], bf16, beta_bytes).floats;
+    if (bytes <= optin / c[2]) return {c[0], c[1], bytes};
+  }
+  return {0, 0, 0};
+}
+
+// B3's ring: 64 slots by three slabs where two blocks fit an SM, then
+// 64 by two, 32 by three and 32 by two; the first that fits is taken.
+struct LsPlan {
+  int W, stages;
+  size_t bytes;
+};
+
+inline LsPlan ls_plan(int K, int beta_bytes) {
+  const size_t optin = (size_t)max_optin_smem();
+  const int cand[4][2] = {{64, 3}, {64, 2}, {32, 3}, {32, 2}};
+  for (const size_t limit : {optin / 2, optin}) {
+    for (const auto& c : cand) {
+      const size_t bytes = sizeof(float) * ls_layout(K, c[0], c[1], beta_bytes).floats;
+      if (bytes <= limit) return {c[0], c[1], bytes};
+    }
+  }
+  return {0, 0, 0};
+}
+
+// beta_doc's element size, and whether a block may copy it in 16-byte
+// chunks: each row of L elements a whole number of chunks, the array
+// 16-byte aligned.
+inline int beta_bytes_of(int beta_bf16) { return beta_bf16 ? 2 : 4; }
+inline int beta_vec16(const void* beta_doc, int L, int beta_bytes) {
+  return L % (16 / beta_bytes) == 0 && (uintptr_t)beta_doc % 16 == 0;
+}
+
+template <typename TB>
+cudaError_t launch_fgh(const FghPlan& plan, int bf16, dim3 grid, void* stream,
+                       const void* siginv, const void* eta, const void* mu, const void* beta_doc,
+                       const void* counts, void* f, void* g, void* H, int K, int L) {
+  const int vec16 = beta_vec16(beta_doc, L, sizeof(TB));
+  auto args = [&](auto kernel) {
+    return launch(kernel, grid, plan.bytes, stream, (const float*)siginv, (const float*)eta,
+                  (const float*)mu, (const TB*)beta_doc, (const float*)counts, (float*)f,
+                  (float*)g, (float*)H, K, L, vec16);
+  };
+  if (plan.W == 64)
+    return bf16 ? args(fgh_kernel<64, 3, true, TB>) : args(fgh_kernel<64, 3, false, TB>);
+  if (plan.stages == 3)
+    return bf16 ? args(fgh_kernel<32, 3, true, TB>) : args(fgh_kernel<32, 3, false, TB>);
+  return bf16 ? args(fgh_kernel<32, 2, true, TB>) : args(fgh_kernel<32, 2, false, TB>);
+}
+
+template <typename TB>
+cudaError_t launch_ls(const LsPlan& plan, int B, void* stream, const void* siginv,
+                      const void* ts, const void* eta, const void* p, const void* mu,
+                      const void* beta_doc, const void* counts, void* fs, int K, int L, int T) {
+  const int vec16 = beta_vec16(beta_doc, L, sizeof(TB));
+  auto args = [&](auto kernel) {
+    return launch(kernel, dim3(B), plan.bytes, stream, (const float*)siginv, (const float*)ts,
+                  (const float*)eta, (const float*)p, (const float*)mu, (const TB*)beta_doc,
+                  (const float*)counts, (float*)fs, K, L, T, vec16);
+  };
+  if (plan.W == 64)
+    return plan.stages == 3 ? args(ls_kernel<64, 3, TB>) : args(ls_kernel<64, 2, TB>);
+  return plan.stages == 3 ? args(ls_kernel<32, 3, TB>) : args(ls_kernel<32, 2, TB>);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* stm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// B1's ring: 64-slot slabs three deep where two blocks fit an SM, then
-// 32-slot slabs three deep, then 32-slot slabs two deep up to the whole
-// opt-in shared memory; the first that fits is taken.
-struct FghPlan {
-  int W, stages;
-  size_t bytes;
-};
-
-inline FghPlan fgh_plan(int K, int bf16) {
-  const size_t optin = (size_t)max_optin_smem();
-  const int cand[3][3] = {{64, 3, 2}, {32, 3, 2}, {32, 2, 1}};  // W, stages, blocks an SM
-  for (const auto& c : cand) {
-    const size_t bytes = sizeof(float) * fgh_layout(K, c[0], c[1], bf16).floats;
-    if (bytes <= optin / c[2]) return {c[0], c[1], bytes};
-  }
-  return {0, 0, 0};
-}
-
 // Shared-memory bytes of one block of stm_fgh or stm_ls at K (they do not
 // depend on L); -1 where no plan fits.
-int stm_fgh_smem(int K, int bf16) {
-  const FghPlan plan = fgh_plan(K, bf16);
+int stm_fgh_smem(int K, int bf16, int beta_bf16) {
+  const FghPlan plan = fgh_plan(K, bf16, beta_bytes_of(beta_bf16));
   return plan.W ? (int)plan.bytes : -1;
 }
 
 int stm_fgh(const void* siginv, const void* eta, const void* mu, const void* beta_doc,
             const void* counts, void* f, void* g, void* H, int B, int K, int L, int bf16,
-            void* stream) {
+            int beta_bf16, void* stream) {
   if (B == 0) return 0;
-  const FghPlan plan = fgh_plan(K, bf16);
+  const FghPlan plan = fgh_plan(K, bf16, beta_bytes_of(beta_bf16));
   if (!plan.W || L < 1) return (int)cudaErrorInvalidValue;
-  const int vec16 = L % 4 == 0 && (uintptr_t)beta_doc % 16 == 0;
   const dim3 grid(B, (fgh_tiles(K) + kTilesPerGroup - 1) / kTilesPerGroup);
-  auto args = [&](auto kernel) {
-    return launch(kernel, grid, plan.bytes, stream, (const float*)siginv, (const float*)eta,
-                  (const float*)mu, (const float*)beta_doc, (const float*)counts, (float*)f,
-                  (float*)g, (float*)H, K, L, vec16);
-  };
-  cudaError_t err;
-  if (plan.W == 64)
-    err = bf16 ? args(fgh_kernel<64, 3, true>) : args(fgh_kernel<64, 3, false>);
-  else if (plan.stages == 3)
-    err = bf16 ? args(fgh_kernel<32, 3, true>) : args(fgh_kernel<32, 3, false>);
-  else
-    err = bf16 ? args(fgh_kernel<32, 2, true>) : args(fgh_kernel<32, 2, false>);
+  const cudaError_t err =
+      beta_bf16 ? launch_fgh<__nv_bfloat16>(plan, bf16, grid, stream, siginv, eta, mu, beta_doc,
+                                            counts, f, g, H, K, L)
+                : launch_fgh<float>(plan, bf16, grid, stream, siginv, eta, mu, beta_doc, counts,
+                                    f, g, H, K, L);
   return (int)err;
 }
 
@@ -232,48 +285,23 @@ int stm_cg(const void* H, const void* g, void* x, int B, int Km1, int iters, int
   return (int)err;
 }
 
-// B3's ring: 64 slots by three slabs where two blocks fit an SM, then
-// 64 by two, 32 by three and 32 by two; the first that fits is taken.
-struct LsPlan {
-  int W, stages;
-  size_t bytes;
-};
-
-inline LsPlan ls_plan(int K) {
-  const size_t optin = (size_t)max_optin_smem();
-  const int cand[4][2] = {{64, 3}, {64, 2}, {32, 3}, {32, 2}};
-  for (const size_t limit : {optin / 2, optin}) {
-    for (const auto& c : cand) {
-      const size_t bytes = sizeof(float) * ls_layout(K, c[0], c[1]).floats;
-      if (bytes <= limit) return {c[0], c[1], bytes};
-    }
-  }
-  return {0, 0, 0};
-}
-
-int stm_ls_smem(int K) {
-  const LsPlan plan = ls_plan(K);
+int stm_ls_smem(int K, int beta_bf16) {
+  const LsPlan plan = ls_plan(K, beta_bytes_of(beta_bf16));
   return plan.W ? (int)plan.bytes : -1;
 }
 
 int stm_ls(const void* siginv, const void* ts, const void* eta, const void* p,
            const void* mu, const void* beta_doc, const void* counts, void* fs, int B, int K,
-           int L, int T, void* stream) {
+           int L, int T, int beta_bf16, void* stream) {
   if (B == 0) return 0;
   if (T < 1 || T > kMaxT) return (int)cudaErrorInvalidValue;
-  const LsPlan plan = ls_plan(K);
+  const LsPlan plan = ls_plan(K, beta_bytes_of(beta_bf16));
   if (!plan.W || L < 1) return (int)cudaErrorInvalidValue;
-  const int vec16 = L % 4 == 0 && (uintptr_t)beta_doc % 16 == 0;
-  auto args = [&](auto kernel) {
-    return launch(kernel, dim3(B), plan.bytes, stream, (const float*)siginv, (const float*)ts,
-                  (const float*)eta, (const float*)p, (const float*)mu,
-                  (const float*)beta_doc, (const float*)counts, (float*)fs, K, L, T, vec16);
-  };
-  cudaError_t err;
-  if (plan.W == 64)
-    err = plan.stages == 3 ? args(ls_kernel<64, 3>) : args(ls_kernel<64, 2>);
-  else
-    err = plan.stages == 3 ? args(ls_kernel<32, 3>) : args(ls_kernel<32, 2>);
+  const cudaError_t err =
+      beta_bf16 ? launch_ls<__nv_bfloat16>(plan, B, stream, siginv, ts, eta, p, mu, beta_doc,
+                                           counts, fs, K, L, T)
+                : launch_ls<float>(plan, B, stream, siginv, ts, eta, p, mu, beta_doc, counts,
+                                   fs, K, L, T);
   return (int)err;
 }
 

@@ -10,14 +10,16 @@ Differences, all explicit:
     kernels (f/g/H, CG, the Armijo sweep); ``pallas_iter`` runs each
     iteration as one fused kernel, ``use_pallas`` the whole loop of a
     chunk as one kernel (single pass: it excludes ``newton_pass1_iters``,
-    as in JAX).  The names are the JAX package's;
+    as in JAX).  The names are the JAX package's.  ``two_pass_fused`` and
+    ``newton_bf16_beta`` are E-step options that run here as in JAX (the
+    bf16 beta_doc on the kernels' bf16-input modes);
   * ``pallas_fgh``/``pallas_cg``/``pallas_ls`` have no fields: the stage
     kernels are the default path here (``from_json`` drops the keys,
     ``to_json`` writes them False, the JAX defaults);
-  * knobs that steer the TPU compiler or its kernels (:data:`TPU_ONLY`)
-    are fields with their JAX defaults and raise when set to anything
-    else — a configuration tuned for the TPU must not be silently
-    reinterpreted.
+  * knobs that steer the TPU compiler or its kernels' blocking
+    (:data:`TPU_ONLY`) are fields with their JAX defaults and raise when
+    set to anything else — a configuration tuned for the TPU must not be
+    silently reinterpreted.
 """
 
 from __future__ import annotations
@@ -30,8 +32,6 @@ TPU_ONLY = {
     "pallas_block": 8,
     "cg_chunk_docs": 0,
     "scan_unroll": 1,
-    "two_pass_fused": False,
-    "newton_bf16_beta": False,
     "chol_block": 0,
 }
 # JAX fields the port accepts in from_json and drops: the stage kernels
@@ -80,7 +80,8 @@ class STMConfig:
     # two-pass straggler schedule (ops/estep.py::_two_pass_estep); 0 = off
     newton_pass1_iters: int = 0
     newton_straggler_frac: float = 0.3
-    two_pass_fused: bool = False  # TPU only
+    # finalize inside passes 1 and 2 (ops/estep.py::_two_pass_fused_estep)
+    two_pass_fused: bool = False
     newton_warmup_iters: int = 2
     # execution
     batch_size: int = 256
@@ -88,7 +89,7 @@ class STMConfig:
     pallas_iter: bool = False  # each Newton iteration as one fused kernel
     pallas_block: int = 8  # TPU only
     cg_chunk_docs: int = 0  # TPU only
-    newton_bf16_beta: bool = False  # TPU only
+    newton_bf16_beta: bool = False  # bf16 beta_doc in the Newton search, float32 finalize
     # "blocked" and "chol" are the same factorization here (the blocked
     # form only worked around the TPU compiler); "ns" is not ported
     nu_method: str = "blocked"

@@ -57,6 +57,7 @@ def _newton_cfg(cfg: STMConfig) -> NewtonConfig:
         fixed_iters=cfg.newton_fixed_iters,
         pallas_iter=cfg.pallas_iter,
         likelihood_temper=cfg.likelihood_temper,
+        bf16_beta=cfg.newton_bf16_beta,
     )
 
 
@@ -104,6 +105,7 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
             aspects_b, ok_b,
             cfg=ncfg, batch_size=B_b, pass1_iters=cfg.newton_pass1_iters,
             straggler_frac=cfg.newton_straggler_frac, use_pallas=cfg.use_pallas,
+            fused_finalize=cfg.two_pass_fused,
         )
         eta_out, theta_out, iters_out = res.eta, res.theta, res.newton_iters
         if perm is not None:

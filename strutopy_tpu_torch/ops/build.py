@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,13 +33,13 @@ _lib = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "stm_fgh_smem": [_I] * 2,
-    "stm_fgh": [_P] * 8 + [_I] * 4 + [_P],
+    "stm_fgh_smem": [_I] * 3,
+    "stm_fgh": [_P] * 8 + [_I] * 5 + [_P],
     "stm_cg": [_P] * 3 + [_I] * 4 + [_P],
-    "stm_ls_smem": [_I],
-    "stm_ls": [_P] * 8 + [_I] * 4 + [_P],
-    "stm_newton_plan": [_I] * 4 + [_P],
-    "stm_iter": [_P] * 11 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+    "stm_ls_smem": [_I] * 2,
+    "stm_ls": [_P] * 8 + [_I] * 5 + [_P],
+    "stm_newton_plan": [_I] * 5 + [_P],
+    "stm_iter": [_P] * 11 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "stm_newton": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "stm_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
 }
@@ -75,7 +77,8 @@ def build() -> Path:
 
     One ``nvcc -c`` per source, all started together, then one link.
     ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills
-    per kernel) is kept beside the library; :func:`ptxas_report` reads it.
+    per kernel), headed by each source's compile seconds, is kept beside
+    the library; :func:`ptxas_report` reads it.
     """
     out = library_path()
     if out.exists():
@@ -87,11 +90,19 @@ def build() -> Path:
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(SOURCES, objs)]
     cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+
+    def run(cmd):
+        t0 = time.time()
+        done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return cmd, done.stdout, done.returncode, time.time() - t0
+
     report = []
     try:
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True) for cmd in cmds[:-1]]
-        results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(cmds, procs)]
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            timed = list(pool.map(run, cmds[:-1]))
+        report.append("".join(f"nvcc {src.name}: {sec:.1f} s\n"
+                              for src, (*_, sec) in zip(SOURCES, timed)))
+        results = [r[:3] for r in timed]
         if all(rc == 0 for *_, rc in results):
             link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)

@@ -22,7 +22,11 @@ accumulated as
 
     sigma_ss += nu        beta_ss[(a_d,) :, w_d] += phi_d      bound += bound_d
 
-Documents go through in chunks of ``batch_size``.  Plain functions on
+Documents go through in chunks of ``batch_size``, in one pass or in the
+two-pass straggler schedule, whose finalize either re-gathers beta_doc
+in a third pass or rides passes 1 and 2 (``fused_finalize``).  With
+``NewtonConfig.bf16_beta`` the Newton search of the first two paths reads
+beta_doc rounded to bf16; the finalize reads float32.  Plain functions on
 tensors: everything runs on the device of its inputs.
 """
 
@@ -51,6 +55,10 @@ class NewtonConfig(NamedTuple):
     # < 1 tempers the likelihood of the eta SEARCH objective; the
     # finalize always evaluates the true model (see the JAX twin)
     likelihood_temper: float = 1.0
+    # the Newton search reads beta_doc rounded to bf16 (half the bytes of
+    # its dominant read); the finalize (bound, phi, nu) always reads the
+    # float32 gather.  The whole-loop path (use_pallas) ignores it, as in JAX
+    bf16_beta: bool = False
 
 
 class EStepResult(NamedTuple):
@@ -68,6 +76,13 @@ class EStepResult(NamedTuple):
 # ---------------------------------------------------------------------------
 # Newton solve
 # ---------------------------------------------------------------------------
+
+
+def _search_beta(beta_doc, cfg: NewtonConfig):
+    """The beta_doc the Newton search reads: rounded to bf16 once after
+    the gather under ``bf16_beta`` (a plain cast, as the JAX package
+    leaves it to XLA), else the float32 gather itself."""
+    return beta_doc.to(torch.bfloat16) if cfg.bf16_beta else beta_doc
 
 
 def _search_counts(counts, cfg: NewtonConfig):
@@ -226,37 +241,39 @@ def _chunks(n: int, B: int):
 
 
 class _StatsSum:
-    """The E-step's sums over chunks, added in storage order."""
+    """The E-step's sums over chunks, added in the order they come."""
 
     def __init__(self, beta):
         K = beta.shape[-2]
         self.beta_ss = torch.zeros_like(beta)
         self.sigma_ss = torch.zeros(K - 1, K - 1, dtype=beta.dtype, device=beta.device)
         self.bound = torch.zeros((), dtype=beta.dtype, device=beta.device)
-        self.thetas = []
 
-    def finalize(self, eta, beta_doc, words, counts, aspects, mu, doc_ok, siginv,
+    def finalize(self, eta, beta_doc, words, counts, aspects, mu, weight, siginv,
                  sigmaentropy):
-        """Finalize one chunk at its eta and add its statistics."""
+        """Finalize one chunk at its eta, add its statistics with each
+        document weighted by ``weight`` (bool: its doc_ok, or the subset a
+        schedule finalizes here), and return its theta."""
         theta, nu, bound_d, phi = _finalize_chunk(
-            eta, beta_doc, counts, mu, doc_ok.to(beta_doc.dtype), siginv,
+            eta, beta_doc, counts, mu, weight.to(beta_doc.dtype), siginv,
             sigmaentropy, torch.sum(counts, dim=1))
         _scatter_phi(self.beta_ss, phi, words, aspects)
         self.sigma_ss = self.sigma_ss + torch.sum(nu, dim=0)
         self.bound = self.bound + torch.sum(bound_d)
-        self.thetas.append(theta)
+        return theta
 
 
-def _finalize_all(beta, eta, mu, siginv, sigmaentropy, words, counts, aspects,
-                  doc_ok, B):
+def _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspects,
+                  weight, B):
     """Finalize every document in storage order, chunk by chunk, from a
-    fresh gather of beta_doc (the two-pass schedule's pass 3)."""
-    acc = _StatsSum(beta)
+    fresh gather of beta_doc, into ``acc`` (the two-pass schedule's pass
+    3, and the fused schedule's overflow sweep): the documents' theta."""
+    thetas = []
     for sl in _chunks(words.shape[0], B):
         bd = _gather_beta(beta, words[sl], aspects[sl])
-        acc.finalize(eta[sl], bd, words[sl], counts[sl], aspects[sl], mu[sl],
-                     doc_ok[sl], siginv, sigmaentropy)
-    return acc.beta_ss, acc.sigma_ss, acc.bound, torch.cat(acc.thetas)
+        thetas.append(acc.finalize(eta[sl], bd, words[sl], counts[sl], aspects[sl], mu[sl],
+                                   weight[sl], siginv, sigmaentropy))
+    return torch.cat(thetas)
 
 
 def _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
@@ -264,37 +281,65 @@ def _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspe
                        use_pallas: bool) -> EStepResult:
     """One loop over the chunks: gather beta_doc once, solve, finalize
     (the JAX ``chunk_fn``).  With ``use_pallas`` the whole Newton loop of
-    a chunk is one kernel."""
+    a chunk is one kernel, on the float32 gather whatever ``bf16_beta``
+    says (as in JAX)."""
     acc = _StatsSum(beta)
-    etas, iters = [], []
+    etas, thetas, iters = [], [], []
     for sl in _chunks(words.shape[0], B):
         bd = _gather_beta(beta, words[sl], aspects[sl])
         if use_pallas:
             eta, it = _newton_loop(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
         else:
-            eta, it, _done = _batched_newton(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
-        acc.finalize(eta, bd, words[sl], counts[sl], aspects[sl], mu[sl],
-                     doc_ok[sl], siginv, sigmaentropy)
+            eta, it, _done = _batched_newton(_search_beta(bd, cfg), counts[sl], mu[sl],
+                                             eta0[sl], siginv, cfg)
+        thetas.append(acc.finalize(eta, bd, words[sl], counts[sl], aspects[sl], mu[sl],
+                                   doc_ok[sl], siginv, sigmaentropy))
         etas.append(eta)
         iters.append(it)
     overflow = torch.zeros((), dtype=torch.int32, device=words.device)
     return EStepResult(acc.beta_ss, acc.sigma_ss, acc.bound, torch.cat(etas),
-                       torch.cat(acc.thetas), torch.cat(iters), overflow)
+                       torch.cat(thetas), torch.cat(iters), overflow)
 
 
-def _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B, done0=None):
+def _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B, done0=None,
+                fin=None):
     """Newton over every chunk (the two-pass schedule's passes 1 and 2):
-    (eta, n_iters, done) for all documents."""
-    etas, iters, dones = [], [], []
+    (eta, n_iters, done, theta) for all documents.
+
+    With ``fin = (acc, doc_ok, siginv, sigmaentropy)`` each chunk is also
+    finalized at its new eta from the same gather (the fused schedule):
+    in pass 1 (``done0`` None) the documents that converged, in pass 2
+    those pass 1 left (``~done0``), converged or not; theta is returned
+    for every document.  Without ``fin`` theta is None."""
+    etas, iters, dones, thetas = [], [], [], []
     for sl in _chunks(words.shape[0], B):
         bd = _gather_beta(beta, words[sl], aspects[sl])
+        d0 = None if done0 is None else done0[sl]
         eta, it, done = _batched_newton(
-            bd, counts[sl], mu[sl], eta0[sl], siginv, cfg,
-            done0=None if done0 is None else done0[sl])
+            _search_beta(bd, cfg), counts[sl], mu[sl], eta0[sl], siginv, cfg, done0=d0)
+        if fin is not None:
+            acc, doc_ok, *sig = fin
+            weight = (done if d0 is None else ~d0) & doc_ok[sl]
+            thetas.append(acc.finalize(eta, bd, words[sl], counts[sl], aspects[sl], mu[sl],
+                                       weight, *sig))
         etas.append(eta)
         iters.append(it)
         dones.append(done)
-    return torch.cat(etas), torch.cat(iters), torch.cat(dones)
+    return (torch.cat(etas), torch.cat(iters), torch.cat(dones),
+            torch.cat(thetas) if thetas else None)
+
+
+def _straggler_budget(done, doc_ok, N: int, B: int, straggler_frac: float):
+    """Pass 2's rows: ``idx``, the first M = ``straggler_frac`` x N (whole
+    chunks, at least one) of a stable ascending sort of ``done``, so the
+    unconverged documents pack to the front in storage order, as
+    ``jnp.argsort`` does; and the unconverged real documents it leaves
+    out (``over``)."""
+    M = min(max(-(-int(straggler_frac * N) // B) * B, B), N)
+    idx = torch.argsort(done.to(torch.int32), stable=True)[:M]
+    selected = torch.zeros(N, dtype=torch.bool, device=done.device)
+    selected[idx] = True
+    return idx, ~done & ~selected & doc_ok
 
 
 def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
@@ -314,34 +359,73 @@ def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects
     """
     N = words.shape[0]
     cfg1 = cfg._replace(max_iters=min(pass1_iters, cfg.max_iters))
-    eta, iters, done = _newton_all(beta, mu, eta0, siginv, words, counts, aspects,
-                                    cfg1, B)
+    eta, iters, done, _ = _newton_all(beta, mu, eta0, siginv, words, counts, aspects,
+                                       cfg1, B)
 
     rest = cfg.max_iters - cfg1.max_iters
-    M = min(max(-(-int(straggler_frac * N) // B) * B, B), N)
     overflow = torch.zeros((), dtype=torch.int32, device=words.device)
-    if rest > 0 and M > 0:
-        # stable ascending sort: unconverged (False) documents pack to the
-        # front in storage order, as jnp.argsort does
-        idx = torch.argsort(done.to(torch.int32), stable=True)[:M]
-        selected = torch.zeros(N, dtype=torch.bool, device=words.device)
-        selected[idx] = True
-        overflow = torch.sum(~done & ~selected & doc_ok).to(torch.int32)
-        eta2, it2, _ = _newton_all(
+    if rest > 0:
+        idx, over = _straggler_budget(done, doc_ok, N, B, straggler_frac)
+        overflow = torch.sum(over).to(torch.int32)
+        eta2, it2, _, _ = _newton_all(
             beta, mu[idx], eta[idx], siginv, words[idx], counts[idx], aspects[idx],
             cfg._replace(max_iters=rest), B, done0=done[idx])
         eta[idx] = eta2  # eta and iters are fresh tensors (torch.cat)
         iters[idx] += it2
 
-    beta_ss, sigma_ss, bound, theta = _finalize_all(
-        beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, doc_ok, B)
-    return EStepResult(beta_ss, sigma_ss, bound, eta, theta, iters, overflow)
+    acc = _StatsSum(beta)
+    theta = _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspects,
+                          doc_ok, B)
+    return EStepResult(acc.beta_ss, acc.sigma_ss, acc.bound, eta, theta, iters, overflow)
+
+
+def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
+                          doc_ok, cfg: NewtonConfig, B: int, pass1_iters: int,
+                          straggler_frac: float) -> EStepResult:
+    """The two-pass schedule with the finalize riding the Newton gathers
+    (twin of ``_two_pass_fused_estep``; ``cfg.max_iters > pass1_iters``).
+
+      pass 1    capped Newton, then the finalize of the documents that
+                converged, from the same gather; theta of every document;
+      pass 2    the stragglers' Newton, then the finalize of every document
+                of the budget that pass 1 did not finalize;
+      overflow  if the budget left unconverged documents out, one masked
+                finalize sweep over all chunks at their pass-1 eta (the JAX
+                ``lax.cond``; one host read of the count here).
+
+    Pass 3's full re-gather of beta_doc goes, at the cost of finalizing
+    the budget's documents anew.  The Newton trajectories are the unfused
+    schedule's bit for bit (the same chunks through the same kernels);
+    only the float32 summation order of the statistics differs.
+    """
+    N = words.shape[0]
+    cfg1 = cfg._replace(max_iters=min(pass1_iters, cfg.max_iters))
+    acc = _StatsSum(beta)
+    eta, iters, done, theta = _newton_all(beta, mu, eta0, siginv, words, counts, aspects,
+                                          cfg1, B, fin=(acc, doc_ok, siginv, sigmaentropy))
+
+    idx, over = _straggler_budget(done, doc_ok, N, B, straggler_frac)
+    overflow = torch.sum(over).to(torch.int32)
+    done0 = done[idx]
+    eta2, it2, _, theta2 = _newton_all(
+        beta, mu[idx], eta[idx], siginv, words[idx], counts[idx], aspects[idx],
+        cfg._replace(max_iters=cfg.max_iters - cfg1.max_iters), B, done0=done0,
+        fin=(acc, doc_ok[idx], siginv, sigmaentropy))
+    # a done document's pass-2 eta is its frozen pass-1 eta, so the set is
+    # unconditional; theta only where pass 2 finalized
+    eta[idx] = eta2  # eta, theta and iters are fresh tensors (torch.cat)
+    theta[idx] = torch.where(done0[:, None], theta[idx], theta2)
+    iters[idx] += it2
+
+    if int(overflow) > 0:
+        _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, over, B)
+    return EStepResult(acc.beta_ss, acc.sigma_ss, acc.bound, eta, theta, iters, overflow)
 
 
 def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok,
               cfg: NewtonConfig = NewtonConfig(), batch_size: int = 1024,
               pass1_iters: int = 0, straggler_frac: float = 0.3,
-              use_pallas: bool = False) -> EStepResult:
+              use_pallas: bool = False, fused_finalize: bool = False) -> EStepResult:
     """E-step over a corpus (twin of ``strutopy_tpu/ops/estep.py::run_estep``).
 
     Args:
@@ -356,6 +440,9 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_
       pass1_iters: > 0 enables the two-pass schedule.
       use_pallas: the whole Newton loop of a chunk as one kernel
         (``stages.newton_loop``); incompatible with ``pass1_iters``.
+      fused_finalize: with the two-pass schedule, finalize inside passes 1
+        and 2 (:func:`_two_pass_fused_estep`), without pass 3's re-gather.
+        No-op when ``pass1_iters`` is 0 or leaves no pass-2 budget.
     """
     N = words.shape[0]
     B = min(batch_size, N)
@@ -367,7 +454,9 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_
             "use_pallas (the whole-loop kernel owns its iteration control)"
         )
     if pass1_iters:
-        return _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts,
-                               aspects, doc_ok, cfg, B, pass1_iters, straggler_frac)
+        impl = (_two_pass_fused_estep if fused_finalize and cfg.max_iters > pass1_iters
+                else _two_pass_estep)
+        return impl(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok, cfg,
+                    B, pass1_iters, straggler_frac)
     return _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts,
                               aspects, doc_ok, cfg, B, use_pallas)

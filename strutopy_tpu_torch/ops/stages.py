@@ -22,6 +22,14 @@ it launches the kernel or raises.  There is no fallback from one to the
 other.  Each launch adds one to its counter, so a run can show that its
 main path went through the kernels.
 
+:func:`fgh`, :func:`linesearch` and :func:`newton_iter` take beta_doc as
+float32 or bfloat16 (the Newton search under ``STMConfig.newton_bf16_beta``;
+``bf16`` everywhere else means the Hessian operand).  A bf16 beta_doc
+launches the kernel's bf16-input mode and counts under its own name
+(``"fgh_bf16_beta"``, ``"ls_bf16_beta"``, ``"iter_bf16_beta"``); the plain
+versions upcast it once, which is exactly the JAX promotion, so either
+mode computes the float32 function of the rounded beta_doc.
+
 The plain versions carry the math of ``strutopy_tpu/ops/estep.py``'s
 ``_f_g_H_batched``, ``_f_multi`` and of the Pallas ``_cg_kernel``; the
 finalize pass reuses :func:`f_g_H_batched` at float32 for the model
@@ -36,7 +44,9 @@ import torch
 
 from strutopy_tpu_torch.ops import build
 
-LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0}
+LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0,
+            "fgh_bf16_beta": 0, "ls_bf16_beta": 0, "iter_bf16_beta": 0}
+BETA_DTYPES = (torch.float32, torch.bfloat16)  # the beta_doc fgh, ls and iter take
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +59,13 @@ def pad_eta(eta: torch.Tensor) -> torch.Tensor:
     return torch.cat([eta, eta.new_zeros(eta.shape[0], 1)], dim=1)
 
 
+def _beta_f32(beta_doc: torch.Tensor) -> torch.Tensor:
+    """A bf16 beta_doc upcast (exact); any other returned as it is.
+    ``torch.bmm`` takes no mixed dtypes, and the upcast is what JAX's
+    promotion of bf16 against float32 does."""
+    return beta_doc.float() if beta_doc.dtype == torch.bfloat16 else beta_doc
+
+
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     # round the operand and multiply in float32: on the CPU a bf16
     # matmul would also return bf16, which the JAX code never does
@@ -59,11 +76,12 @@ def f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16: bool):
     """Objective, gradient, Hessian for a chunk of documents (twin of
     ``strutopy_tpu/ops/estep.py::_f_g_H_batched``).
 
-    eta/mu (B, K-1); beta_doc (B, K, L); counts (B, L); Nd (B,).
-    Returns (f (B,), g (B, K-1), H (B, K-1, K-1), theta (B, K),
+    eta/mu (B, K-1); beta_doc (B, K, L), float32 or bf16; counts (B, L);
+    Nd (B,).  Returns (f (B,), g (B, K-1), H (B, K-1, K-1), theta (B, K),
     phi_hat (B, K, L)).  With ``bf16`` the B·Bᵀ operand is rounded to
     bfloat16 and the product accumulates in float32.
     """
+    beta_doc = _beta_f32(beta_doc)
     K = beta_doc.shape[1]
     eta_full = pad_eta(eta)
     m = torch.amax(eta_full, dim=1, keepdim=True)
@@ -101,6 +119,7 @@ def f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16: bool):
 def linesearch_plain(eta, p, ts, beta_doc, counts, mu, siginv):
     """Plain version of :func:`linesearch`: f(eta + t p) for all T step
     sizes at once -> (B, T) (twin of ``strutopy_tpu/ops/estep.py::_f_multi``)."""
+    beta_doc = _beta_f32(beta_doc)
     Nd = torch.sum(counts, dim=1)
     cand = eta[:, None, :] + ts[None, :, None] * p[:, None, :]
     B, T, P = cand.shape
@@ -196,6 +215,7 @@ def _newton_step(fgh_fn, cg_fn, ls_fn, eta, beta_doc, counts, mu, siginv, ts, do
 def newton_iter_plain(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
                       cg_iters: int, bf16: bool = True):
     """Plain version of :func:`newton_iter`: the step on the plain stages."""
+    beta_doc = _beta_f32(beta_doc)
     return _newton_step(fgh_plain, cg_plain, linesearch_plain, eta, beta_doc, counts, mu,
                         siginv, ts, done, grad_tol, cg_iters, bf16)
 
@@ -242,7 +262,7 @@ def _use_plain(name: str, *tensors: torch.Tensor, dtypes=None) -> bool:
 
     Raises on any other device, on mixed devices, and on CUDA inputs
     that are not contiguous or not of their dtype (``dtypes``, one per
-    tensor; float32 by default).
+    tensor, a dtype or a tuple of the dtypes taken; float32 by default).
     """
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
@@ -252,10 +272,16 @@ def _use_plain(name: str, *tensors: torch.Tensor, dtypes=None) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     for t, dt in zip(tensors, dtypes or [torch.float32] * len(tensors)):
-        if t.dtype != dt or not t.is_contiguous():
+        if t.dtype not in (dt if isinstance(dt, tuple) else (dt,)) or not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous {dt}, got "
                              f"{t.dtype} contiguous={t.is_contiguous()}")
     return False
+
+
+def _beta_mode(name: str, beta_doc: torch.Tensor):
+    """(beta_bf16 flag for the C entry point, the launch counter's key)."""
+    bf = beta_doc.dtype == torch.bfloat16
+    return int(bf), f"{name}_bf16_beta" if bf else name
 
 
 def _expect(name: str, **shapes) -> None:
@@ -284,10 +310,14 @@ def fgh(eta, beta_doc, counts, mu, siginv, bf16: bool = True):
     accumulators in registers across slabs).  Above K ~115 the output
     tiles split over tile groups that each re-stream the document.  With
     ``bf16=False`` the operand stays float32 and the product runs in
-    float32 FMAs.
+    float32 FMAs.  A bf16 beta_doc rides the ring as bf16 slabs (half the
+    bytes: 30 MB at the shapes above) and is read into float32 at the
+    ring, so the arithmetic is the float32 path's on the rounded values.
     """
-    if _use_plain("fgh", eta, beta_doc, counts, mu, siginv):
+    if _use_plain("fgh", eta, beta_doc, counts, mu, siginv,
+                  dtypes=[torch.float32, BETA_DTYPES] + [torch.float32] * 3):
         return fgh_plain(eta, beta_doc, counts, mu, siginv, bf16)
+    beta_bf16, counter = _beta_mode("fgh", beta_doc)
     B, K, L = beta_doc.shape
     _expect("fgh", eta=(eta, (B, K - 1)), mu=(mu, (B, K - 1)),
             counts=(counts, (B, L)), siginv=(siginv, (K - 1, K - 1)))
@@ -297,9 +327,9 @@ def fgh(eta, beta_doc, counts, mu, siginv, bf16: bool = True):
     lib = build.load()
     with torch.cuda.device(eta.device):
         rc = lib.stm_fgh(*(t.data_ptr() for t in (siginv, eta, mu, beta_doc, counts, f, g, H)),
-                         B, K, L, int(bool(bf16)), _stream(eta))
+                         B, K, L, int(bool(bf16)), beta_bf16, _stream(eta))
     build.check(rc, "stm_fgh")
-    LAUNCHES["fgh"] += 1
+    LAUNCHES[counter] += 1
     return f, g, H
 
 
@@ -345,10 +375,13 @@ def linesearch(eta, p, ts, beta_doc, counts, mu, siginv):
     slots of partial mixtures from 16-byte shared-memory reads, the
     partials add in a fixed order, and the T ≤ 16 candidate softmax rows
     sit in shared memory.  The prior term reads each column of siginv
-    once for 4 step sizes.
+    once for 4 step sizes.  A bf16 beta_doc rides the ring as bf16 slabs
+    (8-byte shared-memory reads of 4 slots), as in :func:`fgh`.
     """
-    if _use_plain("ls", eta, p, ts, beta_doc, counts, mu, siginv):
+    if _use_plain("ls", eta, p, ts, beta_doc, counts, mu, siginv,
+                  dtypes=[torch.float32] * 3 + [BETA_DTYPES] + [torch.float32] * 3):
         return linesearch_plain(eta, p, ts, beta_doc, counts, mu, siginv)
+    beta_bf16, counter = _beta_mode("ls", beta_doc)
     B, K, L = beta_doc.shape
     T = ts.shape[0]
     _expect("ls", eta=(eta, (B, K - 1)), p=(p, (B, K - 1)), mu=(mu, (B, K - 1)),
@@ -359,9 +392,9 @@ def linesearch(eta, p, ts, beta_doc, counts, mu, siginv):
     lib = build.load()
     with torch.cuda.device(eta.device):
         rc = lib.stm_ls(*(t.data_ptr() for t in (siginv, ts, eta, p, mu, beta_doc, counts, fs)),
-                        B, K, L, T, _stream(eta))
+                        B, K, L, T, beta_bf16, _stream(eta))
     build.check(rc, "stm_ls")
-    LAUNCHES["ls"] += 1
+    LAUNCHES[counter] += 1
     return fs
 
 
@@ -369,26 +402,30 @@ _PLAN_FIELDS = ("bytes", "W", "stages", "blocks_per_sm", "groups", "H", "siginv_
                 "resident")
 
 
-def newton_plan(K: int, L: int, bf16: bool = True, loop: bool = True):
+def newton_plan(K: int, L: int, bf16: bool = True, loop: bool = True,
+                beta_bf16: bool = False):
     """The fused kernel's shared-memory plan at (K, L) on the current card,
     for the whole loop (:func:`newton_loop`) or one step
-    (:func:`newton_iter`, ``loop=False``): bytes a block, slab width W,
+    (:func:`newton_iter`, ``loop=False``), with beta_doc in float32 or
+    (``beta_bf16``, one step only) bf16: bytes a block, slab width W,
     ring depth, blocks an SM, B1's tile groups, where H lives ("ring",
     "shared" or "global"), whether siginv stays in shared memory and
     whether beta_doc stays resident in it for the whole loop; None where
     no plan fits."""
     out = (ctypes.c_int * len(_PLAN_FIELDS))()
-    if build.load().stm_newton_plan(int(K), int(L), int(bool(bf16)), int(bool(loop)), out) != 0:
+    if build.load().stm_newton_plan(int(K), int(L), int(bool(bf16)), int(bool(beta_bf16)),
+                                    int(bool(loop)), out) != 0:
         return None
     plan = dict(zip(_PLAN_FIELDS, out))
     plan["H"] = ("ring", "shared", "global")[plan["H"]]
     return plan
 
 
-def _h_scratch(B: int, K: int, L: int, bf16: bool, loop: bool, device):
+def _h_scratch(B: int, K: int, L: int, bf16: bool, loop: bool, device,
+               beta_bf16: bool = False):
     """The (B, K-1, K-1) global scratch the fused kernel needs for H where
     it does not fit in shared memory (K above ~250), else None."""
-    plan = newton_plan(K, L, bf16, loop)
+    plan = newton_plan(K, L, bf16, loop, beta_bf16)
     if plan is None:
         raise ValueError(f"fused Newton kernels: K={K}, L={L} exceed a block's shared memory")
     if plan["H"] != "global":
@@ -410,19 +447,21 @@ def newton_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
     the stage kernels (``csrc/newton_doc.cuh``) in turn with H, g, the
     direction and the sweep values in shared memory, then chooses the step
     as :func:`newton_iter_plain` does and updates eta; a done document
-    keeps its eta.  ``done`` is a bool (B,) tensor.
+    keeps its eta.  ``done`` is a bool (B,) tensor.  A bf16 beta_doc
+    streams as bf16 slabs on the streaming plans (:func:`fgh`).
     """
     if _use_plain("iter", eta, beta_doc, counts, mu, siginv, ts, done,
-                  dtypes=[torch.float32] * 6 + [torch.bool]):
+                  dtypes=[torch.float32, BETA_DTYPES] + [torch.float32] * 4 + [torch.bool]):
         return newton_iter_plain(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol,
                                  cg_iters, bf16)
+    beta_bf16, counter = _beta_mode("iter", beta_doc)
     B, K, L = beta_doc.shape
     T = ts.shape[0]
     _expect("iter", eta=(eta, (B, K - 1)), mu=(mu, (B, K - 1)), counts=(counts, (B, L)),
             siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)), done=(done, (B,)))
     if not 1 <= T <= 16:
         raise ValueError(f"iter: the kernel takes 1 to 16 step sizes, got {T}")
-    scratch = _h_scratch(B, K, L, bf16, False, eta.device)
+    scratch = _h_scratch(B, K, L, bf16, False, eta.device, bool(beta_bf16))
     lib = build.load()
     eta_out = torch.empty_like(eta)
     done_out = torch.empty_like(done)
@@ -431,9 +470,9 @@ def newton_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
         rc = lib.stm_iter(*(_ptr(t) for t in (siginv, ts, eta, mu, done, beta_doc, counts,
                                               scratch, eta_out, done_out, adv_out)),
                           B, K, L, T, float(grad_tol), int(cg_iters), int(bool(bf16)),
-                          _stream(eta))
+                          beta_bf16, _stream(eta))
     build.check(rc, "stm_iter")
-    LAUNCHES["iter"] += 1
+    LAUNCHES[counter] += 1
     return eta_out, done_out, adv_out
 
 
@@ -450,8 +489,13 @@ def newton_loop(beta_doc, counts, mu, eta0, siginv, ts, max_iters: int, grad_tol
     the loop once its document is done (a done document is frozen and
     counts no iteration, so this is exact), with no host synchronisation.
     The bodies share one cp.async ring; H is assembled in it for CG where
-    it fits (see :func:`newton_plan`).
+    it fits (see :func:`newton_plan`).  beta_doc is float32 only, on any
+    device: the whole-loop path reads float32 whatever
+    ``newton_bf16_beta`` says, as in the JAX package.
     """
+    if beta_doc.dtype != torch.float32:
+        raise ValueError(f"newton: beta_doc must be float32 (the whole loop takes no bf16 "
+                         f"beta_doc), got {beta_doc.dtype}")
     if _use_plain("newton", beta_doc, counts, mu, eta0, siginv, ts):
         return newton_loop_plain(beta_doc, counts, mu, eta0, siginv, ts, max_iters, grad_tol,
                                  cg_iters, bf16)

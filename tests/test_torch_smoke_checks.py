@@ -247,8 +247,9 @@ def _jnp(*ts):
     return [jnp.asarray(t.numpy()) for t in ts]
 
 
-def _iter_verdict(inputs, parts, got):
-    worst, n_margin, flags_ok, kept, finite = cs.judge_iter(torch, stages, inputs, parts, got)
+def _iter_verdict(inputs, parts, got, lean_other=False):
+    worst, n_margin, flags_ok, kept, finite = cs.judge_iter(torch, stages, inputs, parts, got,
+                                                            lean_other)
     assert finite and n_margin < len(parts["t"]) // 4
     return worst, flags_ok, kept
 
@@ -409,6 +410,104 @@ def test_gather_check_fails_a_gather_that_drops_the_last_row():
     wrong = want.clone()
     wrong[-1, -1] = 0.0
     assert not torch.equal(wrong, want)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: B1, B3, B4 given a bf16 beta_doc
+# ---------------------------------------------------------------------------
+
+
+def _beta_chunk(bf16, K=13, B=16, L=121, seed=5):
+    """A chunk of an odd width L whose every slot is live (the ragged copy
+    path of a bf16 beta_doc: 121 is no multiple of 8): its float32 inputs,
+    and the bf16 inputs and plain outputs phase 12 forms from them."""
+    rng = np.random.default_rng(seed)
+    words = np.stack([rng.choice(cs.V_BENCH, L, replace=False) for _ in range(B)])
+    counts = rng.integers(1, 5, (B, L)).astype(np.float32)
+    inputs = cs.stage_inputs(torch, words.astype(np.int32), counts, K, seed, device="cpu")
+    return (inputs, *cs.beta_plain(torch, stages, inputs, bf16))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pallas_kernels_on_a_bf16_beta_doc_pass_the_phase_12_checks(bf16):
+    _inputs, _inputs_b, inputs_r, want, aux = _beta_chunk(bf16)
+    eta, _bd, c, mu, siginv = (jnp.asarray(t.numpy()) for t in inputs_r)
+    bd = jnp.asarray(inputs_r[1].numpy()).astype(jnp.bfloat16)
+    f, g, H = pallas_fgh_impl(eta, bd, c, mu, siginv, bf16=bf16, interpret=True)
+    fs = pallas_linesearch_impl(eta, jnp.asarray(aux["p"].numpy()), jnp.asarray(aux["ts"].numpy()),
+                                bd, c, mu, siginv, interpret=True)
+    got = {k: torch.tensor(np.asarray(v)) for k, v in
+           {"fgh.f": f, "fgh.g": g, "fgh.H": H, "ls": fs}.items()}
+    worst = _worst(inputs_r, got, want, aux, bf16)
+    assert set(worst) == set(got) and max(worst.values()) <= 1.0, worst
+
+
+def _reads_the_float32_beta_doc(inputs, inputs_b, aux, bf16):
+    return dict(aux["other_beta"])
+
+
+def _outputs(inputs_b, aux, bf16, bd=None, c=None):
+    eta, bd_b, c_b, mu, siginv = inputs_b
+    bd, c = (bd_b if bd is None else bd), (c_b if c is None else c)
+    f, g, H = stages.fgh_plain(eta, bd, c, mu, siginv, bf16=bf16)
+    return {"fgh.f": f, "fgh.g": g, "fgh.H": H,
+            "ls": stages.linesearch_plain(eta, aux["p"], aux["ts"], bd, c, mu, siginv)}
+
+
+def _drops_the_ragged_tail(inputs, inputs_b, aux, bf16):
+    # the slots past the last whole 16-byte chunk (L - L % 8) left out
+    c = inputs_b[2].clone()
+    c[:, c.shape[1] - c.shape[1] % 8:] = 0.0
+    return _outputs(inputs_b, aux, bf16, c=c)
+
+
+def _truncates_beta_to_bf16(inputs, inputs_b, aux, bf16):
+    # the float32 beta_doc cut to bf16 by truncation instead of rounding
+    # to nearest (a kernel that converted float32 itself)
+    cut = (inputs[1].view(torch.int32) & ~0xFFFF).view(torch.float32)
+    return _outputs(inputs_b, aux, bf16, bd=cut)
+
+
+@pytest.mark.parametrize("mutant, bf16", [
+    (_reads_the_float32_beta_doc, False),
+    (_reads_the_float32_beta_doc, True),
+    (_drops_the_ragged_tail, False),
+    (_drops_the_ragged_tail, True),
+    (_truncates_beta_to_bf16, True),
+], ids=lambda v: v.__name__.strip("_") if callable(v) else f"bf16={v}")
+def test_phase_12_checks_fail_a_wrong_bf16_beta_doc_kernel(mutant, bf16):
+    inputs, inputs_b, inputs_r, want, aux = _beta_chunk(bf16)
+    wrong = mutant(inputs, inputs_b, aux, bf16)
+    worst = _worst(inputs_r, wrong, want, aux, bf16)
+    assert all(worst[name] > 1.0 for name in wrong), worst
+
+
+def _beta_iter(bf16):
+    inputs_loop = cs.dgp_chunk(torch, 9, 32, 3, device="cpu")
+    return cs.beta_iter_parts(torch, stages, inputs_loop, bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pallas_iter_kernel_on_a_bf16_beta_doc_passes_the_iter_check(bf16):
+    (eta, bd_b, c, mu, siginv), inputs_r, parts = _beta_iter(bf16)
+    bd = jnp.asarray(bd_b.float().numpy()).astype(jnp.bfloat16)
+    e, d, a = pallas_iter_impl(*_jnp(eta), bd, *_jnp(c, mu, siginv, parts["ts"]),
+                               jnp.asarray(parts["done"].numpy()), grad_tol=cs.GRAD_TOL,
+                               cg_iters=parts["cg_iters"], bf16=bf16, interpret=True)
+    got = tuple(torch.tensor(np.asarray(v)) for v in (e, d, a))
+    worst, flags_ok, kept = _iter_verdict(inputs_r, parts, got, lean_other=True)
+    assert flags_ok and kept and worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("wrong", ["other_beta", "other"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_iter_check_fails_an_iteration_on_the_wrong_beta_doc_or_hessian(wrong, bf16):
+    """Phase 12's B4 check fails the step on the float32 beta_doc, and the
+    step in the other bf16 Hessian mode (LEAN_MAX in place of
+    DISCRIMINATE)."""
+    _inputs_b, inputs_r, parts = _beta_iter(bf16)
+    worst, flags_ok, kept = _iter_verdict(inputs_r, parts, parts[wrong], lean_other=True)
+    assert worst > 1.0 or not flags_ok or not kept, worst
 
 
 def _anchor_verdict(Q_card, Q_cpu, a_card, a_cpu):
@@ -574,3 +673,7 @@ def test_eta_check_where_converged():
     assert _verdict(cs.check_eta_where_converged, gm, gm_stalled, moved, eta, "eta")
     assert not _verdict(cs.check_eta_where_converged, gm, gm, moved, eta, "eta")
     assert not _verdict(cs.check_eta_where_converged, gm, gm, eta + 1e-2, eta, "eta")
+    # the card stalls on many more documents than the reference
+    many = gm.copy()
+    many[:10] = 1.0
+    assert not _verdict(cs.check_eta_where_converged, many, gm, eta, eta, "eta")

@@ -123,6 +123,31 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     assert stages.LAUNCHES == before
 
 
+def test_cpu_wrappers_take_a_bf16_beta_doc_and_count_no_launch():
+    """A bf16 beta_doc on the CPU runs the plain versions on its (exact)
+    float32 values and launches nothing; the whole loop refuses it, on
+    any device, since no path sends it one."""
+    x = _torch(_chunk(seed=6, B=4, K=5, L=16))
+    bd = x["beta_doc"].to(torch.bfloat16)
+    args = (x["eta"], bd, x["counts"], x["mu"], x["siginv"])
+    rounded = (x["eta"], bd.float(), x["counts"], x["mu"], x["siginv"])
+    ts = torch.exp2(-torch.arange(12, dtype=torch.float32))
+    done = torch.zeros(4, dtype=torch.bool)
+    before = dict(stages.LAUNCHES)
+    for bf16 in (False, True):
+        for a, b in zip(stages.fgh(*args, bf16=bf16), stages.fgh_plain(*rounded, bf16=bf16)):
+            assert torch.equal(a, b)
+        for a, b in zip(stages.newton_iter(*args, ts, done, 1e-5, 4, bf16),
+                        stages.newton_iter_plain(*rounded, ts, done, 1e-5, 4, bf16)):
+            assert torch.equal(a, b)
+    p = -stages.fgh_plain(*rounded, bf16=False)[1]
+    assert torch.equal(stages.linesearch(x["eta"], p, ts, *args[1:]),
+                       stages.linesearch_plain(x["eta"], p, ts, *rounded[1:]))
+    assert stages.LAUNCHES == before
+    with pytest.raises(ValueError, match="float32"):
+        stages.newton_loop(bd, x["counts"], x["mu"], x["mu"], x["siginv"], ts, 4, 1e-5, 4)
+
+
 def test_wrappers_reject_devices_without_a_kernel():
     x = {k: v.to("meta") for k, v in _torch(_chunk(seed=4, B=2, K=4, L=8)).items()}
     with pytest.raises(ValueError, match="no kernel"):
@@ -180,3 +205,30 @@ def test_cuda_kernels_match_plain(bf16):
         stages.linesearch_plain(t["eta"], -g, ts, *args[1:]).cpu().numpy(),
         rtol=1e-5, atol=1e-4)
     assert {k: stages.LAUNCHES[k] - n0[k] for k in n0} == {"fgh": 1, "cg": 1, "ls": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_bf16_beta_doc_modes_match_plain(bf16):
+    """B1, B3 and B4 given a bf16 beta_doc on the card against their plain
+    versions on the same beta_doc, each counted under its own mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (chip_smoke.py phase 12 runs this check on the card)")
+    t = {k: v.cuda() for k, v in _torch(_chunk(seed=7, B=32, K=13, L=256)).items()}
+    bd = t["beta_doc"].to(torch.bfloat16)
+    args = (t["eta"], bd, t["counts"], t["mu"], t["siginv"])
+    n0 = dict(stages.LAUNCHES)
+    got, want = stages.fgh(*args, bf16=bf16), stages.fgh_plain(*args, bf16=bf16)
+    for a, b, tol in zip(got, want, (1e-5, 1e-4, 2e-2 if bf16 else 1e-4)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=tol, atol=tol)
+    ts = torch.exp2(-torch.arange(12, dtype=torch.float32, device="cuda"))
+    g = want[1]
+    np.testing.assert_allclose(
+        stages.linesearch(t["eta"], -g, ts, *args[1:]).cpu().numpy(),
+        stages.linesearch_plain(t["eta"], -g, ts, *args[1:]).cpu().numpy(),
+        rtol=1e-5, atol=1e-4)
+    done = torch.zeros(32, dtype=torch.bool, device="cuda")
+    eta, _done, _adv = stages.newton_iter(*args, ts, done, 1e-5, 6, bf16)
+    assert torch.isfinite(eta).all()
+    assert {k: stages.LAUNCHES[k] - n0[k] for k in n0 if stages.LAUNCHES[k] != n0[k]} == {
+        "fgh_bf16_beta": 1, "ls_bf16_beta": 1, "iter_bf16_beta": 1}
