@@ -124,7 +124,25 @@ end, without the final result line):
      launched), its bound gap to the float32 beta_doc's iteration, and on
      B5, which must equal B5 without the option bit for bit; (d) both
      options through ``STM.expectation_maximization`` on the stage path
-     and on B4, 3 iterations each: the bf16-beta_doc modes' launches.
+     and on B4, 3 iterations each: the bf16-beta_doc modes' launches;
+ 13. multi-device fits (``strutopy_tpu_torch/parallel/``): (a) an NCCL
+     world of one started by ``parallel.mesh.init_from_env``: the default
+     configuration on ``make_mesh(1)`` (spectral init through the sharded
+     Gram scan) and the bench configuration on ``make_mesh_2d(1, 1)``
+     (every chunk's beta_doc through a vocab all-reduce), 3 EM iterations
+     each, and 2,048 documents served on each mesh, against the same runs
+     unmeshed under deterministic ``index_add_``: bounds within 1e-6
+     relative, served theta within 1e-5, and whether each is bit-equal
+     (a world of one reduces nothing); (b) two ranks on the one card,
+     started by this script (``--mesh-rank``): an NCCL probe first, gloo
+     with CUDA tensors when NCCL refuses two ranks on one device; gates A
+     (1-D mesh of 2), B (1 x 2 docs x vocab), C (two length buckets,
+     two-pass), E and E2 (serving on each), G (the content model, 1 x 2)
+     and H (resume, bit for bit) at K=100, V=10,000 and N cut to 2,048,
+     each against its unmeshed twin run here afterwards: cold iterations
+     within 2e-4, one iteration from the meshed fit's state within 1e-5,
+     served theta within 1e-5; every rank's B1-B3 launches, walls and the
+     backend printed.  Both ranks share one card: no scaling figure.
 
 The last three lines of standard output are the card line, one JSON
 object of per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -133,6 +151,7 @@ It needs torch built for CUDA and nvcc; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -2637,6 +2656,415 @@ def phase_options(torch, stages, fails, docs, X, cfg, card, words, counts, beta_
     return results, counted
 
 
+# ---------------------------------------------------------------------------
+# phase 13: multi-device fits (strutopy_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+MESH_N = 2_048  # 13b's documents: the bench corpus cut to fit the phase's time
+MESH_RANK_TIMEOUT = 240  # s a 13b world may take, each rank's start included
+MESH_COLD_RTOL = 2e-4  # meshed vs one device, cold single-pass iterations (as phase 9a)
+MESH_STEP_RTOL = 1e-5  # one EM iteration from one state: the bound, relative
+MESH_STEP_ATOL = 1e-5  # ... and that iteration's new beta and kappa, absolute
+MESH_SERVE_ATOL = 1e-5  # served theta, meshed vs one device
+MESH_BITS_RTOL = 1e-6  # 13a: a world of one reduces nothing
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for the process group's store."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment for one rank on card 0."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                MASTER_ADDR="localhost", MASTER_PORT=str(port))
+
+
+def mesh_corpus(n=MESH_N):
+    """13b's corpora: the bench corpus cut to ``n`` documents, and for gate
+    C the same plus ``n // 4`` documents of 60 tokens, which the plan puts
+    in a second length bucket (L=128)."""
+    docs, X = make_corpus(K_BENCH, V_BENCH, N_BENCH, WORDS_BENCH)
+    short, Xs = make_corpus(K_BENCH, V_BENCH, n // 4, 60, seed=5)
+    return (docs[:n], X[:n]), (docs[:n] + short, np.concatenate([X[:n], Xs]))
+
+
+def mesh_gates(cfg_bench):
+    """13b's fit gates: name -> (corpus index, STM keyword arguments, mesh
+    shape, EM iterations).  A and H: the bench configuration on a 1-D
+    mesh of 2; B: on a 1 x 2 (docs, vocab) mesh; C: two length buckets and
+    the two-pass schedule from the first iteration (straggler fraction 1,
+    so no budget overflows); G: phase 7's content model (A=2, kappa design
+    of 102 columns) on the 1 x 2 mesh."""
+    c = cfg_bench.replace(max_em_iter=2)
+    cfg_c = cfg_bench.replace(max_em_iter=2, newton_warmup_iters=0,
+                              newton_straggler_frac=1.0)
+    return {"A": (0, dict(config=c), (2,)), "B": (0, dict(config=c), (1, 2)),
+            "C": (1, dict(config=cfg_c), (2,)),
+            "G": (0, dict(config=c.replace(content=True, A=2, lda_beta=False)), (1, 2))}
+
+
+def mesh_rank_main(rank: int, world: int, out_dir: str, backend: str, port: int) -> None:
+    """One rank of phase 13b (``chip_smoke.py --mesh-rank R WORLD DIR
+    BACKEND PORT``): both ranks on card 0, the gates of ``mesh_gates``,
+    serving (E, E2) from gate A's saved model, and H; the results go to
+    ``DIR/rank{R}.pkl``.  With ``BACKEND`` ``nccl-probe`` it only tries one
+    NCCL all-reduce between the two ranks."""
+    import datetime
+    import pickle
+
+    import torch
+
+    from strutopy_tpu_torch import STM, STMConfig, ThetaServer
+    from strutopy_tpu_torch.ops import stages
+    from strutopy_tpu_torch.parallel.mesh import init_from_env, make_mesh, make_mesh_2d
+    from strutopy_tpu_torch.parallel.sharding import gather_state
+    from strutopy_tpu_torch.utils.checkpoint import save_checkpoint
+
+    os.environ.update(torchrun_env(rank, world, port))
+    probe = backend == "nccl-probe"
+    dev = init_from_env("nccl" if probe else backend, "cuda",
+                        timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT))
+    if probe:
+        import torch.distributed as dist
+
+        t = torch.ones(1, device=dev)
+        dist.all_reduce(t)
+        print(f"rank {rank}: NCCL all-reduce of two ranks on one card gave {t.item()}")
+        dist.destroy_process_group()
+        return
+    (docs, X), (docs_c, X_c) = mesh_corpus()
+    cfg = STMConfig(K=K_BENCH, init_type="random", batch_size=256, newton_pass1_iters=6,
+                    newton_straggler_frac=0.25, convergence_threshold=0.0)
+    meshes = {(2,): make_mesh(2), (1, 2): make_mesh_2d(1, 2)}
+    out = {"backend": backend}
+    model_dir = os.path.join(out_dir, "model_A")
+    for gate, (ci, kw, shape) in mesh_gates(cfg).items():
+        d, x = ((docs, X), (docs_c, X_c))[ci]
+        extra = dict(beta_index=x.astype(np.int32)) if kw["config"].content else {}
+        t0 = time.time()
+        m = STM(d, K=K_BENCH, X=x, mesh=meshes[shape], device=dev, **kw, **extra)
+        built = time.time() - t0
+        reset(stages)
+        m.expectation_maximization()
+        launches = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+        whole = m._whole()
+        if rank == 0:
+            save_checkpoint(os.path.join(out_dir, f"state_{gate}.npz"), whole,
+                            m.last_bounds, len(m.last_bounds))
+        # one iteration from that state, on the step a cold iteration runs
+        m._set_state(whole)
+        step = m._em_step_cold or m._em_step
+        torch.cuda.synchronize()
+        t0 = time.time()
+        new = gather_state(meshes[shape], step(m._state, m._data), m.config.content)
+        torch.cuda.synchronize()
+        out[gate] = dict(bounds=list(m.last_bounds), walls=list(m.iter_seconds), built=built,
+                         launches=launches, step_bound=float(new.bound),
+                         step_wall=time.time() - t0,
+                         step_beta=new.beta.cpu().numpy() if rank == 0 else None,
+                         step_kappa=new.kappa.cpu().numpy() if rank == 0 else None,
+                         local_beta=tuple(m._state.beta.shape))
+        if gate == "A":
+            m.save_model(model_dir)
+        del m, whole, new
+    req, Xr = make_corpus(K_BENCH, V_BENCH, 2_048, WORDS_BENCH, seed=11)
+    for gate, shape in (("E", (2,)), ("E2", (1, 2))):
+        srv = ThetaServer(model_dir, mesh=meshes[shape], device=dev)
+        srv.infer(req[:16], X=Xr[:16])  # warm
+        reset(stages)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        theta, _eta = srv.infer(req, X=Xr)
+        torch.cuda.synchronize()
+        out[gate] = dict(theta=theta if rank == 0 else None, wall=time.time() - t0,
+                         launches={k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")},
+                         theta_sha=hashlib.sha256(theta.tobytes()).hexdigest())
+    # H: checkpoint and resume on the 1-D mesh, bit for bit (deterministic
+    # index_add_, as phase 8)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ckpt = os.path.join(out_dir, "resume.npz")
+        kw = dict(K=K_BENCH, X=X, mesh=meshes[(2,)], device=dev)
+        t0 = time.time()
+        reset(stages)
+        full = STM(docs, config=cfg.replace(max_em_iter=4), **kw)
+        full.expectation_maximization()
+        STM(docs, config=cfg.replace(max_em_iter=2), **kw).expectation_maximization(
+            checkpoint_path=ckpt)
+        rest = STM(docs, config=cfg.replace(max_em_iter=4), **kw)
+        rest.expectation_maximization(checkpoint_path=ckpt, resume=True)
+        out["H"] = dict(full=list(full.last_bounds), resumed=list(rest.last_bounds),
+                        beta_equal=bool(np.array_equal(full.beta, rest.beta)),
+                        theta_equal=bool(np.array_equal(full.theta, rest.theta)),
+                        wall=time.time() - t0,
+                        launches={k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def restorage(state, model, n_doc_shards):
+    """A whole state of a fit on ``n_doc_shards`` document shards, its rows
+    moved to ``model``'s (unmeshed) storage order: both plans map user
+    document i to a row (``storage_index``); padding rows start afresh."""
+    import dataclasses
+
+    import torch
+
+    from strutopy_tpu_torch.corpus.bucketing import make_bucket_plan
+
+    cfg = model.config
+    src = make_bucket_plan(model._corpus, cfg.batch_size, n_devices=n_doc_shards,
+                           max_buckets=cfg.max_buckets if cfg.auto_bucket else 1)
+    src = torch.as_tensor(src.storage_index[:model._corpus.N], device=state.eta.device)
+    dst = torch.as_tensor(model._storage_index, device=state.eta.device)
+    n = model._plan.n_storage
+    out = {}
+    for f in ("mu", "eta", "theta", "opt_iters"):
+        x = getattr(state, f)
+        y = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        if f == "theta":
+            y.fill_(1.0 / cfg.K)
+        y[dst] = x[src]
+        out[f] = y
+    return dataclasses.replace(state, **out)
+
+
+def run_ranks(fails, out_dir, backend, label, timeout=MESH_RANK_TIMEOUT):
+    """Start two ranks of ``mesh_rank_main``; wait for both, ending the
+    other at the first failure or at the deadline.  -> rcs, wall s."""
+    port = free_port()
+    t0 = time.time()
+    procs = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"{backend}.log{r}"), "w") as log:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                           "--mesh-rank", str(r), "2", out_dir, backend,
+                                           str(port)], stdout=log, stderr=subprocess.STDOUT))
+    while time.time() - t0 < timeout:
+        rcs = [p.poll() for p in procs]
+        if any(rc not in (None, 0) for rc in rcs) or all(rc == 0 for rc in rcs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    rcs = [p.wait() for p in procs]
+    wall = time.time() - t0
+    if backend != "nccl-probe":
+        fails.check(rcs == [0, 0], f"{label}: ranks exited {rcs} in {wall:.1f} s "
+                                   f"(limit {timeout} s)")
+        if rcs != [0, 0]:
+            for r in range(2):
+                with open(os.path.join(out_dir, f"{backend}.log{r}")) as f:
+                    print(f"  rank {r}'s log, last lines:\n" + f.read()[-3000:])
+    return rcs, wall
+
+
+def phase_mesh_one(torch, stages, fails, corpus, X, card):
+    """Phase 13a: an NCCL world of one on the card, through the port's own
+    ``init_from_env``: the default configuration on ``make_mesh(1)``
+    (spectral init through the sharded Gram scan) and the bench
+    configuration on ``make_mesh_2d(1, 1)`` (random init, every chunk's
+    beta_doc through a vocab all-reduce), 3 EM iterations each, and 2,048
+    documents served on each mesh, against the same runs unmeshed, all
+    under deterministic ``index_add_``.  A world of one reduces nothing,
+    so every result should be bit-equal; the bounds must be within
+    ``MESH_BITS_RTOL``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from strutopy_tpu_torch import STM, STMConfig, ThetaServer
+    from strutopy_tpu_torch.ops import build, spectral
+    from strutopy_tpu_torch.parallel.mesh import init_from_env, make_mesh, make_mesh_2d
+
+    t_phase = time.time()
+    os.environ.update(torchrun_env(0, 1, free_port()))
+    init_from_env("nccl", "cuda")
+    backend = dist.get_backend()
+    print(f"phase 13a: a world of one over {backend} on the card; K={K_BENCH} V={V_BENCH} "
+          f"N={corpus.N}; {card}")
+    sharded_gram = [0]
+    scan = spectral._gram_scan_sharded
+
+    def counted(*a, **k):
+        sharded_gram[0] += 1
+        return scan(*a, **k)
+
+    bench = STMConfig(K=K_BENCH, init_type="random", batch_size=256, newton_pass1_iters=6,
+                      newton_straggler_frac=0.25, max_em_iter=3, convergence_threshold=0.0)
+    req, Xr = make_corpus(K_BENCH, V_BENCH, 2_048, WORDS_BENCH, seed=11)
+    spectral._gram_scan_sharded = counted
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label, kw, mesh in (
+                ("default configuration, make_mesh(1)", dict(max_em_iter=3), make_mesh(1)),
+                ("bench configuration, make_mesh_2d(1, 1)", dict(config=bench),
+                 make_mesh_2d(1, 1))):
+            fits = {}
+            for which, m_ in (("unmeshed", None), ("meshed", mesh)):
+                reset(stages)
+                t0 = time.time()
+                m = STM(corpus, K=K_BENCH, X=X, mesh=m_, device="cuda", **kw)
+                m.expectation_maximization()
+                torch.cuda.synchronize()
+                fits[which] = (m, time.time() - t0,
+                               {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")})
+            (m0, w0, l0), (m1, w1, l1) = fits["unmeshed"], fits["meshed"]
+            b0, b1 = np.asarray(m0.last_bounds), np.asarray(m1.last_bounds)
+            rel = float(np.max(np.abs(b1 - b0) / np.abs(b0)))
+            bits = (np.array_equal(b0, b1) and np.array_equal(m0.beta, m1.beta)
+                    and np.array_equal(m0.theta, m1.theta))
+            fails.check(len(b1) == 3 and rel <= MESH_BITS_RTOL and all(v > 0 for v in l1.values()),
+                        f"13a {label}: bounds {b1.tolist()} vs unmeshed {b0.tolist()}: max rel "
+                        f"gap {rel:.3e} (tol {MESH_BITS_RTOL:.0e}); bounds, beta and theta "
+                        f"bit-equal: {bits}; walls {w1:.2f} vs {w0:.2f} s (build, init, 3 "
+                        f"iterations); iterations {[round(s, 4) for s in m1.iter_seconds]} vs "
+                        f"{[round(s, 4) for s in m0.iter_seconds]} s; launches {l1} vs {l0} "
+                        f"[{card}]")
+            with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+                m1.save_model(d)
+                served = {}
+                for which, m_ in (("unmeshed", None), ("meshed", mesh)):
+                    srv = ThetaServer(d, mesh=m_, device="cuda")
+                    srv.infer(req[:16], X=Xr[:16])
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    served[which] = (srv.infer(req, X=Xr)[0], time.time() - t0)
+            (t_0, s0), (t_1, s1) = served["unmeshed"], served["meshed"]
+            gap = float(np.abs(t_1 - t_0).max())
+            fails.check(gap <= MESH_SERVE_ATOL and simplex_ok(t_1, len(req), K_BENCH),
+                        f"13a {label}: 2,048 documents served, max |theta gap| {gap:.3e} "
+                        f"(tol {MESH_SERVE_ATOL:.0e}), bit-equal {np.array_equal(t_0, t_1)}; "
+                        f"{1e3 * s1:.1f} vs {1e3 * s0:.1f} ms [{card}]")
+            del fits, m0, m1
+    finally:
+        torch.use_deterministic_algorithms(False)
+        spectral._gram_scan_sharded = scan
+        dist.destroy_process_group()
+    fails.check(sharded_gram[0] == 1, f"13a: the meshed default fit's spectral init ran the "
+                                      f"sharded Gram scan ({sharded_gram[0]} call)")
+    print(f"phase 13a took {time.time() - t_phase:.1f} s [{card}]")
+
+
+def phase_mesh_two(torch, stages, fails, card):
+    """Phase 13b: two ranks on the one card (``mesh_rank_main``), then each
+    gate's unmeshed twin in this process: the cold iterations within
+    ``MESH_COLD_RTOL``, one iteration from the meshed fit's state within
+    ``MESH_STEP_RTOL``, served theta within ``MESH_SERVE_ATOL``, the
+    resumed fit bit for bit.  The two ranks share one card: no scaling."""
+    import pickle
+    import tempfile
+
+    from strutopy_tpu_torch import STM, STMConfig, ThetaServer
+    from strutopy_tpu_torch.ops import build
+    from strutopy_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.time()
+    print(f"phase 13b: two ranks on the one card; K={K_BENCH} V={V_BENCH}, N cut from "
+          f"{N_BENCH:,} to {MESH_N:,} (gate C: {MESH_N:,} + {MESH_N // 4:,} short documents) "
+          f"to fit the phase's time; {card}")
+    print("  both ranks run on card 0, so the walls below are no scaling figure: the card's "
+          "machine has one device, and scaling across cards is not measured")
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        rcs, wall = run_ranks(fails, d, "nccl-probe", "13b NCCL probe", timeout=60)
+        backend = "nccl" if rcs == [0, 0] else "gloo"
+        if backend == "nccl":
+            print(f"  NCCL accepted two ranks on one card ({wall:.1f} s): 13b runs on NCCL")
+        else:
+            with open(os.path.join(d, "nccl-probe.log0")) as f:
+                lines = f.read().splitlines()
+            # NCCL names the fault on the line after "Last error:"
+            why = [lines[i + 1] for i, ln in enumerate(lines[:-1]) if "Last error:" in ln]
+            why = why or [ln for ln in lines if "NCCL error" in ln]
+            print(f"  NCCL refused two ranks on one card (ranks exited {rcs} in {wall:.1f} s: "
+                  f"{why[:2]}); 13b runs on gloo with CUDA tensors")
+        rcs, wall = run_ranks(fails, d, backend, f"13b world of two over {backend}")
+        if rcs != [0, 0]:
+            return
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        (docs, X), (docs_c, X_c) = mesh_corpus()
+        cfg = STMConfig(K=K_BENCH, init_type="random", batch_size=256, newton_pass1_iters=6,
+                        newton_straggler_frac=0.25, convergence_threshold=0.0)
+        for gate, (ci, kw, shape) in mesh_gates(cfg).items():
+            dd, x = ((docs, X), (docs_c, X_c))[ci]
+            extra = dict(beta_index=x.astype(np.int32)) if kw["config"].content else {}
+            reset(stages)
+            m = STM(dd, K=K_BENCH, X=x, device="cuda", **kw, **extra)
+            m.expectation_maximization()
+            one = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+            b0, b1 = np.asarray(m.last_bounds), np.asarray(ranks[0][gate]["bounds"])
+            cold = float(np.max(np.abs(b1 - b0) / np.abs(b0)))
+            state, *_ = load_checkpoint(os.path.join(d, f"state_{gate}.npz"), device="cuda")
+            state = restorage(state, m, shape[0])
+            step = m._em_step_cold or m._em_step
+            new = step(state, m._data)
+            sb = ranks[0][gate]["step_bound"]
+            srel = abs(sb - float(new.bound)) / abs(float(new.bound))
+            # the new beta (and a content model's kappa) come out of the
+            # vocab-sharded M-step: hold them directly, not only through
+            # the next iteration's bound
+            sbeta = float(np.abs(ranks[0][gate]["step_beta"] - new.beta.cpu().numpy()).max())
+            kgap = np.abs(ranks[0][gate]["step_kappa"] - new.kappa.cpu().numpy())
+            skappa = float(kgap.max()) if kgap.size else 0.0
+            same = ranks[1][gate]["bounds"] == ranks[0][gate]["bounds"]
+            fails.check(
+                cold <= MESH_COLD_RTOL and srel <= MESH_STEP_RTOL and same
+                and sbeta <= MESH_STEP_ATOL and skappa <= MESH_STEP_ATOL
+                and all(all(v > 0 for v in r[gate]["launches"].values()) for r in ranks),
+                f"13b gate {gate}, mesh {shape} over {backend}: cold bounds {b1.tolist()} vs one "
+                f"device {b0.tolist()}, max rel gap {cold:.3e} (tol {MESH_COLD_RTOL:.0e}); one "
+                f"iteration from the meshed state: bound rel gap {srel:.3e} (tol "
+                f"{MESH_STEP_RTOL:.0e}), max |beta gap| {sbeta:.3e}, max |kappa gap| "
+                f"{skappa:.3e} (tol {MESH_STEP_ATOL:.0e}); both ranks' bounds "
+                f"equal {same}; local beta {ranks[0][gate]['local_beta']}; walls: build "
+                f"{ranks[0][gate]['built']:.2f} s, iterations "
+                f"{[round(s, 4) for s in ranks[0][gate]['walls']]} s, step "
+                f"{ranks[0][gate]['step_wall']:.4f} s (one device: "
+                f"{[round(s, 4) for s in m.iter_seconds]} s); B1-B3 launches by rank "
+                f"{[r[gate]['launches'] for r in ranks]}, one device {one} [{card}]")
+            del m, state, new
+        req, Xr = make_corpus(K_BENCH, V_BENCH, 2_048, WORDS_BENCH, seed=11)
+        srv = ThetaServer(os.path.join(d, "model_A"), device="cuda")
+        srv.infer(req[:16], X=Xr[:16])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        theta = srv.infer(req, X=Xr)[0]
+        wall1 = time.time() - t0
+        for gate in ("E", "E2"):
+            got = ranks[0][gate]
+            gap = float(np.abs(got["theta"] - theta).max())
+            fails.check(gap <= MESH_SERVE_ATOL and got["theta_sha"] == ranks[1][gate]["theta_sha"]
+                        and all(all(v > 0 for v in r[gate]["launches"].values()) for r in ranks),
+                        f"13b gate {gate} over {backend}: 2,048 documents served, max |theta gap| "
+                        f"{gap:.3e} (tol {MESH_SERVE_ATOL:.0e}), both ranks' theta equal; "
+                        f"{1e3 * got['wall']:.1f} ms (one device {1e3 * wall1:.1f} ms); B1-B3 "
+                        f"launches by rank {[r[gate]['launches'] for r in ranks]} [{card}]")
+        h = ranks[0]["H"]
+        fails.check(h["full"] == h["resumed"] and h["beta_equal"] and h["theta_equal"]
+                    and len(h["full"]) == 4
+                    and all(all(v > 0 for v in r["H"]["launches"].values()) for r in ranks),
+                    f"13b gate H over {backend}: 4 EM iterations on the 1-D mesh checkpointed at "
+                    f"2 and resumed equal the uninterrupted fit bit for bit (bounds "
+                    f"{[float(b) for b in h['resumed']]} vs {h['full']}; beta {h['beta_equal']}, theta {h['theta_equal']}); three "
+                    f"fits {h['wall']:.1f} s; B1-B3 launches by rank "
+                    f"{[r['H']['launches'] for r in ranks]} [{card}]")
+    print(f"phase 13b took {time.time() - t_phase:.1f} s (the world {wall:.1f} s) [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -2748,6 +3176,11 @@ def main() -> int:
     kernels.update(beta_kernels)
     launches.update(beta_launches)
 
+    # ----- phase 13: multi-device fits -----
+    phase_mesh_one(torch, stages, fails, corpus, X, card)
+    torch.cuda.empty_cache()
+    phase_mesh_two(torch, stages, fails, card)
+
     print(f"total {time.time() - t_start:.1f} s")
     if fails:
         print(f"chip_smoke: {len(fails)} check(s) failed: {fails}", file=sys.stderr)
@@ -2765,4 +3198,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                       int(sys.argv[6]))
+        sys.exit(0)
     sys.exit(main())

@@ -1,5 +1,5 @@
 """Command-line interface of the port: the JAX package's subcommands and
-flags (``strutopy_tpu/cli.py``), on one device.
+flags (``strutopy_tpu/cli.py``).
 
     python -m strutopy_tpu_torch.cli synth  --K 10 --n-corpora 2 --out artifacts/synth
     python -m strutopy_tpu_torch.cli fit    --corpus corpus.pickle --K 20 --out artifacts/fit
@@ -9,9 +9,17 @@ flags (``strutopy_tpu/cli.py``), on one device.
         --text requests.txt --out theta.npy
 
 ``--device`` (``cuda``, the default, or ``cpu``) says where every model
-runs; nothing is detected.  ``--n-devices`` above 1 and ``bench`` exit
-with an error: multi-device fits and the port's benchmark are ROADMAP.md
-Queue A items 8 and 1.
+runs; nothing is detected.  ``--n-devices N`` above 1 shards the fits of
+``fit``, ``train-eval``, ``find-k``, ``search-k`` and ``select`` over N
+processes started by torchrun, one a device::
+
+    torchrun --nproc-per-node 4 -m strutopy_tpu_torch.cli fit \
+        --corpus corpus.pickle --K 20 --out artifacts/fit --n-devices 4
+
+Each rank joins the process group from torchrun's environment (NCCL for
+``--device cuda``, each rank on card ``LOCAL_RANK``; gloo for ``cpu``);
+only rank 0 prints results and writes files.  ``bench`` exits with an
+error: the port's benchmark is ROADMAP.md Queue A item 1.
 """
 
 from __future__ import annotations
@@ -52,16 +60,32 @@ def _load_corpus(path):
 
 def _add_mesh_arg(p):
     p.add_argument("--n-devices", type=int, default=0,
-                   help="shard documents over this many devices (0 = single; "
-                        "more than 1 is not ported)")
+                   help="shard documents over this many devices, one process "
+                        "each under torchrun (0 = single)")
 
 
-def _check_devices(args):
-    if getattr(args, "n_devices", 0) > 1:
+def _mesh_from_args(args):
+    """(mesh or None, this rank's device) for ``--n-devices``: above 1 the
+    process joins torchrun's world, whose size must be N, with NCCL on
+    the card ``LOCAL_RANK`` (``--device cuda``) or gloo on the CPU."""
+    n = getattr(args, "n_devices", 0) or 0
+    if n <= 1:
+        return None, args.device
+    from strutopy_tpu_torch.parallel.mesh import TORCHRUN_ENV, init_from_env, make_mesh
+
+    missing = [k for k in TORCHRUN_ENV if k not in os.environ]
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if missing or world != n:
         raise SystemExit(
-            f"--n-devices {args.n_devices}: multi-device fits are not ported "
-            "(ROADMAP.md Queue A item 8); run on one device"
-        )
+            f"--n-devices {n} needs {n} processes started by torchrun "
+            f"(torchrun --nproc-per-node {n} -m strutopy_tpu_torch.cli ...); this "
+            f"process sees a world of {world}"
+            + (f" (no torchrun environment: {', '.join(missing)} unset)" if missing else ""))
+    import torch.distributed as dist
+
+    args.own_group = not dist.is_initialized()
+    dev = init_from_env("nccl" if args.device == "cuda" else "gloo", args.device)
+    return make_mesh(n), str(dev)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -163,8 +187,12 @@ def _build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = _build_parser().parse_args(argv)
-    _check_devices(args)
-    dev = args.device
+    mesh, dev = _mesh_from_args(args)
+    from strutopy_tpu_torch.parallel.mesh import is_first
+
+    # under a mesh every rank runs the command; the first reports
+    first = is_first(mesh)
+    say = print if first else (lambda *a, **k: None)
 
     if args.cmd == "synth":
         from strutopy_tpu_torch.pipeline import create_synthetic_corpora
@@ -182,7 +210,7 @@ def main(argv=None):
             V=args.V,
             output_dir=args.out,
         )
-        print(f"wrote synthetic corpora to {args.out}")
+        say(f"wrote synthetic corpora to {args.out}")
 
     elif args.cmd == "fit":
         from strutopy_tpu_torch.pipeline import fit_model
@@ -201,9 +229,10 @@ def main(argv=None):
             checkpoint_path=args.checkpoint,
             resume=args.resume,
             beta_smoothing=args.beta_smoothing,
+            mesh=mesh,
             device=dev,
         )
-        print(f"final bound: {model.last_bounds[-1]:.2f}; artifacts in {args.out}")
+        say(f"final bound: {model.last_bounds[-1]:.2f}; artifacts in {args.out}")
 
     elif args.cmd == "train-eval":
         from strutopy_tpu_torch.pipeline import train_and_eval_heldout
@@ -225,9 +254,10 @@ def main(argv=None):
             init_type=args.init,
             max_em_iter=args.max_em_iter,
             fast=args.fast,
+            mesh=mesh,
             device=dev,
         )
-        print(f"heldout log-likelihood: {ll:.5f}")
+        say(f"heldout log-likelihood: {ll:.5f}")
 
     elif args.cmd == "find-k":
         from strutopy_tpu_torch.pipeline import find_k
@@ -241,9 +271,10 @@ def main(argv=None):
             model_types=args.models,
             max_em_iter=args.max_em_iter,
             fast=args.fast,
+            mesh=mesh,
             device=dev,
         )
-        print(json.dumps(results, indent=2))
+        say(json.dumps(results, indent=2))
 
     elif args.cmd == "search-k":
         from strutopy_tpu_torch.pipeline import search_k
@@ -255,9 +286,10 @@ def main(argv=None):
             K_candidates=args.K,
             X=X,
             max_em_iter=args.max_em_iter,
+            mesh=mesh,
             device=dev,
         )
-        print(json.dumps(results, indent=2))
+        say(json.dumps(results, indent=2))
 
     elif args.cmd == "select":
         from strutopy_tpu_torch.pipeline import select_model
@@ -274,17 +306,17 @@ def main(argv=None):
             max_em_iter=args.max_em_iter,
             seed=args.seed,
             return_models=False,
+            mesh=mesh,
             device=dev,
         )
-        if args.plot:
+        if args.plot and first:
             import matplotlib
 
             matplotlib.use("Agg")
             from strutopy_tpu_torch.eval.plots import plot_select_model
 
             plot_select_model(res, path=args.plot)
-        print(json.dumps({k: res[k] for k in ("runs", "kept", "selected")},
-                         indent=2))
+        say(json.dumps({k: res[k] for k in ("runs", "kept", "selected")}, indent=2))
 
     elif args.cmd == "infer":
         X = np.load(args.X) if args.X else None
@@ -316,6 +348,10 @@ def main(argv=None):
             "bench: the port has no benchmark yet (ROADMAP.md Queue A item 1); "
             "chip_smoke.py checks and times the port on the card"
         )
+    if mesh is not None and args.own_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

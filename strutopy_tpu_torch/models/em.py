@@ -1,7 +1,10 @@
-"""One EM iteration (twin of ``strutopy_tpu/models/em.py``, one device).
+"""One EM iteration (twin of ``strutopy_tpu/models/em.py``).
 
 Sigma factorization, the bucketed E-step, the moment reduction and the
 prevalence / sigma / beta (LDA or content model) updates, as one function of ``(state, data)``.
+On one device, or on this rank's shard under a mesh
+(``parallel/sharding.py``): then ``psum`` sums the statistics over the
+document axis, and ``vocab`` names the vocab axis of a 2-D mesh.
 
 Length bucketing: every per-document field of :class:`CorpusData` is a
 tuple with one entry per length bucket.  Buckets are contiguous row
@@ -21,6 +24,7 @@ from strutopy_tpu_torch.models.state import STMState
 from strutopy_tpu_torch.ops import mstep
 from strutopy_tpu_torch.ops.estep import NewtonConfig, run_estep
 from strutopy_tpu_torch.ops.linalg import precompute_sigma
+from strutopy_tpu_torch.parallel.mesh import MeshAxis, all_max, all_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +40,10 @@ class CorpusData:
     @property
     def n_buckets(self) -> int:
         return len(self.words)
+
+    def to(self, device) -> "CorpusData":
+        return CorpusData(**{f.name: tuple(x.to(device) for x in getattr(self, f.name))
+                             for f in dataclasses.fields(self)})
 
 
 class GlobalStats(NamedTuple):
@@ -62,8 +70,11 @@ def _newton_cfg(cfg: STMConfig) -> NewtonConfig:
 
 
 def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
-                      bucket_batches: Optional[Tuple[int, ...]] = None):
-    """E-step over all buckets.
+                      bucket_batches: Optional[Tuple[int, ...]] = None,
+                      vocab: Optional[MeshAxis] = None):
+    """E-step over all buckets (of this rank's shard under a mesh; with
+    ``vocab`` the beta of ``state`` and the returned beta_ss are this
+    rank's block of the vocabulary).
 
     Returns (GlobalStats, eta, theta, newton_iters), the per-document
     outputs in storage order.  Within a bucket, documents run in
@@ -105,7 +116,7 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
             aspects_b, ok_b,
             cfg=ncfg, batch_size=B_b, pass1_iters=cfg.newton_pass1_iters,
             straggler_frac=cfg.newton_straggler_frac, use_pallas=cfg.use_pallas,
-            fused_finalize=cfg.two_pass_fused,
+            fused_finalize=cfg.two_pass_fused, vocab=vocab,
         )
         eta_out, theta_out, iters_out = res.eta, res.theta, res.newton_iters
         if perm is not None:
@@ -131,9 +142,23 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
 
 def em_iteration(state: STMState, data: CorpusData, design: mstep.PrevalenceDesign,
                  kappa_design, wcounts, cfg: STMConfig,
-                 bucket_batches: Optional[Tuple[int, ...]] = None) -> STMState:
-    """One full EM iteration on one device (the JAX ``psum`` is the identity)."""
-    stats, eta, theta, newton_iters = local_estep_stats(state, data, cfg, bucket_batches)
+                 bucket_batches: Optional[Tuple[int, ...]] = None,
+                 psum=None, vocab: Optional[MeshAxis] = None) -> STMState:
+    """One full EM iteration.
+
+    ``psum`` sums this rank's statistics over the document axis (None,
+    one device: the identity, and the step is exactly the single-device
+    one).  With ``vocab`` set, beta, beta_ss and kappa are this rank's
+    block of words; the per-document quantities are the same on every
+    rank of the vocab axis (each chunk's beta_doc is assembled whole), so
+    the document-axis sum yields the full totals.  The sigma residual
+    (eta - mu)ᵀ(eta - mu) is summed over documents once mu is known; the
+    rest of the M-step runs replicated on summed statistics.
+    """
+    psum = psum or (lambda x: x)
+    stats, eta, theta, newton_iters = local_estep_stats(state, data, cfg, bucket_batches,
+                                                        vocab)
+    stats = GlobalStats(*psum(tuple(stats)))
 
     mom = mstep.EtaMoments(Dt_eta=stats.Dt_eta, eta_sum=stats.eta_sum)
     gamma, mu_mean = mstep.update_prevalence(
@@ -144,23 +169,39 @@ def em_iteration(state: STMState, data: CorpusData, design: mstep.PrevalenceDesi
         mstep.compute_mu(D_b, gamma, mu_mean, ok_b, cfg.model_type)
         for D_b, ok_b in zip(data.D, data.doc_ok)
     ])
-    resid = mstep.residual_moment(eta, mu)
+    resid = psum(mstep.residual_moment(eta, mu))
     sigma = mstep.update_sigma(resid, stats.sigma_ss, design.n_docs, cfg.sigma_prior)
-    if cfg.lda_beta:
-        beta = mstep.update_beta_lda(stats.beta_ss, cfg.beta_smoothing)
-        kappa = state.kappa
-    else:
-        # warm start from the previous EM iteration's kappa (zeros, the
-        # cold start, at iteration 0)
-        beta, kappa = mstep.update_beta_content(
-            stats.beta_ss, wcounts, kappa_design, alpha=cfg.kappa_l2,
-            iters=cfg.kappa_newton_iters, kappa0=state.kappa,
-            tol=cfg.kappa_grad_tol, ftol_rel=cfg.kappa_ftol_rel,
-        )
+    beta, kappa = m_step_beta(stats.beta_ss, state.kappa, kappa_design, wcounts, cfg, vocab)
     return STMState(
         beta=beta, mu=mu, sigma=sigma, eta=eta, theta=theta, gamma=gamma,
         kappa=kappa, bound=stats.bound, opt_iters=newton_iters,
         straggler_overflow=stats.straggler_overflow,
+    )
+
+
+def m_step_beta(beta_ss, kappa, kappa_design, wcounts, cfg: STMConfig,
+                vocab: Optional[MeshAxis] = None):
+    """The beta update of the M-step -> (beta, kappa): the LDA row
+    normalization, or the content model's kappa regression warm-started
+    from the previous iteration's ``kappa`` (zeros, the cold start, at
+    iteration 0).  ``wcounts`` is the full vocabulary's; with ``vocab``
+    the per-word regressions run on this rank's block of words."""
+    row_psum = vocab_psum = vocab_pmax = wc_total = None
+    if vocab is not None:
+        row_psum = vocab_psum = lambda x: all_sum(x, vocab)
+        vocab_pmax = lambda x: all_max(x, vocab)
+    if cfg.lda_beta:
+        return mstep.update_beta_lda(beta_ss, cfg.beta_smoothing, row_psum), kappa
+    if vocab is not None:
+        Vl = beta_ss.shape[-1]
+        wcounts = torch.as_tensor(wcounts, device=beta_ss.device).to(beta_ss.dtype)
+        wc_total = torch.sum(wcounts)
+        wcounts = wcounts[vocab.rank * Vl:(vocab.rank + 1) * Vl]
+    return mstep.update_beta_content(
+        beta_ss, wcounts, kappa_design, alpha=cfg.kappa_l2,
+        iters=cfg.kappa_newton_iters, kappa0=kappa,
+        tol=cfg.kappa_grad_tol, ftol_rel=cfg.kappa_ftol_rel,
+        vocab_psum=vocab_psum, vocab_pmax=vocab_pmax, wcounts_total=wc_total,
     )
 
 

@@ -1,5 +1,5 @@
 """Serving: theta inference from saved model artifacts (twin of
-``strutopy_tpu/models/serving.py``, one device).
+``strutopy_tpu/models/serving.py``).
 
 Load a fitted model's artifact directory (the ``*_hat.npy`` set written
 by either package's ``STM.save_model``) and infer topic proportions for
@@ -14,8 +14,9 @@ Raw-text requests go through ``ThetaServer.infer_text``, which encodes
 them against the model's saved ``vocab.json`` (``corpus/preprocess.py::
 align_corpus``) and infers.  The E-step runs on whichever Newton path the
 configuration selects: the stage kernels (default), the fused iteration
-(``pallas_iter``) or the whole-loop kernel (``use_pallas``).  Not ported:
-the mesh paths (ROADMAP.md Queue A item 8).
+(``pallas_iter``) or the whole-loop kernel (``use_pallas``).  With a mesh
+(``parallel/``) a request is document-sharded over the ranks, each of
+which calls with the whole request, and every rank gets the whole answer.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from strutopy_tpu_torch.models.em import CorpusData, local_estep_stats
 from strutopy_tpu_torch.models.state import STMState
 from strutopy_tpu_torch.ops import build
 from strutopy_tpu_torch.ops.mstep import encode_new_covariates
+from strutopy_tpu_torch.parallel.mesh import doc_axis, vocab_axis
+from strutopy_tpu_torch.parallel.sharding import gather_rows, shard_corpus, shard_cols, shard_rows
 from strutopy_tpu_torch.utils.precision import true_float32
 
 
@@ -52,7 +55,8 @@ def _require_beta_index(beta, beta_index) -> None:
 
 @true_float32
 def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
-                aspects_user=None, full_convergence: bool = True, *, device="cuda"):
+                aspects_user=None, full_convergence: bool = True, mesh=None, *,
+                device="cuda"):
     """One batched E-step under fixed (beta, sigma) with per-document
     prior means ``mu_user`` -> (theta, eta) in document order, as numpy.
 
@@ -63,6 +67,13 @@ def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
     ``False`` keeps the training configuration's capped budget.
     ``aspects_user`` (N,) gives each document its aspect level under a
     content model's (A, K, V) beta; zeros when absent.
+
+    ``mesh`` (a 1-D document mesh, or a 2-D (docs, vocab) mesh) shards the
+    request over the docs axis: every rank calls with the same whole
+    request and its own ``device``, runs the E-step on its rows in the
+    training layout (the device-major ``plan.storage_index``), under a 2-D
+    mesh on its block of beta's vocabulary with one vocab all-reduce a
+    chunk, and the rows come back whole on every rank by the exact sum.
     """
     dev = torch.device(device)
     V = beta.shape[-1]
@@ -82,14 +93,23 @@ def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
         corpus = PaddedCorpus(corpus.words, corpus.counts, corpus.doc_ok, V)
     N_new = corpus.N
 
-    plan = make_bucket_plan(corpus, cfg.batch_size, n_devices=1,
+    docs = vocab = None
+    if mesh is not None:
+        docs, vocab = doc_axis(mesh), vocab_axis(mesh)
+    plan = make_bucket_plan(corpus, cfg.batch_size, n_devices=docs.size if docs else 1,
                             max_buckets=cfg.max_buckets if cfg.auto_bucket else 1)
     buckets = split_corpus_by_plan(corpus, plan)
-    N_pad = plan.n_storage
-    # bucket-major, documents front-packed in each bucket
-    mu_storage = torch.as_tensor(
-        np.concatenate(gather_per_bucket(np.asarray(mu_user, np.float32), plan), axis=0),
-        device=dev)
+    # device-major storage (the training layout): storage_index maps user
+    # doc i to its row, and each rank's rows of every bucket line up with
+    # its rows of the state; padding rows are zeros
+    mu32 = np.asarray(mu_user, np.float32)
+    mu_full = np.zeros((plan.n_storage, mu32.shape[1]), np.float32)
+    mu_full[plan.storage_index] = mu32
+    mu_storage = torch.as_tensor(mu_full)
+    if docs is not None:
+        mu_storage = shard_rows(mu_storage, docs)
+    N_pad = mu_storage.shape[0]
+    mu_storage = mu_storage.to(dev)
 
     if aspects_user is None:
         aspects_user = np.zeros(N_new, np.int32)
@@ -99,14 +119,20 @@ def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
         return torch.zeros(shape, dtype=dt, device=dev)
 
     data = CorpusData(
-        words=tuple(torch.as_tensor(b.words, device=dev) for b in buckets),
-        counts=tuple(torch.as_tensor(b.counts, device=dev) for b in buckets),
-        aspects=tuple(torch.as_tensor(a, device=dev) for a in aspect_buckets),
-        doc_ok=tuple(torch.as_tensor(b.doc_ok, device=dev) for b in buckets),
-        D=tuple(zeros(b.N, 1) for b in buckets),
+        words=tuple(torch.as_tensor(b.words) for b in buckets),
+        counts=tuple(torch.as_tensor(b.counts) for b in buckets),
+        aspects=tuple(torch.as_tensor(a) for a in aspect_buckets),
+        doc_ok=tuple(torch.as_tensor(b.doc_ok) for b in buckets),
+        D=tuple(torch.zeros(b.N, 1) for b in buckets),
     )
+    if docs is not None:
+        data = shard_corpus(mesh, data)
+    data = data.to(dev)
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+    if vocab is not None:
+        beta = shard_cols(beta, vocab)
     state = STMState(
-        beta=torch.as_tensor(beta, dtype=torch.float32, device=dev),
+        beta=beta,
         mu=mu_storage,
         sigma=torch.as_tensor(sigma, dtype=torch.float32, device=dev),
         eta=mu_storage.clone(),  # warm start at the prior mean
@@ -117,13 +143,12 @@ def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
         opt_iters=zeros(N_pad, dt=torch.int32),
         straggler_overflow=zeros(dt=torch.int32),
     )
-    _stats, eta, theta, _iters = local_estep_stats(state, data, cfg, plan.batch_sizes)
-    # local_estep_stats returns bucket-major rows: map user doc i to its row
-    offs = np.cumsum([0] + list(plan.sizes))
-    idx = np.empty(N_new, np.int64)
-    for off, ids in zip(offs[:-1], plan.doc_ids):
-        idx[ids] = off + np.arange(len(ids))
-    return theta.cpu().numpy()[idx], eta.cpu().numpy()[idx]
+    _stats, eta, theta, _iters = local_estep_stats(state, data, cfg, plan.batch_sizes,
+                                                   vocab)
+    if docs is not None:
+        theta, eta = gather_rows(theta, docs), gather_rows(eta, docs)
+    return (theta.cpu().numpy()[plan.storage_index],
+            eta.cpu().numpy()[plan.storage_index])
 
 
 def _load_params(model_dir: str):
@@ -232,15 +257,16 @@ def _n_docs(documents) -> int:
 
 
 def infer_from_artifacts(model_dir: str, documents, X=None, beta_index=None, *,
-                         device="cuda"):
+                         mesh=None, device="cuda"):
     """Load the artifacts and configuration and infer (theta, eta) for new
-    documents.  A content model needs ``beta_index``, their aspects."""
+    documents.  A content model needs ``beta_index``, their aspects.
+    ``mesh``: see :func:`infer_theta`."""
     beta, sigma, gamma, eta_mean, cfg, train = _load_params(model_dir)
     _require_beta_index(beta, beta_index)
     mu_user = _prior_means(gamma, eta_mean, cfg, beta.shape[-2], _n_docs(documents), X,
                            train=train)
     return infer_theta(beta, sigma, mu_user, documents, cfg, aspects_user=beta_index,
-                       device=device)
+                       mesh=mesh, device=device)
 
 
 class ThetaServer:
@@ -253,12 +279,14 @@ class ThetaServer:
 
     ``cfg`` (an :class:`STMConfig`) selects the Newton path and the
     schedule; replace it (``srv.cfg = srv.cfg.replace(pallas_iter=True)``)
-    to serve on another path.
+    to serve on another path.  With ``mesh`` every request is sharded over
+    it (:func:`infer_theta`): every rank serves every request.
     """
 
-    def __init__(self, model_dir: str, *, device="cuda"):
+    def __init__(self, model_dir: str, *, mesh=None, device="cuda"):
         beta, sigma, gamma, eta_mean, cfg, train = _load_params(model_dir)
         self.device = torch.device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.K = beta.shape[-2]
         self.V = beta.shape[-1]
@@ -285,7 +313,7 @@ class ThetaServer:
                                _n_docs(documents), X, train=self._train)
         return infer_theta(self._beta, self._sigma, mu_user, documents, self.cfg,
                            aspects_user=beta_index, full_convergence=full_convergence,
-                           device=self.device)
+                           mesh=self.mesh, device=self.device)
 
     def infer_text(self, texts, X=None, beta_index=None, full_convergence: bool = True,
                    stopwords="default"):

@@ -1,14 +1,13 @@
 """The user-facing STM estimator (twin of ``strutopy_tpu/models/stm.py``).
 
 Same construction, fitting, inference (``transform``) and artifact
-(``save_model``) surface as the JAX ``STM``, on one device: the card
-(``device="cuda"``, the default) unless the caller asks for the CPU
-(``device="cpu"``); nothing is detected.  Spectral or random
-initialization, the LDA beta or the content model (per-aspect beta from
-the kappa regression), resumable checkpoints, out-of-core fits
-(``stream_parts=``, ``models/streaming.py``) and the post-fit analysis
-methods (``eval/``).  Not ported yet: meshes (``mesh=`` raises;
-ROADMAP.md Queue A item 8).
+(``save_model``) surface as the JAX ``STM``: on the card (``device="cuda"``,
+the default) unless the caller asks for the CPU (``device="cpu"``);
+nothing is detected.  Spectral or random initialization, the LDA beta or
+the content model (per-aspect beta from the kappa regression), resumable
+checkpoints, out-of-core fits (``stream_parts=``, ``models/streaming.py``),
+multi-device fits (``mesh=``, ``parallel/``) and the post-fit analysis
+methods (``eval/``).
 """
 
 from __future__ import annotations
@@ -35,6 +34,14 @@ from strutopy_tpu_torch.models.config import STMConfig
 from strutopy_tpu_torch.models.em import CorpusData, make_em_step
 from strutopy_tpu_torch.models.state import init_state
 from strutopy_tpu_torch.ops import mstep
+from strutopy_tpu_torch.parallel.mesh import barrier, doc_axis, is_first, vocab_axis
+from strutopy_tpu_torch.parallel.sharding import (
+    gather_state,
+    make_sharded_em_step,
+    replicate_from_first,
+    shard_corpus,
+    shard_state,
+)
 from strutopy_tpu_torch.ops.spectral import spectral_init
 from strutopy_tpu_torch.utils.debug import validate_state
 from strutopy_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -59,9 +66,20 @@ class STM:
     initialization.  ``stream_parts=P`` (P > 1) keeps the corpus in host
     memory and moves one of P equal parts at a time to the device
     (:class:`~strutopy_tpu_torch.models.streaming.StreamedEM`).
-    ``dtype`` is accepted and unused, as in the JAX package; ``mesh``
-    other than None raises.  Advanced knobs live on :class:`STMConfig`
-    (``config=``), which then overrides the keyword arguments.
+    ``dtype`` is accepted and unused, as in the JAX package.  Advanced
+    knobs live on :class:`STMConfig` (``config=``), which then overrides
+    the keyword arguments.
+
+    ``mesh`` (``parallel.make_mesh(n)`` or ``make_mesh_2d(n_doc,
+    n_vocab)``, over a ``torch.distributed`` world of one process a
+    device) shards the fit: each rank keeps its document shard on
+    ``device`` (its own card) and, on a 2-D mesh, its block of beta's
+    vocabulary.  Every rank must build the STM with the same arguments
+    and the same full corpus and call every method that fits, saves or
+    checkpoints, as the JAX package's single controller does; the fitted
+    parameters are gathered on every rank at the end of
+    ``expectation_maximization``, so reading them needs no collective,
+    and only the first rank writes files.
     """
 
     @true_float32
@@ -93,12 +111,7 @@ class STM:
         *,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "STM(mesh=...) is not ported: multi-device fits are "
-                "ROADMAP.md Queue A item 8"
-            )
-        self.mesh = None
+        self.mesh = mesh
         if config is not None and seed != 123456 and config.seed != seed:
             raise ValueError(
                 f"seed={seed} conflicts with config.seed={config.seed}: "
@@ -151,11 +164,17 @@ class STM:
         # ----- length buckets -----
         self._stream_parts = int(stream_parts or 0)
         streamed = self._stream_parts > 1
+        # the plan is sized by the document axis, not the world: the
+        # vocab axis of a 2-D mesh replicates documents
+        n_doc = doc_axis(mesh).size if mesh is not None else 1
+        # row blocks of the per-document state: a streamed fit's parts
+        # are each split over the document axis
+        self._row_blocks = self._stream_parts if streamed else 1
         # streaming needs equal single-bucket parts; bucket padding to a
-        # multiple of stream_parts * batch gives the part shape for free
+        # multiple of stream_parts * n_doc * batch gives the part shape
         plan = make_bucket_plan(
             corpus, config.batch_size,
-            n_devices=self._stream_parts if streamed else 1,
+            n_devices=n_doc * (self._stream_parts if streamed else 1),
             max_buckets=(1 if streamed or not config.auto_bucket
                          else config.max_buckets),
         )
@@ -230,24 +249,29 @@ class STM:
                 raise ValueError("init_beta has an all-zero topic row")
             beta_init = beta_init / row
         elif config.init_type == "spectral":
+            # the Gram scan shards over a 1-D mesh only, as in JAX
+            one_d = mesh is not None and vocab_axis(mesh) is None and not streamed
             beta_init = spectral_init(
                 corpus, config.K, self.V, maxV=config.spectral_max_v,
-                device=self.device,
+                device=self.device, mesh=mesh if one_d else None,
             )
+            if mesh is not None:
+                # every rank starts from the first rank's bits, exactly
+                beta_init = replicate_from_first(mesh, beta_init, self.device)
         else:
             # normalized Gamma(0.1, 1) rows from the numpy RNG, exactly as
             # the JAX package draws them
             beta_init = self._random_beta(config.seed)
 
         dev = self.device
-        self._state = init_state(
+        self._set_state(init_state(
             K=config.K, V=self.V, N=plan.n_storage, P=self._D_np.shape[1],
             beta_init=beta_init, device=dev, A=config.A, content=config.content,
             # kappa keeps the actual design width across EM iterations
             kappa_p=(self._kappa_design.shape[1]
                      if (self._kappa_design is not None and not config.lda_beta)
                      else 0),
-        )
+        ))
         kd_dev = wc_dev = None
         if not config.lda_beta:
             kd_dev = torch.as_tensor(self._kappa_design, dtype=torch.float32, device=dev)
@@ -262,15 +286,23 @@ class STM:
                 return self._make_streamed_step(
                     c, buckets[0], aspect_buckets[0], D_buckets[0], kd_dev, wc_dev)
         else:
-            self._data = CorpusData(
-                words=tuple(torch.as_tensor(b.words, device=dev) for b in buckets),
-                counts=tuple(torch.as_tensor(b.counts, device=dev) for b in buckets),
-                aspects=tuple(torch.as_tensor(a, device=dev) for a in aspect_buckets),
-                doc_ok=tuple(torch.as_tensor(b.doc_ok, device=dev) for b in buckets),
-                D=tuple(torch.as_tensor(d, device=dev) for d in D_buckets),
+            data = CorpusData(
+                words=tuple(torch.as_tensor(b.words) for b in buckets),
+                counts=tuple(torch.as_tensor(b.counts) for b in buckets),
+                aspects=tuple(torch.as_tensor(a) for a in aspect_buckets),
+                doc_ok=tuple(torch.as_tensor(b.doc_ok) for b in buckets),
+                D=tuple(torch.as_tensor(d) for d in D_buckets),
             )
+            if mesh is not None:
+                # this rank's rows, cut on the host
+                data = shard_corpus(mesh, data)
+            self._data = data.to(dev)
 
             def build_step(c):
+                if mesh is not None:
+                    return make_sharded_em_step(mesh, c, self._design, kd_dev, wc_dev,
+                                                n_buckets=plan.n_buckets,
+                                                bucket_batches=plan.batch_sizes)
                 return make_em_step(c, self._design, kd_dev, wc_dev,
                                     bucket_batches=plan.batch_sizes)
 
@@ -319,6 +351,9 @@ class STM:
                 "multiple of stream_parts * batch_size"
             )
         part = n_total // P
+        # this rank's rows of each part (StreamedEM cuts them from the
+        # whole part the provider returns)
+        m = part // (doc_axis(self.mesh).size if self.mesh is not None else 1)
         W, C, OK = bucket.words, bucket.counts, bucket.doc_ok
         A = np.ascontiguousarray(aspects_np, np.int32)
         D32 = np.ascontiguousarray(D_bucket, np.float32)
@@ -329,17 +364,18 @@ class STM:
 
         sem = StreamedEM(
             cfg, self._design, provider, n_parts=P,
-            kappa_design=kappa_design, wcounts=wcounts, device=self.device,
+            kappa_design=kappa_design, wcounts=wcounts, mesh=self.mesh,
+            device=self.device,
         )
 
         def step(state, _data):
             parts = [
                 dataclasses.replace(
                     state,
-                    eta=state.eta[i * part:(i + 1) * part],
-                    mu=state.mu[i * part:(i + 1) * part],
-                    theta=state.theta[i * part:(i + 1) * part],
-                    opt_iters=state.opt_iters[i * part:(i + 1) * part],
+                    eta=state.eta[i * m:(i + 1) * m],
+                    mu=state.mu[i * m:(i + 1) * m],
+                    theta=state.theta[i * m:(i + 1) * m],
+                    opt_iters=state.opt_iters[i * m:(i + 1) * m],
                 )
                 for i in range(P)
             ]
@@ -357,6 +393,42 @@ class STM:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _set_state(self, state) -> None:
+        """Take a whole state (on the device): under a mesh keep this
+        rank's shard to fit on, and the whole one as the gathered state."""
+        if self.mesh is None:
+            self._state = state
+            return
+        self._state = shard_state(self.mesh, state, self.config.content, self._row_blocks)
+        self._gathered = state
+
+    def _gather(self):
+        """The whole state on every rank (a collective under a mesh)."""
+        if self.mesh is None:
+            return self._state
+        self._gathered = gather_state(self.mesh, self._state, self.config.content,
+                                      self._row_blocks)
+        return self._gathered
+
+    def _whole(self):
+        """The whole state the fitted parameters read: the state itself on
+        one device, the state gathered at the end of the last fit (or at
+        init) under a mesh, so a read on one rank needs no collective."""
+        if self.mesh is None:
+            return self._state
+        if self._gathered is None:
+            raise RuntimeError("the sharded state is gathered at the end of "
+                               "expectation_maximization; it is mid-fit")
+        return self._gathered
+
+    def _first_writes(self, write) -> None:
+        """Run ``write()`` on the mesh's first rank only; the others wait
+        until it is done (files every rank may read next)."""
+        if is_first(self.mesh):
+            write()
+        if self.mesh is not None:
+            barrier(self.mesh, self.device)
 
     def _random_beta(self, seed: int) -> np.ndarray:
         """Normalized Gamma(0.1, 1) rows from the numpy RNG, exactly as
@@ -376,11 +448,11 @@ class STM:
                 "init is deterministic, so re-seeded restarts would "
                 "all produce the same model"
             )
-        self._state = init_state(
-            K=cfg.K, V=self.V, N=self._state.mu.shape[0], P=self._D_np.shape[1],
+        self._set_state(init_state(
+            K=cfg.K, V=self.V, N=self._plan.n_storage, P=self._D_np.shape[1],
             beta_init=self._random_beta(seed), device=self.device, A=cfg.A,
             content=cfg.content, kappa_p=self._state.kappa.shape[0],
-        )
+        ))
         self.last_bounds = []
         self.iter_seconds = []
         self.nonfinite_bound_iters = []
@@ -411,11 +483,15 @@ class STM:
         partial fit in place (the state and ``last_bounds`` carry over):
         iterations run from ``start_iter`` to ``config.max_em_iter``.
         ``saving`` writes the artifact set to ``output_dir`` at the end.
+
+        Under a mesh every rank calls it: a checkpoint is gathered on every
+        rank and written by the first, and every rank resumes from it.
         """
         cfg = self.config
         if resume and checkpoint_path and os.path.exists(checkpoint_path):
-            self._state, self.last_bounds, start_iter, _ = load_checkpoint(
+            state, self.last_bounds, start_iter, _ = load_checkpoint(
                 checkpoint_path, device=self.device)
+            self._set_state(state)
             logger.info("resumed from %s at EM iteration %d", checkpoint_path, start_iter)
         self._sync()
         t0 = time.time()
@@ -427,6 +503,7 @@ class STM:
                 else self._em_step
             )
             self._state = step(self._state, self._data)
+            self._gathered = None
             self._sync()
             it_dt = time.time() - it_t0
             bound = float(self._state.bound)
@@ -459,8 +536,7 @@ class STM:
             logger.info("EM iteration %d: bound %.4f (%.3fs, %.0f docs/s)",
                         it, bound, it_dt, self.docs_per_sec)
             if checkpoint_path and (it + 1) % checkpoint_every == 0:
-                save_checkpoint(checkpoint_path, self._state, self.last_bounds,
-                                it + 1, cfg.to_json())
+                self._checkpoint(checkpoint_path, it + 1)
             if it >= 1:
                 old = self.last_bounds[-2]
                 rel = abs((bound - old) / abs(old)) if old != 0 else np.inf
@@ -473,9 +549,10 @@ class STM:
             self.time_processed = time.time() - t0
             logger.info("max EM iterations (%d) reached after %.2fs",
                         cfg.max_em_iter, self.time_processed)
+        # the fitted parameters, whole on every rank
+        state = self._gather()
         if checkpoint_path:
-            save_checkpoint(checkpoint_path, self._state, self.last_bounds,
-                            len(self.last_bounds), cfg.to_json())
+            self._checkpoint(checkpoint_path, len(self.last_bounds), state)
         if saving:
             if output_dir is None:
                 raise ValueError("saving=True needs output_dir")
@@ -484,6 +561,12 @@ class STM:
 
     fit = expectation_maximization
 
+    def _checkpoint(self, path, em_iter, state=None):
+        state = self._gather() if state is None else state
+        bounds = list(self.last_bounds)
+        self._first_writes(lambda: save_checkpoint(path, state, bounds, em_iter,
+                                                   self.config.to_json()))
+
     # ------------------------------------------------------------------
     # fitted parameters (padding documents trimmed, user order; C-order
     # arrays, as the JAX package's, so save_model writes the same files)
@@ -491,31 +574,31 @@ class STM:
 
     @property
     def beta(self) -> np.ndarray:
-        return np.ascontiguousarray(self._state.beta.cpu().numpy())
+        return np.ascontiguousarray(self._whole().beta.cpu().numpy())
 
     @property
     def theta(self) -> np.ndarray:
-        return self._state.theta.cpu().numpy()[self._storage_index]
+        return self._whole().theta.cpu().numpy()[self._storage_index]
 
     @property
     def eta(self) -> np.ndarray:
-        return self._state.eta.cpu().numpy()[self._storage_index]
+        return self._whole().eta.cpu().numpy()[self._storage_index]
 
     @property
     def mu(self) -> np.ndarray:
-        return self._state.mu.cpu().numpy()[self._storage_index]
+        return self._whole().mu.cpu().numpy()[self._storage_index]
 
     @property
     def sigma(self) -> np.ndarray:
-        return np.ascontiguousarray(self._state.sigma.cpu().numpy())
+        return np.ascontiguousarray(self._whole().sigma.cpu().numpy())
 
     @property
     def gamma(self) -> np.ndarray:
-        return np.ascontiguousarray(self._state.gamma.cpu().numpy())
+        return np.ascontiguousarray(self._whole().gamma.cpu().numpy())
 
     @property
     def kappa(self) -> np.ndarray:
-        return np.ascontiguousarray(self._state.kappa.cpu().numpy())
+        return np.ascontiguousarray(self._whole().kappa.cpu().numpy())
 
     @property
     def bound(self) -> float:
@@ -583,7 +666,8 @@ class STM:
             if beta_index is None:
                 raise ValueError("content model requires beta_index for new docs")
             aspects_user = np.asarray(beta_index, np.int32).ravel()
-        return infer_theta(self._state.beta, self._state.sigma, mu_user.astype(np.float32),
+        whole = self._whole()
+        return infer_theta(whole.beta, whole.sigma, mu_user.astype(np.float32),
                            documents, cfg, aspects_user=aspects_user, device=self.device)
 
     # ------------------------------------------------------------------
@@ -594,7 +678,11 @@ class STM:
         """Write the ``*_hat.npy`` artifact set, ``lower_bound.pickle``,
         ``fit_health.json``, ``stm_config.json`` and ``vocab.json``,
         file for file as the JAX package's ``STM.save_model`` writes
-        them; either package's loader reads them."""
+        them; either package's loader reads them.  Under a mesh every rank
+        calls it and the first writes."""
+        self._first_writes(lambda: self._write_model(output_dir))
+
+    def _write_model(self, output_dir):
         os.makedirs(output_dir, exist_ok=True)
         np.save(os.path.join(output_dir, "beta_hat"), self.beta)
         np.save(os.path.join(output_dir, "theta_hat"), self.theta)

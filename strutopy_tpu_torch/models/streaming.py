@@ -1,5 +1,5 @@
 """Streamed (out-of-core) EM: corpora larger than device memory (twin of
-``strutopy_tpu/models/streaming.py``, one device).
+``strutopy_tpu/models/streaming.py``).
 
 The single-device EM step (models/em.py) keeps the whole corpus on the
 device.  This driver splits the corpus into P equally-shaped parts and
@@ -19,6 +19,10 @@ on the device, or be produced on demand by a callback.
 
 Every part's Newton solve runs the hand-written CUDA kernels of
 ``ops/stages.py`` on the current stream, exactly as the in-memory fit.
+
+Under a mesh every part is document-sharded: each rank takes its rows of
+each part, and each part's statistics are summed over the docs axis; on a
+2-D mesh beta, beta_ss and kappa are this rank's block of the vocabulary.
 """
 
 from __future__ import annotations
@@ -32,9 +36,16 @@ import numpy as np
 import torch
 
 from strutopy_tpu_torch.models.config import STMConfig
-from strutopy_tpu_torch.models.em import CorpusData, GlobalStats, local_estep_stats
+from strutopy_tpu_torch.models.em import (
+    CorpusData,
+    GlobalStats,
+    local_estep_stats,
+    m_step_beta,
+)
 from strutopy_tpu_torch.models.state import STMState, init_state
 from strutopy_tpu_torch.ops import mstep
+from strutopy_tpu_torch.parallel.mesh import doc_axis, vocab_axis
+from strutopy_tpu_torch.parallel.sharding import psum_over, shard_rows
 from strutopy_tpu_torch.utils.precision import true_float32
 
 logger = logging.getLogger(__name__)
@@ -66,11 +77,16 @@ class StreamedEM:
         the part goes through pinned host memory and a copy stream of
         its own, so the copy overlaps the kernels; the peak part memory
         is then two parts.
-      mesh: not ported (multi-device fits); anything but None raises.
+      mesh: a document mesh (``parallel.make_mesh``) or a 2-D (docs,
+        vocab) mesh (``make_mesh_2d``).  Every rank builds the driver with
+        the same whole parts and keeps its rows of each; ``shared`` and the
+        part states of :meth:`em_iteration` are then this rank's shards
+        (``parallel.sharding.shard_state``, :meth:`init_parts`).
       device: where the parts are moved and the E-step runs.
 
     Every part must have the same (n, L) shape with n a multiple of
-    ``min(cfg.batch_size, n)``.
+    ``min(cfg.batch_size, n)`` (under a mesh, of the docs axis's size
+    times that).
     """
 
     def __init__(
@@ -92,16 +108,14 @@ class StreamedEM:
             raise ValueError(
                 "content/SAGE beta updates need kappa_design and wcounts"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamedEM(mesh=...) is not ported: multi-device fits are "
-                "ROADMAP.md Queue A item 8"
-            )
         self.cfg = cfg
         self.design = design
         self.kappa_design = kappa_design
         self.wcounts = wcounts
-        self.mesh = None
+        self.mesh = mesh
+        self._docs = doc_axis(mesh) if mesh is not None else None
+        self._vocab = vocab_axis(mesh) if mesh is not None else None
+        self._psum = psum_over(self._docs)
         self.device = torch.device(device)
         on = design.DtD.device
         if on.type != self.device.type or (
@@ -186,6 +200,8 @@ class StreamedEM:
                 "shape (one compiled E-step graph serves all parts; pad "
                 "a short tail part instead of shrinking it)"
             )
+        if self._docs is not None:
+            raw = tuple(shard_rows(torch.as_tensor(x), self._docs) for x in raw)
         if self._copy_stream is None:
             fields = [self._to_device(x, dt, False) for x, dt in zip(raw, _PART_DTYPES)]
             return CorpusData(*((f,) for f in fields)), None
@@ -222,7 +238,7 @@ class StreamedEM:
         shared state."""
         part0 = self._provider(0)
         self._cached_part0 = part0  # reused by the first _fetch(0)
-        n = np.shape(part0[0])[0]
+        n = np.shape(part0[0])[0] // (self._docs.size if self._docs is not None else 1)
         P = np.shape(part0[4])[1]
         beta0 = np.full((K, V), 1.0 / V, np.float32)
         states: List[STMState] = []
@@ -259,7 +275,9 @@ class StreamedEM:
                     beta=shared.beta, sigma=shared.sigma, gamma=shared.gamma,
                     kappa=shared.kappa,
                 )
-                stats, eta_p, theta_p, it_p = local_estep_stats(state_p, data_p, cfg)
+                stats, eta_p, theta_p, it_p = local_estep_stats(state_p, data_p, cfg,
+                                                                vocab=self._vocab)
+                stats = GlobalStats(*self._psum(tuple(stats)))
                 stats_sum = (
                     stats
                     if stats_sum is None
@@ -285,25 +303,14 @@ class StreamedEM:
         for p in range(self.n_parts):
             ok, D = parts_cache[p]
             mu_p, r = self._mu_resid(D, gamma, mu_mean, ok, etas[p])
+            r = self._psum(r)
             mus.append(mu_p)
             resid = r if resid is None else resid + r
 
         sigma = mstep.update_sigma(resid, stats_sum.sigma_ss, self.design.n_docs,
                                    cfg.sigma_prior)
-        if cfg.lda_beta:
-            beta = mstep.update_beta_lda(stats_sum.beta_ss, cfg.beta_smoothing)
-            kappa = shared.kappa
-        else:
-            beta, kappa = mstep.update_beta_content(
-                stats_sum.beta_ss,
-                self.wcounts,
-                self.kappa_design,
-                alpha=cfg.kappa_l2,
-                iters=cfg.kappa_newton_iters,
-                kappa0=shared.kappa,
-                tol=cfg.kappa_grad_tol,
-                ftol_rel=cfg.kappa_ftol_rel,
-            )
+        beta, kappa = m_step_beta(stats_sum.beta_ss, shared.kappa, self.kappa_design,
+                                  self.wcounts, cfg, self._vocab)
 
         new_shared = dataclasses.replace(
             shared,

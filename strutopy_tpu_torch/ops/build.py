@@ -4,13 +4,17 @@ The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface and loaded with ``ctypes``.  The build
 runs at first use, into ``build/kernels/`` at the root of the checkout
 (listed in ``.gitignore``), and is cached by a hash of every file under
-``csrc/`` (headers included) and the flags.  Nothing here runs at
+``csrc/`` (headers included) and the flags.  Processes that start
+together on a cold cache (the ranks of a mesh) build once: the build runs
+under a file lock, ``build/kernels/.build.lock``, and a process that
+waited on it loads what the first one built.  Nothing here runs at
 import: the CPU tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -78,13 +82,22 @@ def build() -> Path:
     One ``nvcc -c`` per source, all started together, then one link.
     ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills
     per kernel), headed by each source's compile seconds, is kept beside
-    the library; :func:`ptxas_report` reads it.
+    the library; :func:`ptxas_report` reads it.  Concurrent builders (the
+    ranks of a mesh, on one machine) serialize on a file lock.
     """
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():  # else another process built it while this one waited
+            _compile(out, nvcc)
+    return out
+
+
+def _compile(out: Path, nvcc: str) -> None:
     tmp = out.with_suffix(f".tmp{os.getpid()}")
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in SOURCES]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
@@ -116,7 +129,6 @@ def build() -> Path:
             obj.unlink(missing_ok=True)
     out.with_suffix(".ptxas.txt").write_text("".join(report))
     os.replace(tmp, out)
-    return out
 
 
 def ptxas_report() -> str:

@@ -26,8 +26,12 @@ Documents go through in chunks of ``batch_size``, in one pass or in the
 two-pass straggler schedule, whose finalize either re-gathers beta_doc
 in a third pass or rides passes 1 and 2 (``fused_finalize``).  With
 ``NewtonConfig.bf16_beta`` the Newton search of the first two paths reads
-beta_doc rounded to bf16; the finalize reads float32.  Plain functions on
-tensors: everything runs on the device of its inputs.
+beta_doc rounded to bf16; the finalize reads float32.  Under a
+vocabulary-sharded mesh (``vocab``) beta is this rank's block of words:
+each chunk's beta_doc is assembled by one all-reduce over the vocab axis,
+the E-step's one collective, and phi scatters into the local block with
+none.  Plain functions on tensors: everything runs on the device of its
+inputs.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 
 from strutopy_tpu_torch.ops import stages
 from strutopy_tpu_torch.ops.linalg import cholesky_checked, make_pd
+from strutopy_tpu_torch.parallel.mesh import MeshAxis, all_sum
 
 
 class NewtonConfig(NamedTuple):
@@ -204,25 +209,51 @@ def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd):
 # ---------------------------------------------------------------------------
 
 
-def _gather_beta(beta, words, aspects=None):
+def _local_word_ids(words, V_local: int, vocab: MeshAxis):
+    """Global word ids on this rank's vocab block ``[r·V_local,
+    (r+1)·V_local)`` -> (local ids, clamped into range, and the mask of
+    the words the block owns)."""
+    wl = words - vocab.rank * V_local
+    ok = (wl >= 0) & (wl < V_local)
+    return torch.where(ok, wl, 0), ok
+
+
+def _gather_beta(beta, words, aspects=None, vocab: Optional[MeshAxis] = None):
     """Per-document topic-word slices (B, K, L) from beta (K, V), or from
     a content model's beta (A, K, V) and the documents' aspect levels
     ``aspects`` (B,): one gather either way, so the (B, K, V) block of
-    ``beta[aspects]`` is never formed."""
+    ``beta[aspects]`` is never formed.
+
+    With ``vocab``, ``beta`` is this rank's block of words: each rank
+    gathers the columns it owns, zeros elsewhere, and one SUM over the
+    vocab axis assembles the whole (B, K, L) block on every rank of the
+    axis (each entry has one non-zero term, so the sum is exact)."""
     B, L = words.shape
+    ok = None
+    if vocab is not None:
+        words, ok = _local_word_ids(words, beta.shape[-1], vocab)
     if beta.ndim == 2:
         K = beta.shape[0]
         cols = torch.index_select(beta, 1, words.reshape(-1).long())
-        return cols.reshape(K, B, L).permute(1, 0, 2).contiguous()
-    k = torch.arange(beta.shape[1], device=beta.device)
-    return beta[aspects.long()[:, None, None], k[None, :, None], words.long()[:, None, :]]
+        bd = cols.reshape(K, B, L).permute(1, 0, 2).contiguous()
+    else:
+        k = torch.arange(beta.shape[1], device=beta.device)
+        bd = beta[aspects.long()[:, None, None], k[None, :, None], words.long()[:, None, :]]
+    if ok is not None:
+        bd = all_sum(torch.where(ok[:, None, :], bd, 0.0), vocab)
+    return bd
 
 
-def _scatter_phi(beta_ss, phi, words, aspects=None):
+def _scatter_phi(beta_ss, phi, words, aspects=None, vocab: Optional[MeshAxis] = None):
     """beta_ss[(aspect,) :, words] += phi for a whole chunk (in place).
     Padding slots carry phi = 0 (zero counts), so they add nothing.  The
     aspect case adds into the (K, A·V) layout at column ``aspect·V +
-    word``, as the JAX package does."""
+    word``, as the JAX package does.  With ``vocab``, beta_ss is this
+    rank's block of words and only the words it owns are added, with no
+    collective."""
+    if vocab is not None:
+        words, ok = _local_word_ids(words, beta_ss.shape[-1], vocab)
+        phi = torch.where(ok[:, None, :], phi, 0.0)
     B, K, L = phi.shape
     phi_flat = phi.permute(1, 0, 2).reshape(K, B * L)
     if beta_ss.ndim == 2:
@@ -243,8 +274,9 @@ def _chunks(n: int, B: int):
 class _StatsSum:
     """The E-step's sums over chunks, added in the order they come."""
 
-    def __init__(self, beta):
+    def __init__(self, beta, vocab: Optional[MeshAxis] = None):
         K = beta.shape[-2]
+        self.vocab = vocab
         self.beta_ss = torch.zeros_like(beta)
         self.sigma_ss = torch.zeros(K - 1, K - 1, dtype=beta.dtype, device=beta.device)
         self.bound = torch.zeros((), dtype=beta.dtype, device=beta.device)
@@ -257,7 +289,7 @@ class _StatsSum:
         theta, nu, bound_d, phi = _finalize_chunk(
             eta, beta_doc, counts, mu, weight.to(beta_doc.dtype), siginv,
             sigmaentropy, torch.sum(counts, dim=1))
-        _scatter_phi(self.beta_ss, phi, words, aspects)
+        _scatter_phi(self.beta_ss, phi, words, aspects, self.vocab)
         self.sigma_ss = self.sigma_ss + torch.sum(nu, dim=0)
         self.bound = self.bound + torch.sum(bound_d)
         return theta
@@ -270,7 +302,7 @@ def _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspec
     3, and the fused schedule's overflow sweep): the documents' theta."""
     thetas = []
     for sl in _chunks(words.shape[0], B):
-        bd = _gather_beta(beta, words[sl], aspects[sl])
+        bd = _gather_beta(beta, words[sl], aspects[sl], acc.vocab)
         thetas.append(acc.finalize(eta[sl], bd, words[sl], counts[sl], aspects[sl], mu[sl],
                                    weight[sl], siginv, sigmaentropy))
     return torch.cat(thetas)
@@ -278,15 +310,15 @@ def _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspec
 
 def _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
                        doc_ok, cfg: NewtonConfig, B: int,
-                       use_pallas: bool) -> EStepResult:
+                       use_pallas: bool, vocab: Optional[MeshAxis] = None) -> EStepResult:
     """One loop over the chunks: gather beta_doc once, solve, finalize
     (the JAX ``chunk_fn``).  With ``use_pallas`` the whole Newton loop of
     a chunk is one kernel, on the float32 gather whatever ``bf16_beta``
     says (as in JAX)."""
-    acc = _StatsSum(beta)
+    acc = _StatsSum(beta, vocab)
     etas, thetas, iters = [], [], []
     for sl in _chunks(words.shape[0], B):
-        bd = _gather_beta(beta, words[sl], aspects[sl])
+        bd = _gather_beta(beta, words[sl], aspects[sl], vocab)
         if use_pallas:
             eta, it = _newton_loop(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
         else:
@@ -302,7 +334,7 @@ def _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspe
 
 
 def _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B, done0=None,
-                fin=None):
+                fin=None, vocab: Optional[MeshAxis] = None):
     """Newton over every chunk (the two-pass schedule's passes 1 and 2):
     (eta, n_iters, done, theta) for all documents.
 
@@ -313,7 +345,7 @@ def _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B, done0=No
     for every document.  Without ``fin`` theta is None."""
     etas, iters, dones, thetas = [], [], [], []
     for sl in _chunks(words.shape[0], B):
-        bd = _gather_beta(beta, words[sl], aspects[sl])
+        bd = _gather_beta(beta, words[sl], aspects[sl], vocab)
         d0 = None if done0 is None else done0[sl]
         eta, it, done = _batched_newton(
             _search_beta(bd, cfg), counts[sl], mu[sl], eta0[sl], siginv, cfg, done0=d0)
@@ -344,7 +376,7 @@ def _straggler_budget(done, doc_ok, N: int, B: int, straggler_frac: float):
 
 def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
                     doc_ok, cfg: NewtonConfig, B: int, pass1_iters: int,
-                    straggler_frac: float) -> EStepResult:
+                    straggler_frac: float, vocab: Optional[MeshAxis] = None) -> EStepResult:
     """Two-pass difficulty schedule (twin of ``_two_pass_estep``).
 
       pass 1  caps every chunk at ``pass1_iters`` Newton steps;
@@ -360,7 +392,7 @@ def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects
     N = words.shape[0]
     cfg1 = cfg._replace(max_iters=min(pass1_iters, cfg.max_iters))
     eta, iters, done, _ = _newton_all(beta, mu, eta0, siginv, words, counts, aspects,
-                                       cfg1, B)
+                                       cfg1, B, vocab=vocab)
 
     rest = cfg.max_iters - cfg1.max_iters
     overflow = torch.zeros((), dtype=torch.int32, device=words.device)
@@ -369,11 +401,11 @@ def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects
         overflow = torch.sum(over).to(torch.int32)
         eta2, it2, _, _ = _newton_all(
             beta, mu[idx], eta[idx], siginv, words[idx], counts[idx], aspects[idx],
-            cfg._replace(max_iters=rest), B, done0=done[idx])
+            cfg._replace(max_iters=rest), B, done0=done[idx], vocab=vocab)
         eta[idx] = eta2  # eta and iters are fresh tensors (torch.cat)
         iters[idx] += it2
 
-    acc = _StatsSum(beta)
+    acc = _StatsSum(beta, vocab)
     theta = _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspects,
                           doc_ok, B)
     return EStepResult(acc.beta_ss, acc.sigma_ss, acc.bound, eta, theta, iters, overflow)
@@ -381,7 +413,8 @@ def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects
 
 def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
                           doc_ok, cfg: NewtonConfig, B: int, pass1_iters: int,
-                          straggler_frac: float) -> EStepResult:
+                          straggler_frac: float,
+                          vocab: Optional[MeshAxis] = None) -> EStepResult:
     """The two-pass schedule with the finalize riding the Newton gathers
     (twin of ``_two_pass_fused_estep``; ``cfg.max_iters > pass1_iters``).
 
@@ -400,9 +433,10 @@ def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, a
     """
     N = words.shape[0]
     cfg1 = cfg._replace(max_iters=min(pass1_iters, cfg.max_iters))
-    acc = _StatsSum(beta)
+    acc = _StatsSum(beta, vocab)
     eta, iters, done, theta = _newton_all(beta, mu, eta0, siginv, words, counts, aspects,
-                                          cfg1, B, fin=(acc, doc_ok, siginv, sigmaentropy))
+                                          cfg1, B, fin=(acc, doc_ok, siginv, sigmaentropy),
+                                          vocab=vocab)
 
     idx, over = _straggler_budget(done, doc_ok, N, B, straggler_frac)
     overflow = torch.sum(over).to(torch.int32)
@@ -410,7 +444,7 @@ def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, a
     eta2, it2, _, theta2 = _newton_all(
         beta, mu[idx], eta[idx], siginv, words[idx], counts[idx], aspects[idx],
         cfg._replace(max_iters=cfg.max_iters - cfg1.max_iters), B, done0=done0,
-        fin=(acc, doc_ok[idx], siginv, sigmaentropy))
+        fin=(acc, doc_ok[idx], siginv, sigmaentropy), vocab=vocab)
     # a done document's pass-2 eta is its frozen pass-1 eta, so the set is
     # unconditional; theta only where pass 2 finalized
     eta[idx] = eta2  # eta, theta and iters are fresh tensors (torch.cat)
@@ -425,7 +459,8 @@ def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, a
 def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok,
               cfg: NewtonConfig = NewtonConfig(), batch_size: int = 1024,
               pass1_iters: int = 0, straggler_frac: float = 0.3,
-              use_pallas: bool = False, fused_finalize: bool = False) -> EStepResult:
+              use_pallas: bool = False, fused_finalize: bool = False,
+              vocab: Optional[MeshAxis] = None) -> EStepResult:
     """E-step over a corpus (twin of ``strutopy_tpu/ops/estep.py::run_estep``).
 
     Args:
@@ -443,6 +478,11 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_
       fused_finalize: with the two-pass schedule, finalize inside passes 1
         and 2 (:func:`_two_pass_fused_estep`), without pass 3's re-gather.
         No-op when ``pass1_iters`` is 0 or leaves no pass-2 budget.
+      vocab: under a vocabulary-sharded mesh, the vocab axis; ``beta`` is
+        then this rank's block of words and the returned ``beta_ss`` too.
+        Every rank of the axis holds the same documents, so the Newton
+        loops, the straggler budget and the overflow sweep take the same
+        branches on each and the per-chunk all-reduces pair up.
     """
     N = words.shape[0]
     B = min(batch_size, N)
@@ -457,6 +497,6 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_
         impl = (_two_pass_fused_estep if fused_finalize and cfg.max_iters > pass1_iters
                 else _two_pass_estep)
         return impl(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok, cfg,
-                    B, pass1_iters, straggler_frac)
+                    B, pass1_iters, straggler_frac, vocab)
     return _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts,
-                              aspects, doc_ok, cfg, B, use_pallas)
+                              aspects, doc_ok, cfg, B, use_pallas, vocab)

@@ -269,12 +269,18 @@ def update_sigma(resid, sigma_ss, n_docs, sigma_prior: float):
     return torch.diag(torch.diagonal(sigma)) * sigma_prior + (1.0 - sigma_prior) * sigma
 
 
-def update_beta_lda(beta_ss, smoothing: float = 0.0):
+def update_beta_lda(beta_ss, smoothing: float = 0.0, row_psum=None):
     """Row-normalize the phi statistics (reference update_beta), after an
-    optional pseudocount per (topic, word) cell."""
+    optional pseudocount per (topic, word) cell.
+
+    ``row_psum`` sums the (K, 1) row sums over the vocab axis when
+    beta_ss is a block of the vocabulary (the M-step's one vocab
+    collective); the normalization of each cell stays local."""
     if smoothing and smoothing > 0.0:
         beta_ss = beta_ss + smoothing
     row_sums = torch.sum(beta_ss, dim=-1, keepdim=True)
+    if row_psum is not None:
+        row_sums = row_psum(row_sums)
     return torch.where(row_sums > 0, beta_ss / torch.clamp_min(row_sums, 1e-30), 0.0)
 
 
@@ -413,6 +419,9 @@ def update_beta_content(
     kappa0=None,  # (P, V) warm start (the previous EM iteration's kappa)
     tol: float = 1e-6,
     ftol_rel: float = 0.0,
+    vocab_psum=None,  # sum over the vocab axis (beta_ss a block of words)
+    vocab_pmax=None,  # max over the vocab axis
+    wcounts_total=None,  # the sum of the FULL vocabulary's word counts
 ):
     """Content model: V parallel Poisson regressions -> (beta, kappa).
 
@@ -426,6 +435,13 @@ def update_beta_content(
     a chunk runs to its slowest word's count, and solve difficulty tracks
     word frequency, so rare words exit together.  The permutation only
     relabels independent solves.
+
+    Vocabulary sharding: the per-word solves are independent, so each
+    rank fits the words of its block (``beta_ss``, ``wcounts`` and
+    ``kappa0`` are then that block's); what crosses blocks is three
+    (A·K)-sized reductions — the offset's row totals (``vocab_psum``),
+    the softmax's row max (``vocab_pmax``) and normaliser
+    (``vocab_psum``) — and the scalar ``wcounts_total``.
     """
     dtype, dev = beta_ss.dtype, beta_ss.device
     counts = beta_ss.reshape(-1, beta_ss.shape[-1]) if beta_ss.ndim == 3 else beta_ss
@@ -433,9 +449,13 @@ def update_beta_content(
     n = float(R)
 
     wcounts = torch.as_tensor(wcounts, device=dev).to(dtype)
+    wc_total = torch.sum(wcounts) if wcounts_total is None else wcounts_total
     m = (torch.log(torch.clamp_min(wcounts, 1e-10))
-         - torch.log(torch.clamp_min(torch.sum(wcounts), 1e-10)))
-    offset = torch.log(torch.clamp_min(torch.sum(counts, dim=1), 1e-10))  # ((A*K),)
+         - torch.log(torch.clamp_min(wc_total, 1e-10)))
+    row_tot = torch.sum(counts, dim=1)  # ((A*K),)
+    if vocab_psum is not None:
+        row_tot = vocab_psum(row_tot)
+    offset = torch.log(torch.clamp_min(row_tot, 1e-10))
     Xd = torch.as_tensor(kappa_design, device=dev).to(dtype)
     P = Xd.shape[1]
     if kappa0 is None:
@@ -458,7 +478,12 @@ def update_beta_content(
     kappa = torch.cat(Ws, dim=1)[:, inv_order]
 
     linpred = m_user[None, :V] + Xd @ kappa  # ((A*K), V)
-    beta = torch.softmax(linpred, dim=1)
+    if vocab_psum is None:
+        beta = torch.softmax(linpred, dim=1)
+    else:
+        mx = vocab_pmax(torch.amax(linpred, dim=1, keepdim=True))
+        expl = torch.exp(linpred - mx)
+        beta = expl / vocab_psum(torch.sum(expl, dim=1, keepdim=True))
     if beta_ss.ndim == 3:
         beta = beta.reshape(beta_ss.shape)
     return beta, kappa

@@ -1,5 +1,5 @@
 """Spectral (anchor-word) initialization, Arora et al. 2013 (twin of
-``strutopy_tpu/ops/spectral.py``, one device).
+``strutopy_tpu/ops/spectral.py``).
 
   * the Gram matrix Q = H~ᵀ H~ - diag(H^) is accumulated as chunked dense
     (B, V') matmuls over document chunks;
@@ -13,6 +13,10 @@ Every product is a true float32 ``torch.matmul`` (the package turns TF32
 off at import).  Nothing here synchronizes with the host: the loops are
 host loops of launches.
 
+Over a 1-D document mesh the Gram scan shards: each rank scans its rows
+and the (V', V') sums are all-reduced once (:func:`_gram_scan_sharded`);
+the anchors and the recovery run replicated.
+
 The final re-expanded beta is row-normalized per topic.  Q is
 unnormalized by default (``gram_norm="none"``), as in the JAX package.
 """
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from strutopy_tpu_torch.corpus.bow import PaddedCorpus, pad_corpus
+from strutopy_tpu_torch.parallel.mesh import all_sum, doc_axis
 from strutopy_tpu_torch.utils.precision import true_float32
 
 logger = logging.getLogger(__name__)
@@ -80,6 +85,30 @@ def _gram_scan(words, counts, n_chunks: int, Vp: int, norm: str = "none"):
     all-zero counts.
     """
     return _gram_finish(*_gram_accum(words, counts, n_chunks, Vp), norm=norm)
+
+
+def _gram_scan_sharded(mesh, words_f, counts_f, B: int, Vp: int, norm: str = "none",
+                       dtype=torch.float32, *, device="cuda"):
+    """The Gram matrix over a document mesh: the host arrays are padded
+    to a multiple of mesh size x ``B`` rows (zero counts add nothing),
+    each rank scans its shard on ``device`` with the counts in ``dtype``
+    (as :func:`spectral_init` casts them unsharded) and the (Vp, Vp) ``Q`` and
+    ``hhat`` sums are all-reduced once over the docs axis; the
+    normalization runs replicated.  Only this rank's rows go to the
+    device."""
+    ax = doc_axis(mesh)
+    N = words_f.shape[0]
+    gran = ax.size * B
+    N_pad = -(-N // gran) * gran
+    if N_pad != N:
+        words_f = np.pad(words_f, ((0, N_pad - N), (0, 0)))
+        counts_f = np.pad(counts_f, ((0, N_pad - N), (0, 0)))
+    n_local = N_pad // ax.size
+    rows = slice(ax.rank * n_local, (ax.rank + 1) * n_local)
+    Q, hhat = _gram_accum(torch.as_tensor(words_f[rows], device=device),
+                          torch.as_tensor(counts_f[rows], device=device).to(dtype),
+                          n_local // B, Vp)
+    return _gram_finish(all_sum(Q, ax), all_sum(hhat, ax), norm=norm)
 
 
 def anchor_rss(Q, used):
@@ -214,6 +243,7 @@ def spectral_init(
     verbose: bool = False,
     dtype=torch.float32,
     gram_norm: str = "none",
+    mesh=None,
     *,
     device="cuda",
 ) -> np.ndarray:
@@ -224,7 +254,9 @@ def spectral_init(
     ``0.001/V`` pseudocount.  The three device stages run on ``device``.
 
     ``gram_norm``: row normalization of Q — ``"none"`` (default),
-    ``"l1"`` or ``"l2"``; see :func:`_gram_finish`.
+    ``"l1"`` or ``"l2"``; see :func:`_gram_finish`.  ``mesh``: a 1-D
+    document mesh to shard the Gram scan over (every rank calls with the
+    whole corpus; see :func:`_gram_scan_sharded`).
     """
     if not isinstance(corpus, PaddedCorpus):
         corpus = pad_corpus(corpus, V=V)
@@ -233,9 +265,14 @@ def spectral_init(
 
     words_f, counts_f, keep, wprob, n_chunks = filter_corpus(corpus, V, maxV, verbose=verbose)
     Vp = len(keep)
-    Q, _row_sums = _gram_scan(
-        torch.as_tensor(words_f, device=dev),
-        torch.as_tensor(counts_f, device=dev).to(dtype), n_chunks, Vp, norm=gram_norm)
+    if mesh is not None:
+        Q, _row_sums = _gram_scan_sharded(mesh, words_f, counts_f,
+                                          words_f.shape[0] // n_chunks, Vp, norm=gram_norm,
+                                          dtype=dtype, device=dev)
+    else:
+        Q, _row_sums = _gram_scan(
+            torch.as_tensor(words_f, device=dev),
+            torch.as_tensor(counts_f, device=dev).to(dtype), n_chunks, Vp, norm=gram_norm)
     if verbose:
         logger.info("spectral_init: gram done, finding %d anchors", K)
     anchor = fast_anchor(Q, K)

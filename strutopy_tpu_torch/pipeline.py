@@ -6,8 +6,8 @@ its artifacts, the synthetic corpus grid, document-completion heldout,
 K selection (``find_k``, ``search_k``) and multi-restart selection
 (``select_model``, ``many_topics``).  Every function that builds a
 model runs it on ``device`` (the card unless the caller asks for the
-CPU); ``mesh`` other than None raises (multi-device fits: ROADMAP.md
-Queue A item 8).
+CPU), sharded over ``mesh`` when one is given (``parallel/``: every rank
+calls with the same arguments, and only the first writes files).
 """
 
 from __future__ import annotations
@@ -27,17 +27,10 @@ from strutopy_tpu_torch.dgp.corpus_creation import CorpusCreation
 from strutopy_tpu_torch.eval.heldout import cut_in_half, eval_heldout, split_corpus
 from strutopy_tpu_torch.models.state import state_to
 from strutopy_tpu_torch.models.stm import STM
+from strutopy_tpu_torch.parallel.mesh import is_first
 from strutopy_tpu_torch.utils.precision import true_float32
 
 logger = logging.getLogger(__name__)
-
-
-def _refuse_mesh(mesh, name: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name}(mesh=...) is not ported: multi-device fits are "
-            "ROADMAP.md Queue A item 8"
-        )
 
 
 @true_float32
@@ -60,7 +53,6 @@ def fit_model(
 ) -> STM:
     """Fit one STM and optionally save the artifact set, with
     ``fit_config.json`` beside it."""
-    _refuse_mesh(mesh, "fit_model")
     if dictionary is None:
         dictionary = Vocabulary.from_corpus(documents)
     model = STM(
@@ -72,6 +64,7 @@ def fit_model(
         init_type=init_type,
         model_type=model_type,
         mode=mode,
+        mesh=mesh,
         device=device,
         **kwargs,
     )
@@ -81,7 +74,7 @@ def fit_model(
         checkpoint_path=checkpoint_path,
         resume=resume,
     )
-    if output_dir is not None:
+    if output_dir is not None and is_first(mesh):
         config = {
             "num_topics": K,
             "length_dictionary": len(dictionary),
@@ -179,7 +172,6 @@ def train_and_eval_heldout(
     comes from ``model_beta.transform(test_1)`` (one E-step under the
     fitted parameters), halving the cost of a find-K sweep.
     """
-    _refuse_mesh(mesh, "train_and_eval_heldout")
     # materialize up front: generators would be consumed by cut_in_half
     # and the first list() below, silently emptying the later uses
     train_docs = list(train_docs)
@@ -214,6 +206,7 @@ def train_and_eval_heldout(
         model_type=model_type,
         init_type=init_type,
         max_em_iter=max_em_iter,
+        mesh=mesh,
         device=device,
         **kwargs,
     )
@@ -237,6 +230,7 @@ def train_and_eval_heldout(
         model_type=model_type,
         init_type=init_type,
         max_em_iter=max_em_iter,
+        mesh=mesh,
         device=device,
         **kwargs,
     )
@@ -269,7 +263,6 @@ def find_k(
     (see train_and_eval_heldout), halving the sweep cost.
     Returns {model_type: {K: heldout_ll}}.
     """
-    _refuse_mesh(mesh, "find_k")
     sp = split_corpus(documents, proportion, document_completion=False)
     train, test = sp["train"], sp["test"]
     results = {}
@@ -284,6 +277,7 @@ def find_k(
                 model_type=mt,
                 init_type=init_type,
                 max_em_iter=max_em_iter,
+                mesh=mesh,
                 fast=fast,
                 device=device,
                 **kwargs,
@@ -327,7 +321,6 @@ def search_k(
     from strutopy_tpu_torch.eval.diagnostics import exclusivity, semantic_coherence
     from strutopy_tpu_torch.eval.residuals import check_residuals
 
-    _refuse_mesh(mesh, "search_k")
     sp = split_corpus(documents, proportion, document_completion=False)
     documents = sp["train"] + sp["test"]
     results = {}
@@ -340,6 +333,7 @@ def search_k(
             X=X,
             init_type=init_type,
             max_em_iter=max_em_iter,
+            mesh=mesh,
             fast=fast,
             device=device,
             **kwargs,
@@ -394,8 +388,9 @@ def select_model(
 
     One :class:`STM` serves every restart through
     :meth:`STM.reinitialize` (one corpus on the device, one set of
-    designs); between the two stages each run's state is parked on the
-    host, so the device holds one state whatever ``runs`` is.
+    designs); between the two stages each run's whole state is parked on
+    the host, so the device holds one state whatever ``runs`` is, and is
+    sharded over ``mesh`` again when its run goes on.
 
     Returns ``{"runs": [per-run dict], "kept": [run indices],
     "selected": int, "models": [fitted STM per kept run]}``.  Each
@@ -406,7 +401,6 @@ def select_model(
     """
     from strutopy_tpu_torch.eval.diagnostics import exclusivity, semantic_coherence
 
-    _refuse_mesh(mesh, "select_model")
     if runs < 1:
         raise ValueError("runs must be >= 1")
     if keep is None:
@@ -424,7 +418,7 @@ def select_model(
         documents = list(documents)  # a generator must survive two uses
     model = STM(
         documents, K=K, X=X, init_type="random",
-        max_em_iter=max_em_iter, seed=seed, device=device, **kwargs,
+        max_em_iter=max_em_iter, seed=seed, mesh=mesh, device=device, **kwargs,
     )
     base_cfg = model.config
     run_seeds = [int(s) for s in
@@ -437,7 +431,7 @@ def select_model(
     for r, rs in enumerate(run_seeds):
         model.reinitialize(rs)
         model.expectation_maximization(saving=False)
-        stage1.append((state_to(model._state, "cpu"), list(model.last_bounds)))
+        stage1.append((state_to(model._whole(), "cpu"), list(model.last_bounds)))
         logger.info(
             "select_model: run %d/%d cast bound %.4f",
             r + 1, runs, model.last_bounds[-1],
@@ -456,7 +450,7 @@ def select_model(
     model.config = base_cfg
     models = []
     for r in kept:
-        model._state = state_to(stage1[r][0], model.device)
+        model._set_state(state_to(stage1[r][0], model.device))
         model.last_bounds = list(stage1[r][1])
         model.time_processed = None
         model.expectation_maximization(saving=False, start_iter=cast_iters)
@@ -518,12 +512,11 @@ def many_topics(
     bound-selected survivor.  Use :func:`search_k` when heldout and
     residual diagnostics should drive the K choice instead.
     """
-    _refuse_mesh(mesh, "many_topics")
     out = {}
     for K in K_candidates:
         res = select_model(
             documents, K=K, runs=runs, X=X, cast_iters=cast_iters,
-            keep=keep, max_em_iter=max_em_iter, M=M, seed=seed,
+            keep=keep, max_em_iter=max_em_iter, M=M, seed=seed, mesh=mesh,
             return_models=return_models, device=device, **kwargs,
         )
         sel = res["selected"]

@@ -152,11 +152,20 @@ def test_infer_matches_the_jax_cli(walk, tmp_path, source):
 
 @pytest.mark.parametrize("argv", [["bench"], ["fit", "--corpus", "c.pickle", "--K", "3",
                                               "--out", "x", "--n-devices", "2"]])
-def test_bench_and_several_devices_exit_non_zero(argv):
+def test_bench_and_several_devices_exit_non_zero(argv, monkeypatch):
+    """``bench`` exits naming its Queue A item; ``--n-devices 2`` without
+    torchrun's environment exits naming torchrun and both counts (the
+    mesh runs under torchrun: tests/test_torch_parallel.py)."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit) as e:
         cli.main(["--device", "cpu"] + argv)
     assert e.value.code not in (0, None)
-    assert "Queue A item" in str(e.value.code)
+    if argv[0] == "bench":
+        assert "Queue A item" in str(e.value.code)
+    else:
+        msg = str(e.value.code)
+        assert "torchrun" in msg and "--n-devices 2" in msg and "world of 1" in msg, msg
 
 
 NO_JAX = """

@@ -207,13 +207,27 @@ def test_stm_signature_is_the_jax_signature():
     assert extra[0].kind is inspect.Parameter.KEYWORD_ONLY
 
 
-def test_stm_accepts_dtype_and_refuses_mesh():
+def test_stm_accepts_dtype_and_refuses_mesh(tmp_path):
+    """dtype is accepted; a mesh is no longer refused: on a gloo world of
+    one, STM(mesh=make_mesh(1)) and STM(mesh=make_mesh_2d(1, 1)) fit
+    exactly the unmeshed fit (nothing is reduced in a world of one)."""
+    from strutopy_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from torch_world import one_thread, world_of_one
+
     docs, X = _docs(N=8)
     m = STM(docs, None, False, 3, X, False, 2, 0.0, 1e-5, True, None, None, np.float32,
             "random", device="cpu")
     assert m.config.init_type == "random" and m.config.max_em_iter == 2
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        STM(docs, K=3, init_type="random", mesh=object(), device="cpu")
+    with one_thread():
+        m.expectation_maximization()
+    with one_thread(), world_of_one(tmp_path):
+        for mesh in (make_mesh(1), make_mesh_2d(1, 1)):
+            mm = STM(docs, K=3, X=X, max_em_iter=2, init_type="random", mesh=mesh,
+                     device="cpu")
+            mm.expectation_maximization()
+            np.testing.assert_array_equal(mm.last_bounds, m.last_bounds)
+            np.testing.assert_array_equal(mm.beta, m.beta)
+            np.testing.assert_array_equal(mm.theta, m.theta)
 
 
 def test_config_reads_the_jax_json():

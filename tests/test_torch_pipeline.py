@@ -184,17 +184,57 @@ def test_chunk_it_matches_jax():
         chunk_it([1, 2], 0)
 
 
+def _numbers(out):
+    """The numbers of a pipeline function's result, models read through
+    their bounds and beta."""
+    if isinstance(out, STM):
+        return [list(out.last_bounds), out.beta]
+    if isinstance(out, dict):
+        return [_numbers(out[k]) for k in sorted(out, key=str)]
+    if isinstance(out, (list, tuple)):
+        return [_numbers(x) for x in out]
+    return out
+
+
 @pytest.mark.parametrize("name", ["fit_model", "train_and_eval_heldout", "find_k",
                                   "search_k", "select_model", "many_topics"])
-def test_mesh_is_refused(name, toy_corpus):
+def test_mesh_is_refused(name, toy_corpus, tmp_path):
+    """Every pipeline function takes ``mesh`` (no longer refused): on a
+    gloo world of one, mesh=make_mesh(1) gives exactly the unmeshed
+    result, artifacts included."""
+    from strutopy_tpu_torch.parallel.mesh import make_mesh
+    from torch_world import one_thread, world_of_one
+
     fn = getattr(pipeline, name)
     docs = toy_corpus.documents
-    args = {"fit_model": (docs, 3), "train_and_eval_heldout": (docs, docs, 3),
-            "find_k": (docs, [3]), "search_k": (docs, [3]), "select_model": (docs, 3),
-            "many_topics": (docs, [3])}[name]
+    fast = dict(max_em_iter=2, init_type="random")
+    args, kw = {
+        "fit_model": ((docs, 3), fast),
+        "train_and_eval_heldout": ((docs[:40], docs[40:], 3), fast),
+        "find_k": ((docs, [3]), dict(fast, fast=True)),
+        "search_k": ((docs, [3]), fast),
+        "select_model": ((docs, 3), dict(runs=2, cast_iters=1, max_em_iter=2)),
+        "many_topics": ((docs, [3]), dict(runs=2, cast_iters=1, max_em_iter=2)),
+    }[name]
     assert "mesh" in inspect.signature(getattr(jax_pipeline, name)).parameters
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        fn(*args, mesh=object(), device="cpu")
+
+    def run(mesh, out):
+        extra = {"output_dir": str(tmp_path / out)} if name == "fit_model" else {}
+        res = fn(*args, mesh=mesh, device="cpu", **kw, **extra)
+        if name == "search_k":
+            for row in res.values():
+                row.pop("fit_seconds")
+        return _numbers(res)
+
+    with one_thread():
+        want = run(None, "one")
+        with world_of_one(tmp_path):
+            got = run(make_mesh(1), "mesh")
+    np.testing.assert_equal(got, want)
+    if name == "fit_model":
+        for f in ("beta_hat.npy", "theta_hat.npy"):
+            np.testing.assert_array_equal(np.load(tmp_path / "mesh" / f),
+                                          np.load(tmp_path / "one" / f))
 
 
 def test_prevalence_design_defaults_to_the_card_and_streamed_em_checks_it(toy_corpus):

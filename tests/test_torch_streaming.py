@@ -310,13 +310,39 @@ def test_streamed_ragged_part_raises(prefetch):
         sem.em_iteration(shared, pstates)
 
 
-def test_streamed_refuses_mesh(toy_corpus, toy_dictionary):
-    cfg = STMConfig(K=3)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        StreamedEM(cfg, None, [], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        STM(toy_corpus.train_docs, toy_dictionary, K=3, init_type="random",
-            stream_parts=2, mesh=object(), device="cpu")
+def test_streamed_refuses_mesh(toy_corpus, toy_dictionary, tmp_path):
+    """A mesh is no longer refused: on a gloo world of one, StreamedEM and
+    STM(stream_parts=2) with mesh=make_mesh(1) run exactly the unmeshed
+    streamed fit."""
+    from strutopy_tpu_torch.parallel.mesh import make_mesh
+    from torch_world import one_thread, world_of_one
+
+    N, K, V = 64, 3, 60
+    words, counts, aspects, doc_ok, X = _corpus(N=N, K=K, V=V)
+    cfg = STMConfig(K=K, model_type="STM", init_type="random", batch_size=16)
+    D_np, design = mstep.make_prevalence_design(X, doc_ok, device="cpu")
+    parts = _parts((words, counts, aspects, doc_ok), D_np, 2)
+    _, init_np = _jax_state_np(K, V, 32, D_np.shape[1])
+    kw = dict(K=3, init_type="random", max_em_iter=2, stream_parts=2, device="cpu")
+
+    def run(mesh):
+        sem = StreamedEM(cfg, design, parts, mesh=mesh, device="cpu")
+        shared = state_from_numpy(init_np, "cpu")
+        pstates = sem.init_parts(None, K, V)
+        shared, pstates = sem.em_iteration(shared, pstates)
+        m = STM(toy_corpus.train_docs, toy_dictionary, mesh=mesh, **kw)
+        m.expectation_maximization()
+        return shared, pstates, m
+
+    with one_thread():
+        shared, pstates, m = run(None)
+        with world_of_one(tmp_path):
+            shared1, pstates1, m1 = run(make_mesh(1))
+    assert float(shared1.bound) == float(shared.bound)
+    assert torch.equal(shared1.beta, shared.beta)
+    assert all(torch.equal(a.eta, b.eta) for a, b in zip(pstates1, pstates))
+    np.testing.assert_array_equal(m1.last_bounds, m.last_bounds)
+    np.testing.assert_array_equal(m1.theta, m.theta)
 
 
 def test_stream_parts_divisibility_is_pinned(toy_corpus, toy_dictionary):
