@@ -11,7 +11,9 @@ end, without the final result line):
   1. device: the card's name and power limit (nvidia-smi), then the
      kernels built from strutopy_tpu_torch/csrc with nvcc for sm_90a,
      with ptxas' register and shared-memory report, the stage kernels'
-     shared memory per block and the fused kernels' plan at K = 3 to 400;
+     shared memory per block, the fused kernels' plan and B1's and B3's
+     bf16-beta_doc plans (slab width, ring depth, blocks an SM, where
+     siginv is read, blocks a document) at K = 3 to 400;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card at the main path's shapes (B=256, K=100, L = the bench
      corpus's bucket width, T=12, 6 CG steps), bf16 on and off, then
@@ -83,7 +85,8 @@ end, without the final result line):
      model with ``stream_parts=2`` against phase 7's in-memory bounds;
  10. post-fit analysis of phase 6's model: ``simulate_theta`` on the card
      (B1 in its float32 mode, one launch a chunk of 512 documents)
-     against the same call on the CPU for the first 1,024 documents, B1
+     against the same call on the CPU for the first 1,024 documents, each
+     document within its own rounding bound (SIM_C below), B1
      against its plain version on that path's first chunk, timed beside
      its bound and the chunk's other steps,
      ``estimate_effect_composition``, ``label_topics``, ``topic_quality``,
@@ -111,7 +114,8 @@ end, without the final result line):
  12. the E-step options at the bench width: (a) B1, B3 and B4 in their
      bf16-beta_doc modes (``newton_bf16_beta``) against their plain
      versions given the same bf16 beta_doc, bf16 Hessian on and off, at
-     phase 2's chunks and then at phase 2b's widths (L=201 takes the
+     phase 2's chunks, a chunk of 64 (B1 and B3 on a cluster of two
+     blocks a document) and then at phase 2b's widths (L=201 takes the
      ragged copies), timed beside their bounds and, in turns, against
      their float32-beta_doc modes; (b) from one state after phase 4's 2
      cold iterations, one two-pass iteration with ``two_pass_fused`` and
@@ -585,11 +589,43 @@ def phase_determinism(torch, stages, fails, inputs, aux, seed=9):
                                  siginv),))
 
 
+STAGE_PLAN_FIELDS = ("bytes", "W", "stages", "blocks_per_sm", "siginv", "cluster")
+SIGINV_PLACES = ("L2", "ring")
+
+
+def stage_plan(lib, which, K, B, L=384, bf16=True, beta_bf16=True):
+    """The plan of B1 (``which`` "fgh") or B3 ("ls") at K for a chunk of B
+    documents: bytes a block, slab width W, ring depth, blocks an SM it is
+    planned for, where its prior term reads siginv ("L2" or "ring", the
+    ring's spare slabs) and the blocks a document (a cluster); None where
+    no plan fits."""
+    import ctypes
+
+    out = (ctypes.c_int * len(STAGE_PLAN_FIELDS))()
+    if lib.stm_stage_plan(("fgh", "ls").index(which), K, int(bf16), int(beta_bf16), B, L,
+                          out) != 0:
+        return None
+    plan = dict(zip(STAGE_PLAN_FIELDS, out))
+    plan["siginv"] = SIGINV_PLACES[plan["siginv"]]
+    return plan
+
+
+def check_beta_plans(fails, lib, K):
+    """The bf16 beta_doc plans of B1 and B3 at K, at the bench chunk
+    (B=256) and at phase 12a's chunk of 32: within the shared memory of
+    the blocks an SM each is planned for, one or two blocks a document."""
+    plans = {f"{which} B={B}": stage_plan(lib, which, K, B) for which in ("fgh", "ls")
+             for B in (256, 32)}
+    fails.check(all(p is not None and 0 < p["bytes"] <= SMEM_LIMIT // p["blocks_per_sm"]
+                    and p["cluster"] in (1, 2) for p in plans.values()),
+                f"K={K}: bf16 beta_doc plans {plans}")
+
+
 def check_smem_plans(fails, lib, stages):
     """The kernels' shared memory per block at every K the port takes:
     within what a block may opt in to (it does not depend on L); and the
     fused kernels' (B4/B5) plan in each bf16 mode; with a bf16 beta_doc
-    too (B1, B3, B4)."""
+    too (B1, B3, B4), B1's and B3's plans of their own apart."""
     for K in (3, 10, 50, 100, 200, 400):
         plan = {"fgh bf16": lib.stm_fgh_smem(K, 1, 0), "fgh f32": lib.stm_fgh_smem(K, 0, 0),
                 "ls": lib.stm_ls_smem(K, 0),
@@ -606,6 +642,7 @@ def check_smem_plans(fails, lib, stages):
                             for f in fused.values()),
                     f"K={K}: shared memory per block {plan} bytes (<= {SMEM_LIMIT:,}); "
                     f"plans of the fused kernel at L=384 {fused}")
+        check_beta_plans(fails, lib, K)
 
 
 def phase_small_fit(torch, fails):
@@ -1527,7 +1564,23 @@ TWO_PASS_FRAC = 0.5  # a straggler budget that neither the corpus nor a part ove
 STEP_RTOL = 1e-5  # the bound: float32 sums over the documents in another order
 STEP_BETA_ATOL = 1e-5
 STEP_ETA_ATOL = 1e-4  # per document the same arithmetic; nothing amplifies within one step
-SIM_ETA_ATOL = 5e-3  # simulate_theta's eta draws, card vs CPU
+# simulate_theta's eta draws, card against CPU, document by document.  A
+# draw is eta + x with x = L⁻ᵀz, L the Cholesky factor of the document's
+# (repaired) Hessian LLᵀ.  The two devices form LLᵀ in float32 in other
+# orders (B1's sums against PyTorch's, cuSOLVER's factor against
+# LAPACK's), so their matrices part by a few units of 2⁻²⁴ relative, and
+# to first order the solve moves x by up to κ₂(LLᵀ) times that, relative
+# to x's size.  So each document is held to
+#     SIM_C · κ₂(LLᵀ) · 2⁻²⁴ · max|x|   (max over its draws and coordinates).
+# SIM_C = 8 units of rounding: on the default fit's first 1,024 documents
+# on an H100 the worst document used 0.09 to 0.21 of its bound, and the
+# bounds of the documents at or below the median κ₂ (~200) stayed under
+# 1.4e-3.  Every run checks that those bounds stay within SIM_ETA_ATOL, so
+# that no well-conditioned document is held more loosely than by a fixed
+# 5e-3.
+SIM_C = 8.0
+SIM_ULP = 2.0 ** -24
+SIM_ETA_ATOL = 5e-3
 
 
 def tensor_bytes(*objs):
@@ -1853,6 +1906,55 @@ def sim_chunk_check(torch, stages, fails, model, card, chunk=512, n_draws=8):
           f"{n_draws} draws {1e3 * t_solve:.2f} ms [{card}]")
 
 
+def sim_factors(torch, stages, model, n, device, chunk=512):
+    """The Cholesky factors (n, K-1, K-1) that ``simulate_theta`` draws the
+    first n documents' eta from: the float32 Hessian of the plain version
+    of B1, repaired as simulate_theta repairs it, on ``device``."""
+    from strutopy_tpu_torch.ops.estep import _chol_pd_batched, _gather_beta
+
+    c_np = model._corpus
+    siginv = torch.as_tensor(np.linalg.inv(np.asarray(model.sigma, np.float64)),
+                             dtype=torch.float32, device=device)
+    beta = np.asarray(model.beta, np.float32)
+    beta_full = torch.as_tensor(beta if beta.ndim == 3 else beta[None], device=device)
+    out = []
+    for lo in range(0, n, chunk):
+        sl = slice(lo, min(n, lo + chunk))
+
+        def put(a, dt):
+            return torch.as_tensor(np.ascontiguousarray(np.asarray(a)[sl]), dtype=dt,
+                                   device=device)
+
+        bd = _gather_beta(beta_full, put(c_np.words, torch.int32),
+                          put(model.betaindex, torch.int32))
+        H = stages.fgh_plain(put(model.eta, torch.float32), bd, put(c_np.counts, torch.float32),
+                             put(model.mu, torch.float32), siginv, bf16=False)[2]
+        out.append(_chol_pd_batched(H)[0])
+    return torch.cat(out)
+
+
+def sim_bounds(torch, factors, x):
+    """Per document, from its factor L and its draws' offsets x (S, n, K-1)
+    from eta: (κ₂(LLᵀ), max|x|, the bound SIM_C · κ₂ · 2⁻²⁴ · max|x|)."""
+    s = torch.linalg.svdvals(factors.double())
+    kappa = ((s[:, 0] / s[:, -1]) ** 2).cpu().numpy()
+    size = np.abs(x).max(axis=(0, 2))
+    return kappa, size, SIM_C * kappa * SIM_ULP * size
+
+
+def sim_verdict(kappa, bound, diff, conv):
+    """Two devices' eta draws, per document: every converged document's
+    max |diff| within its bound, and every bound of a document at or below
+    the median κ₂ within SIM_ETA_ATOL.  Returns (ok, the worst converged
+    document's index)."""
+    ratio = np.where(conv, diff / bound, -np.inf)
+    worst = int(np.argmax(ratio))
+    calm = kappa <= np.median(kappa)
+    ok = (bool(np.isfinite(bound).all() and np.isfinite(diff).all()) and conv.any()
+          and float(ratio[worst]) <= 1.0 and float(bound[calm].max()) <= SIM_ETA_ATOL)
+    return ok, worst
+
+
 def phase_analysis(torch, stages, fails, model, corpus, X, card, n_cpu=1024):
     """Phase 10: post-fit analysis of the card's model (see the module
     docstring)."""
@@ -1881,12 +1983,20 @@ def phase_analysis(torch, stages, fails, model, corpus, X, card, n_cpu=1024):
     conv = (model._state.opt_iters.cpu().numpy()[model._storage_index][:n_cpu]
             < model.config.newton_max_iters)
     diff = np.abs(eta_card[:, :n_cpu] - eta_cpu).max(axis=(0, 2))
+    kappa, size, bound = sim_bounds(torch, sim_factors(torch, stages, model, n_cpu, "cuda"),
+                                    eta_cpu - np.asarray(model.eta, np.float32)[None, :n_cpu])
+    ok, w = sim_verdict(kappa, bound, diff, conv)
+    calm = kappa <= np.median(kappa)
     fails.check(fgh_launches == n_chunks and eta_card.shape == (8, N, K - 1)
-                and bool(np.isfinite(eta_card).all()) and float(diff[conv].max()) <= SIM_ETA_ATOL,
-                f"simulate_theta on the card vs the CPU, first {n_cpu} documents: max |eta draw "
-                f"diff| {diff[conv].max():.3e} over the {int(conv.sum())} whose Newton solve "
-                f"converged (tol {SIM_ETA_ATOL:.0e}), {diff.max():.3e} over all; B1 launches "
-                f"{fgh_launches} = chunks {n_chunks}")
+                and bool(np.isfinite(eta_card).all()) and ok,
+                f"simulate_theta on the card vs the CPU, first {n_cpu} documents: each of the "
+                f"{int(conv.sum())} whose Newton solve converged within SIM_C · κ₂ · 2^-24 · "
+                f"max|x|; the worst at {diff[w] / bound[w]:.3f} of its bound (document {w}: "
+                f"κ₂ {kappa[w]:.1f}, max|x| {size[w]:.2f}, diff {diff[w]:.3e}, bound "
+                f"{bound[w]:.3e}); κ₂ median {np.median(kappa):.1f}, max {kappa.max():.1f}; "
+                f"bounds at or below the median κ₂ at most {bound[calm].max():.3e} (<= "
+                f"{SIM_ETA_ATOL:.0e}); max |eta draw diff| {diff[conv].max():.3e} converged, "
+                f"{diff.max():.3e} over all; B1 launches {fgh_launches} = chunks {n_chunks}")
     sim_chunk_check(torch, stages, fails, model, card)
     theta_s = simulate_theta(model, n_draws=2, seed=1)
     fails.check(theta_s.shape == (2, N, K) and bool(np.isfinite(theta_s).all())
@@ -2465,10 +2575,19 @@ def phase_beta_kernels(torch, stages, fails, words, counts, beta_true):
     modes; then at phase 2b's widths."""
     from strutopy_tpu_torch.corpus.bow import PaddedCorpus
 
+    from strutopy_tpu_torch.ops import build
+
     inputs = stage_inputs(torch, words, counts, K_BENCH, seed=1)
     B, L = words.shape
     print(f"phase 12a: bf16 beta_doc modes vs plain, B={B} K={K_BENCH} L={L} T=12")
     max_abs, inputs_b, aux = check_stages_beta(torch, stages, fails, inputs, f"K={K_BENCH}")
+    # a chunk that leaves SMs idle: B1 and B3 split each document over a
+    # cluster of two blocks
+    Bc = 64
+    print(f"phase 12a: bf16 beta_doc modes vs plain, B={Bc} K={K_BENCH} L={L}; plans "
+          f"{ {w: stage_plan(build.load(), w, K_BENCH, Bc, L) for w in ('fgh', 'ls')} }")
+    check_stages_beta(torch, stages, fails, stage_inputs(torch, words[:Bc], counts[:Bc],
+                                                         K_BENCH, seed=1), f"K={K_BENCH} B={Bc}")
     corpus = PaddedCorpus(words, counts, counts.sum(1) > 0, V_BENCH)
     inputs_loop = dgp_inputs(torch, corpus, beta_true)
     max_abs["iter_bf16_beta"] = check_iter_beta(torch, stages, fails, inputs_loop,
@@ -2509,21 +2628,29 @@ def phase_beta_kernels(torch, stages, fails, words, counts, beta_true):
         lambda: stages.newton_iter(leta, lbd, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True))
     print_times(results, "bf16 Hessian on, bf16 beta_doc; median of 3 rounds of a CUDA graph "
                          "of 20 calls")
-    # the same arithmetic in the same order once the ring is read: each
-    # mode against its float32 mode given the rounded values (the same slab
-    # plan at this width), bit for bit
-    same = {
-        "fgh_bf16_beta": all(bool(torch.equal(a, b)) for a, b in zip(
-            stages.fgh(eta, bd_b, c, mu, siginv), stages.fgh(eta, bd_b.float(), c, mu, siginv))),
-        "ls_bf16_beta": bool(torch.equal(
-            stages.linesearch(eta, p, ts, bd_b, c, mu, siginv),
-            stages.linesearch(eta, p, ts, bd_b.float(), c, mu, siginv))),
-        "iter_bf16_beta": all(bool(torch.equal(a, b)) for a, b in zip(
-            stages.newton_iter(leta, lbd_b, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True),
+    # each mode against its float32 mode given the rounded values: every read
+    # of the ring gives the float32 path the same numbers, so the two part
+    # only where the plans sum in another order.  B1 and B3 have plans of
+    # their own for bf16 slabs (a lane's word slots consecutive, wider
+    # slabs, fewer topic splits in B3's sweep), so q, the log-likelihood and
+    # the sweep's sums part by rounding (B·Bᵀ's tiles add the same 16-slot
+    # steps in the same order); B4 keeps the float32 plan and body order
+    # but for B1's lane slots.  A print, not a check: the checks above hold
+    # each mode to the plain version on the same bf16 beta_doc.
+    pairs = {
+        "fgh_bf16_beta": (stages.fgh(eta, bd_b, c, mu, siginv),
+                          stages.fgh(eta, bd_b.float(), c, mu, siginv)),
+        "ls_bf16_beta": ((stages.linesearch(eta, p, ts, bd_b, c, mu, siginv),),
+                         (stages.linesearch(eta, p, ts, bd_b.float(), c, mu, siginv),)),
+        "iter_bf16_beta": (
+            stages.newton_iter(leta, lbd_b, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True)[:1],
             stages.newton_iter(leta, lbd_b.float(), lc, lmu, lsig, lts, ldone, GRAD_TOL, 6,
-                               True)))}
-    print(f"  bf16 beta_doc modes vs their float32 modes given the same rounded values, bit for "
-          f"bit: {same}")
+                               True)[:1])}
+    same = {k: (all(bool(torch.equal(x, y)) for x, y in zip(a, b)),
+                f"{max(float((x - y).abs().max()) for x, y in zip(a, b)):.3e}")
+            for k, (a, b) in pairs.items()}
+    print(f"  bf16 beta_doc modes vs their float32 modes given the same rounded values (bit-equal, "
+          f"max |diff|; apart by the plans' order of sums): {same}")
 
     rng = np.random.default_rng(5)
     for K, L in WIDTHS:

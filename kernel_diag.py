@@ -14,12 +14,19 @@ Run from the root of a checkout:
 ``build/ablate/``), with parts of the work switched off (each copy is
 wrong on purpose and used for timing only), then times ``stm_fgh`` and
 ``stm_ls`` of each copy against the unchanged kernel, in turns with CUDA
-events, on a chunk of the bench corpus (B=256, K=100, L=384, T=12).
+events, on a chunk of the bench corpus (B=256, K=100, L=384, T=12), with
+a float32 and with a bf16 beta_doc.  Then, built unchanged, each
+candidate plan of the bf16 beta_doc modes alone (``STM_BETA_PLAN``), a
+document on one block against a cluster of two (``STM_BETA_CLUSTER``) at
+B = 64, 132 and 256, and the unchanged kernels at B = 132, 264 and 528.
 
 ``compare`` builds the CUDA sources of the checkout at DIR (under
-``build/diag/``) and times its ``stm_fgh``, ``stm_cg`` and ``stm_ls``
-against this checkout's, in turns (theirs, ours, ours, theirs, ...), on
-the same chunk; their C interfaces must be this checkout's.
+``build/diag/``) and times its ``stm_fgh``, ``stm_cg``, ``stm_ls``,
+``stm_iter`` and ``stm_newton`` (B1-B5; B1, B3 and B4 with a float32 and
+with a bf16 beta_doc) against this checkout's, in turns (theirs, ours,
+ours, theirs, ...), on the same chunk (B4 and B5 on the recipe's
+documents), and says whether each one's outputs equal theirs bit for
+bit; their C interfaces must be this checkout's.
 
 ``plans`` builds the library twice, once with B5's streaming plans only
 and once with its resident plan only (beta_doc held in shared memory for
@@ -70,6 +77,8 @@ PARTS = (
         ("e[k] * ldf(slab + k * W + col) / sl[u] : 0.f",
          "(ABLATE & 2 ? e[k] * ldf(slab + k * W + col) * sl[u]"
          " : e[k] * ldf(slab + k * W + col) / sl[u]) : 0.f"),
+        ("e[k] * b[u] / sl[u] : 0.f",
+         "(ABLATE & 2 ? e[k] * b[u] * sl[u] : e[k] * b[u] / sl[u]) : 0.f"),
         ("logf(fmaxf(sm, kTiny))", "(ABLATE & 2 ? sm : logf(fmaxf(sm, kTiny)))"),
     ]),
     (4, "the product (fgh's MMA, ls's FMA loop)", [
@@ -80,9 +89,9 @@ PARTS = (
     ]),
     (8, "all slab work but the stream", [
         ("    // s_l: warp w sums", "    if (ABLATE & 8) continue;\n    // s_l: warp w sums"),
-        ("    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n\n"
+        ("    const TB* slab = ring + (size_t)(RESIDENT ? s : (s - s0) % STAGES) * K * W;\n\n"
          "    if (4 * tg",
-         "    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n"
+         "    const TB* slab = ring + (size_t)(RESIDENT ? s : (s - s0) % STAGES) * K * W;\n"
          "    if (ABLATE & 8) continue;\n\n    if (4 * tg"),
     ]),
     (16, "fgh's H stores to device memory", [
@@ -102,44 +111,51 @@ def ablated_source(text: str) -> str:
     return text
 
 
-def build_variants(build):
+def build_variants(build, flag_sets):
+    """A library of ``stages.cu`` compiled against the ablated copy of
+    ``newton_doc.cuh`` for each named set of ``-D`` flags (under
+    build/ablate/, in parallel): ({name: lib}, the ptxas report of the
+    first)."""
     out = build.BUILD_DIR.parent / "ablate"
     out.mkdir(parents=True, exist_ok=True)
     src = out / "stages.cu"
     src.write_bytes((build.CSRC / "stages.cu").read_bytes())
     (out / "newton_doc.cuh").write_text(ablated_source((build.CSRC / "newton_doc.cuh").read_text()))
     nvcc = build._nvcc()
-    procs = {v: subprocess.Popen([nvcc, *build.NVCC_FLAGS, f"-DABLATE={v}", "-shared", "-o",
-                                  str(out / f"ablate{v}.so"), str(src)],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for v in VARIANTS}
-    libs = {}
-    for v, p in procs.items():
+    procs = {name: subprocess.Popen([nvcc, *build.NVCC_FLAGS, *(f"-D{f}" for f in flags),
+                                     "-shared", "-o", str(out / f"{i}.so"), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i, (name, flags) in enumerate(flag_sets.items())}
+    libs, report = {}, ""
+    for i, (name, p) in enumerate(procs.items()):
         text = p.communicate()[0]
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for ABLATE={v}:\n{text}")
-        lib = ctypes.CDLL(str(out / f"ablate{v}.so"))
-        for name in ("stm_fgh", "stm_ls"):
-            getattr(lib, name).argtypes = build._SIGNATURES[name]
-        libs[v] = lib
-    return libs
+            raise RuntimeError(f"nvcc failed for {name}:\n{text}")
+        lib = ctypes.CDLL(str(out / f"{i}.so"))
+        for fn in ("stm_fgh", "stm_ls", "stm_stage_plan"):
+            getattr(lib, fn).argtypes = build._SIGNATURES[fn]
+        libs[name] = lib
+        report = report or text
+    return libs, report
 
 
 def describe(v: int) -> str:
     return ", ".join(what for bit, what, _ in PARTS if v & bit) or "nothing (the kernel)"
 
 
-def bench_chunk(torch):
-    """The ablation's chunk: B=256 documents of the bench corpus padded to
-    L=384, random beta, eta, mu and siginv (chip_smoke.stage_inputs), with
-    the plain H, g, direction and step sizes; and, per stage entry point,
-    calls[name](lib): a function that launches that library's on it."""
+def bench_chunk(torch, B=256):
+    """The chunk the stage kernels are timed on: B documents of the bench
+    corpus (256 by default) padded to L=384, random beta, eta, mu and
+    siginv (chip_smoke.stage_inputs), with the plain H, g, direction and
+    step sizes; and, per entry point and beta_doc element type,
+    calls[name](lib): (a function that launches that library's kernel on
+    the chunk, the outputs it writes; fresh outputs a call)."""
     import numpy as np
 
     from strutopy_tpu_torch.corpus.bow import pad_corpus
     from strutopy_tpu_torch.ops import stages
 
-    B, K, L, T = 256, cs.K_BENCH, 384, 12
+    K, L, T = cs.K_BENCH, 384, 12
     docs, _X = cs.make_corpus(K, cs.V_BENCH, B, cs.WORDS_BENCH)
     corpus = pad_corpus(docs, V=cs.V_BENCH)
     words = np.zeros((B, L), np.int32)
@@ -148,44 +164,164 @@ def bench_chunk(torch):
     counts[:, :corpus.counts.shape[1]] = corpus.counts
     inputs = cs.stage_inputs(torch, words, counts, K, seed=1)
     eta, bd, c, mu, siginv = inputs
+    beta = {0: bd, 1: bd.to(torch.bfloat16)}
     _want, aux = cs.plain_outputs(torch, stages, inputs, True)
-    f = torch.empty(B, device="cuda")
-    g = torch.empty(B, K - 1, device="cuda")
-    H = torch.empty(B, K - 1, K - 1, device="cuda")
-    x = torch.empty(B, K - 1, device="cuda")
-    fs = torch.empty(B, T, device="cuda")
+    # B4 and B5 on the recipe's documents and true beta, from eta = mu
+    lbd, lc, lmu, lsig = cs.dgp_chunk(torch, K, B, seed=0)
+    lbeta = {0: lbd, 1: lbd.to(torch.bfloat16)}
+    lts = cs.step_sizes(torch, "cuda")
+    done = torch.zeros(B, dtype=torch.bool, device="cuda")
 
     def stream():  # the current one: a graph capture runs on its own
         return torch.cuda.current_stream().cuda_stream
 
+    def ptrs(*ts):
+        return (t.data_ptr() for t in ts)
+
+    def fgh(beta_bf16):
+        def call(lib):
+            f, g = torch.empty(B, device="cuda"), torch.empty(B, K - 1, device="cuda")
+            H = torch.empty(B, K - 1, K - 1, device="cuda")
+            return (lambda: lib.stm_fgh(*ptrs(siginv, eta, mu, beta[beta_bf16], c, f, g, H), B,
+                                        K, L, 1, beta_bf16, stream())), (f, g, H)
+        return call
+
+    def cg(iters):
+        def call(lib):
+            x = torch.empty(B, K - 1, device="cuda")
+            return (lambda: lib.stm_cg(*ptrs(aux["H"], aux["g"], x), B, K - 1, iters, 1,
+                                       stream())), (x,)
+        return call
+
+    def ls(beta_bf16):
+        def call(lib):
+            fs = torch.empty(B, T, device="cuda")
+            return (lambda: lib.stm_ls(*ptrs(siginv, aux["ts"], eta, aux["p"], mu,
+                                             beta[beta_bf16], c, fs), B, K, L, T, beta_bf16,
+                                       stream())), (fs,)
+        return call
+
+    def it(beta_bf16):
+        def call(lib):
+            e, d, a = torch.empty_like(lmu), torch.empty_like(done), torch.empty_like(done)
+            return (lambda: lib.stm_iter(*ptrs(lsig, lts, lmu, lmu, done, lbeta[beta_bf16], lc),
+                                         None, *ptrs(e, d, a), B, K, L, cs.N_STEPS,
+                                         cs.GRAD_TOL, 6, 1, beta_bf16, stream())), (e, d, a)
+        return call
+
+    def newton(lib):
+        e = torch.empty_like(lmu)
+        n = torch.empty(B, dtype=torch.int32, device="cuda")
+        return (lambda: lib.stm_newton(*ptrs(lsig, lts, lbd, lc, lmu, lmu), None, *ptrs(e, n),
+                                       B, K, L, cs.N_STEPS, cs.LOOP_ITERS, cs.GRAD_TOL, 6, 1,
+                                       stream())), (e, n)
+
     calls = {
-        "fgh": lambda lib: lambda: lib.stm_fgh(
-            *(t.data_ptr() for t in (siginv, eta, mu, bd, c, f, g, H)), B, K, L, 1, 0, stream()),
-        "cg": lambda lib: lambda: lib.stm_cg(
-            aux["H"].data_ptr(), aux["g"].data_ptr(), x.data_ptr(), B, K - 1, aux["iters"], 1,
-            stream()),
+        "fgh": fgh(0), "fgh bf16 beta": fgh(1),
+        "cg": cg(aux["iters"]),
         # H and g in and the set-up, no step: what the steps add is the rest
-        "cg, 0 steps": lambda lib: lambda: lib.stm_cg(
-            aux["H"].data_ptr(), aux["g"].data_ptr(), x.data_ptr(), B, K - 1, 0, 1, stream()),
-        "ls": lambda lib: lambda: lib.stm_ls(
-            *(t.data_ptr() for t in (siginv, aux["ts"], eta, aux["p"], mu, bd, c, fs)), B, K, L,
-            T, 0, stream()),
+        "cg, 0 steps": cg(0),
+        "ls": ls(0), "ls bf16 beta": ls(1),
+        "iter": it(0), "iter bf16 beta": it(1),
+        "newton": newton,
     }
     return (B, K, L, T), calls
+
+
+def time_turns(torch, fn_a, fn_b, reps=50, rounds=4):
+    """ms a call of fn_a and fn_b, each a CUDA graph of ``reps`` calls
+    replayed in turns (a, b, b, a, ...) ``rounds`` times each: (a's
+    rounds, b's rounds)."""
+    graphs = [cs.graphed(torch, f, reps) for f in (fn_a, fn_b)]
+    for g in graphs:
+        g()
+    times = ([], [])
+    for i in range(2 * rounds):
+        for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[side]()
+            end.record()
+            torch.cuda.synchronize()
+            times[side].append(start.elapsed_time(end) / reps)
+    return times
+
+
+def spread(ms) -> str:
+    import numpy as np
+
+    return f"{np.median(ms):.4f} [{min(ms):.4f}-{max(ms):.4f}]"
+
+
+# the entry points ablate takes apart (B1 and B3 in both beta_doc element types)
+ABLATED = ("fgh", "fgh bf16 beta", "ls", "ls bf16 beta")
+
+
+def stage_plan(lib, which, K, beta_bf16, B, L=384):
+    """The plan stm_fgh (which 0) or stm_ls (1) takes at K for a chunk of
+    B documents (bf16 Hessian on): [bytes, W, stages, blocks an SM,
+    where the prior term reads siginv (0 L2, 1 the ring), blocks a
+    document], or None."""
+    out = (ctypes.c_int * 6)()
+    return list(out) if lib.stm_stage_plan(which, K, 1, beta_bf16, B, L, out) == 0 else None
+
+
+# candidates of the bf16 plans (stages.cu kBetaFgh, kBetaLs) built one by one
+BETA_PLANS = range(3)
+CLUSTERS = {"never": 1, "always": 2}
 
 
 def ablate(torch):
     from strutopy_tpu_torch.ops import build
 
-    libs = build_variants(build)
+    flag_sets = {v: [f"ABLATE={v}"] for v in VARIANTS}
+    flag_sets.update({f"plan {i}": ["ABLATE=0", f"STM_BETA_PLAN={i}"] for i in BETA_PLANS})
+    flag_sets.update({f"cluster {name}": ["ABLATE=0", f"STM_BETA_CLUSTER={flag}"]
+                      for name, flag in CLUSTERS.items()})
+    libs, report = build_variants(build, flag_sets)
+    print("ablate: ptxas, the unchanged kernels:")
+    for line in report.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("  " + line.strip())
     (B, K, L, T), calls = bench_chunk(torch)
-    print(f"ablate: B={B} K={K} L={L} T={T}, bf16 on; us a call, median of 3 rounds of a CUDA "
-          f"graph of 50 calls, each beside the unchanged kernel [{cs.card_line()}]")
+    print(f"ablate: B={B} K={K} L={L} T={T}, bf16 on; us a call, median [least-most] of 4 "
+          f"rounds of a CUDA graph of 50 calls, each in turns with the unchanged kernel "
+          f"[{cs.card_line()}]")
     for v in VARIANTS:
-        a = cs.time_pair(torch, calls["fgh"](libs[v]), calls["fgh"](libs[0]), reps=50)
-        b = cs.time_pair(torch, calls["ls"](libs[v]), calls["ls"](libs[0]), reps=50)
-        print(f"  off: {describe(v)}: fgh {1e3 * a[0]:.1f} (unchanged {1e3 * a[1]:.1f}), "
-              f"ls {1e3 * b[0]:.1f} (unchanged {1e3 * b[1]:.1f})")
+        print(f"  off: {describe(v)}:")
+        for name in ABLATED:
+            a, b = time_turns(torch, calls[name](libs[v])[0], calls[name](libs[0])[0])
+            print(f"    {name}: {spread([1e3 * t for t in a])} "
+                  f"(unchanged {spread([1e3 * t for t in b])})")
+    print("ablate: each bf16 plan alone [bytes, W, stages, blocks an SM, siginv in the ring, "
+          "blocks a document], us a call in turns with the default plan")
+    for i in BETA_PLANS:
+        lib = libs[f"plan {i}"]
+        for name, which in (("fgh bf16 beta", 0), ("ls bf16 beta", 1)):
+            plan = stage_plan(lib, which, K, 1, B, L)
+            if plan is None:
+                continue
+            a, b = time_turns(torch, calls[name](lib)[0], calls[name](libs[0])[0])
+            print(f"  plan {i} {plan}: {name} {spread([1e3 * t for t in a])} "
+                  f"(default {spread([1e3 * t for t in b])})")
+    print("ablate: the bf16 plans by chunk size with a document on one block, on a cluster of "
+          "two, and as planned; us a call, in turns")
+    for n in (64, 132, B):
+        _, c_n = bench_chunk(torch, B=n)
+        for name, which in (("fgh bf16 beta", 0), ("ls bf16 beta", 1)):
+            one, two = (time_turns(torch, c_n[name](libs[f"cluster {c}"])[0],
+                                   c_n[name](libs[0])[0]) for c in CLUSTERS)
+            print(f"  B={n} {name}: one block {spread([1e3 * t for t in one[0]])}, two "
+                  f"{spread([1e3 * t for t in two[0]])}, as planned "
+                  f"{spread([1e3 * t for t in one[1] + two[1]])} "
+                  f"{stage_plan(libs[0], which, K, 1, n, L)}")
+    print("ablate: the unchanged kernels by chunk size, 132 SMs; us a call, median [least-most]")
+    for n in (132, 264, 528):
+        _, c_n = bench_chunk(torch, B=n)
+        for name in ABLATED:
+            a, _b = time_turns(torch, c_n[name](libs[0])[0], c_n[name](libs[0])[0])
+            print(f"  B={n} {name}: {spread([1e3 * t for t in a])}")
 
 
 def build_lib(build, name, sources, flags=()):
@@ -225,11 +361,17 @@ def compare(torch, root):
     other = build_other(build, root)
     ours = build.load()
     (B, K, L, T), calls = bench_chunk(torch)
-    print(f"compare: B={B} K={K} L={L} T={T}, bf16 on, 6 CG steps; ms a call, median of 3 "
-          f"rounds of a CUDA graph of 50 calls, in turns with {root}'s [{cs.card_line()}]")
+    print(f"compare: B={B} K={K} L={L} T={T}, bf16 on, 6 CG steps; iter and newton on the "
+          f"recipe's documents from eta = mu; ms a call, median [least-most] of 4 rounds of a "
+          f"CUDA graph of 50 calls (newton 5), in turns with {root}'s [{cs.card_line()}]")
     for name, call in calls.items():
-        ms, theirs = cs.time_pair(torch, call(ours), call(other), reps=50)
-        print(f"  {name}: this checkout {ms:.4f} ms, {root} {theirs:.4f} ms")
+        (fn, out), (fn_o, out_o) = call(ours), call(other)
+        assert fn() == 0 and fn_o() == 0, name
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(out, out_o))
+        a, b = time_turns(torch, fn, fn_o, reps=5 if name == "newton" else 50)
+        print(f"  {name}: this checkout {spread(a)} ms, {root} {spread(b)} ms; outputs "
+              f"bit-equal {same}")
 
 
 def plans(torch):

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on one CUDA card:
 
-    python3 profile_torch.py [--trace build/profile/em_iter_trace.json]
+    python3 profile_torch.py [--trace build/profile/em_iter_trace.json] [--bf16-beta]
 
 Fits the bench.py cell (``chip_smoke.make_corpus``: K=100, V=10,000,
 N=8,192 documents of 300 tokens; batch 256, two-pass schedule with
@@ -19,7 +19,10 @@ iteration under ``torch.profiler`` and prints:
   * the busy share: the union of those events' intervals over the
     profiled iteration's wall time.
 
-The chrome trace stays at ``--trace`` for a closer look.
+The chrome trace stays at ``--trace`` for a closer look.  With
+``--bf16-beta`` the fit runs with ``newton_bf16_beta=True``: the Newton
+search reads beta_doc in bf16, so B1 and B3 launch their bf16-beta_doc
+modes (grouped apart, with their launches).
 """
 
 from __future__ import annotations
@@ -49,13 +52,18 @@ OTHER = "other elementwise (Newton-loop glue, finalize math)"
 COPIES = "memcpy / memset"
 
 
+BETA_GROUPS = ("fgh kernel (B1)", "ls kernel (B3)", "newton kernel (B4 and B5)")
+
+
 def group_of(event: dict) -> str:
     if event["cat"] != "kernel":
         return COPIES
     name = event["name"].lower()
     for group, keys in GROUPS:
         if any(k in name for k in keys):
-            return group
+            # a bf16 beta_doc's instantiation (newton_bf16_beta) apart
+            return group + ", bf16 beta_doc" if group in BETA_GROUPS and "bfloat16" in name \
+                else group
     return OTHER
 
 
@@ -69,11 +77,17 @@ def busy_us(events) -> float:
     return total
 
 
-def main() -> int:
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", default="build/profile/em_iter_trace.json",
                     help="where the chrome trace of the profiled iteration goes")
-    args = ap.parse_args()
+    ap.add_argument("--bf16-beta", action="store_true",
+                    help="fit with newton_bf16_beta=True (the Newton search on a bf16 beta_doc)")
+    return ap.parse_args(argv)
+
+
+def main() -> int:
+    args = parse_args()
 
     import torch
 
@@ -88,10 +102,10 @@ def main() -> int:
     docs, X = chip_smoke.make_corpus(K, V, N, chip_smoke.WORDS_BENCH)
     cfg = STMConfig(K=K, init_type="random", batch_size=256, newton_pass1_iters=6,
                     newton_straggler_frac=0.25, max_em_iter=WARM,
-                    convergence_threshold=0.0)
+                    convergence_threshold=0.0, newton_bf16_beta=args.bf16_beta)
     model = STM(docs, K=K, X=X, config=cfg, device="cuda")
     model.expectation_maximization()
-    print(f"K={K} V={V} N={N}; {card}")
+    print(f"K={K} V={V} N={N}, newton_bf16_beta={args.bf16_beta}; {card}")
     print("iteration s:", model.iter_seconds, "(the first", cfg.newton_warmup_iters, "cold)")
 
     # one more two-pass iteration, as expectation_maximization runs it

@@ -1,6 +1,7 @@
 """kernel_diag.py's ablation: every patch finds its one line of
-newton_doc.cuh (where B1's and B3's bodies live), and a patched line that
-changed is refused rather than skipped."""
+newton_doc.cuh (where B1's and B3's bodies live, the float32 and the bf16
+slabs' branches both), and any patched line that changed is refused
+rather than skipped."""
 
 import pytest
 
@@ -22,7 +23,7 @@ def test_every_ablation_patch_applies_once():
     assert kd.describe(0) == "nothing (the kernel)"
 
 
-@pytest.mark.parametrize("old", [subs[0][0] for _bit, _what, subs in kd.PARTS])
+@pytest.mark.parametrize("old", [old for _bit, _what, subs in kd.PARTS for old, _new in subs])
 def test_a_changed_patched_line_is_refused(old):
     with pytest.raises(RuntimeError, match="no longer holds"):
         half = len(old) // 2

@@ -29,6 +29,17 @@ def test_kernel_names_fall_into_their_groups():
     for name, group in cases.items():
         assert pt.group_of(_kernel(name)) == group, name
     assert pt.group_of(_kernel("Memcpy HtoD", cat="gpu_memcpy")) == pt.COPIES
+    # newton_bf16_beta's instantiations, apart from the float32 beta_doc's
+    beta = {
+        "void (anonymous namespace)::fgh_kernel<64, 3, true, __nv_bfloat16, true, 1>(float "
+        "const*, __nv_bfloat16 const*)": "fgh kernel (B1), bf16 beta_doc",
+        "void (anonymous namespace)::ls_kernel<64, 3, __nv_bfloat16, true, 2>(float const*)":
+            "ls kernel (B3), bf16 beta_doc",
+        "void (anonymous namespace)::newton_kernel<64, 3, true, false, __nv_bfloat16>(int)":
+            "newton kernel (B4 and B5), bf16 beta_doc",
+    }
+    for name, group in beta.items():
+        assert pt.group_of(_kernel(name)) == group, name
 
 
 def test_busy_time_counts_overlaps_once():
@@ -36,3 +47,10 @@ def test_busy_time_counts_overlaps_once():
               _kernel("d", 31, 1)]
     assert pt.busy_us(events) == 20.0
     assert pt.busy_us([]) == 0.0
+
+
+def test_options_parse():
+    args = pt.parse_args([])
+    assert args.trace == "build/profile/em_iter_trace.json" and not args.bf16_beta
+    args = pt.parse_args(["--bf16-beta", "--trace", "out/t.json"])
+    assert args.bf16_beta and args.trace == "out/t.json"

@@ -482,6 +482,87 @@ def test_phase_12_checks_fail_a_wrong_bf16_beta_doc_kernel(mutant, bf16):
     assert all(worst[name] > 1.0 for name in wrong), worst
 
 
+# Faults of the bf16 slabs' own design: 128-slot slabs, siginv in its own
+# region, a document split over a cluster of two blocks (rank 1 takes the
+# word slots from 128 on).  The chunk has K=13 and L=256, every slot live.
+
+
+def _rank1_partials(inputs_r, bf16, lo=128):
+    """Rank 1's share of a document (slots lo ..): its log-likelihood
+    terms (B,), q (B, K-1), B·Bᵀ (B, K-1, K-1) and the sweep's
+    log-likelihood terms (B, T)."""
+    eta, bd, c, mu, siginv = inputs_r
+    K = bd.shape[1]
+    *_, phi = stages.f_g_H_batched(eta, bd, c, mu, siginv, torch.sum(c, dim=1), False)
+    ch = c.clone()
+    ch[:, :lo] = 0.0
+    full = torch.cat([eta, eta.new_zeros(eta.shape[0], 1)], dim=1)
+    m = torch.amax(full, dim=1, keepdim=True)
+    s = torch.clamp_min(torch.bmm(torch.exp(full - m)[:, None, :], bd)[:, 0], 1e-35)
+    ll = torch.sum(torch.where(ch > 0, ch * (torch.log(s) + m), 0.0), dim=1)
+    Bm = phi * torch.sqrt(ch)[:, None, :]
+    Bm = stages._bf16_round(Bm) if bf16 else Bm
+    return ll, torch.sum(phi * ch[:, None, :], dim=2)[:, :K - 1], _gram(Bm[:, :K - 1])
+
+
+def _sweep_rank1_terms(inputs_r, aux, lo=128):
+    eta, bd, c, mu, siginv = inputs_r
+    cand = eta[:, None, :] + aux["ts"][None, :, None] * aux["p"][:, None, :]
+    full = torch.cat([cand, cand.new_zeros(*cand.shape[:2], 1)], dim=2)
+    m = torch.amax(full, dim=2, keepdim=True)
+    s = torch.clamp_min(torch.bmm(torch.exp(full - m), bd), 1e-35)
+    terms = torch.where(c[:, None, :] > 0, c[:, None, :] * (torch.log(s) + m), 0.0)
+    return torch.sum(terms[:, :, lo:], dim=2)
+
+
+def _sweep_drops_slots_128_to_255(inputs_r, want, aux, bf16):
+    # a 128-slot slab that the sweep never reads
+    return {"ls": want["ls"] + _sweep_rank1_terms(inputs_r, aux)}
+
+
+def _prior_term_from_a_siginv_not_landed(inputs_r, want, aux, bf16):
+    # the prior terms read zeros where siginv's region had not landed; H's
+    # epilogue reads it later, landed
+    eta, bd, c, mu, siginv = inputs_r
+    zero = torch.zeros_like(siginv)
+    f, g, _H = stages.fgh_plain(eta, bd, c, mu, zero, bf16=bf16)
+    return {"fgh.f": f, "fgh.g": g,
+            "ls": stages.linesearch_plain(eta, aux["p"], aux["ts"], bd, c, mu, zero)}
+
+
+def _cluster_partial(what, times):
+    """rank 1's partial of ``what`` added ``times`` times (0: left out, 2:
+    added twice) in place of once"""
+    def mutant(inputs_r, want, aux, bf16):
+        ll, q, G = _rank1_partials(inputs_r, bf16)
+        k = times - 1
+        if what == "BBt":  # B·Bᵀ
+            return {"fgh.H": want["fgh.H"] + k * G}
+        if what == "q":
+            return {"fgh.g": want["fgh.g"] - k * q,
+                    "fgh.H": want["fgh.H"] - k * torch.diag_embed(q)}
+        if what == "f":
+            return {"fgh.f": want["fgh.f"] - k * ll}
+        return {"ls": want["ls"] - k * _sweep_rank1_terms(inputs_r, aux)}
+    mutant.__name__ = f"cluster {what} partial {('left out', '', 'added twice')[times]}"
+    return mutant
+
+
+@pytest.mark.parametrize("mutant, bf16", [
+    (_sweep_drops_slots_128_to_255, True),
+    (_sweep_drops_slots_128_to_255, False),
+    (_prior_term_from_a_siginv_not_landed, True),
+    *[(_cluster_partial(what, times), True) for what in ("BBt", "q", "f", "sweep")
+      for times in (0, 2)],
+    (_cluster_partial("BBt", 0), False),
+], ids=lambda v: v.__name__.strip("_") if callable(v) else f"bf16={v}")
+def test_phase_12_checks_fail_the_bf16_slab_designs_faults(mutant, bf16):
+    _inputs, _inputs_b, inputs_r, want, aux = _beta_chunk(bf16, L=256)
+    wrong = mutant(inputs_r, want, aux, bf16)
+    worst = _worst(inputs_r, wrong, want, aux, bf16)
+    assert all(worst[name] > 1.0 for name in wrong), worst
+
+
 def _beta_iter(bf16):
     inputs_loop = cs.dgp_chunk(torch, 9, 32, 3, device="cpu")
     return cs.beta_iter_parts(torch, stages, inputs_loop, bf16)
@@ -677,3 +758,73 @@ def test_eta_check_where_converged():
     many = gm.copy()
     many[:10] = 1.0
     assert not _verdict(cs.check_eta_where_converged, many, gm, eta, eta, "eta")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: simulate_theta's draws on two devices, each document held to
+# its own rounding bound
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sim_models(toy_corpus, toy_dictionary, toy_metadata):
+    """One toy fit in the JAX package and the port holding its state."""
+    from strutopy_tpu.models.stm import STM as JaxSTM
+    from strutopy_tpu_torch import STM
+    from strutopy_tpu_torch.utils.convert import state_from_numpy
+
+    train = toy_corpus.train_docs
+    kwargs = dict(documents=train, dictionary=toy_dictionary, K=3,
+                  X=toy_metadata[: len(train)], max_em_iter=4, init_type="random",
+                  model_type="STM", seed=123456)
+    jm = JaxSTM(**kwargs)
+    jm.expectation_maximization(saving=False)
+    m = STM(**kwargs, device="cpu")
+    m._state = state_from_numpy(
+        {f: np.asarray(getattr(jm._state, f)) for f in jm._state._fields}, "cpu")
+    return jm, m
+
+
+def _sim_draws(sim_models, fault=None):
+    """The JAX package's eta draws and the port's CPU draws of one seed,
+    the port's with ``fault`` put in, and the documents' factors."""
+    from strutopy_tpu.eval.effects import simulate_theta as jax_simulate_theta
+    from strutopy_tpu_torch.eval.effects import simulate_theta
+
+    jm, m = sim_models
+    want = jax_simulate_theta(jm, n_draws=6, seed=2, chunk=16, return_eta=True)
+    got = simulate_theta(m, n_draws=6, seed=2, chunk=16, return_eta=True)
+    factors = cs.sim_factors(torch, stages, m, m._corpus.N, "cpu")
+    eta = np.asarray(m.eta, np.float32)[None]
+    if fault == "noise scaled by 1.01":
+        got = eta + 1.01 * (got - eta)
+    elif fault == "factor untransposed":  # x = L^-1 z in place of L^-T z
+        Lf = factors.double()
+        x = torch.as_tensor(got - eta, dtype=torch.float64).permute(1, 2, 0)  # (N, K-1, S)
+        z = Lf.mT @ x
+        got = eta + torch.linalg.solve_triangular(Lf, z, upper=False).permute(2, 0, 1).numpy()
+    return want, got, factors, eta
+
+
+@pytest.mark.parametrize("fault", [None, "noise scaled by 1.01", "factor untransposed"])
+def test_sim_check_holds_each_document_to_its_rounding_bound(sim_models, fault):
+    want, got, factors, eta = _sim_draws(sim_models, fault)
+    kappa, size, bound = cs.sim_bounds(torch, factors, want - eta)
+    diff = np.abs(got - want).max(axis=(0, 2))
+    ok, _worst = cs.sim_verdict(kappa, bound, diff, np.ones(diff.shape, bool))
+    assert ok == (fault is None), (diff.max(), bound.min())
+    assert bound.max() <= cs.SIM_ETA_ATOL
+
+
+def test_sim_bound_grows_with_the_condition_number():
+    # two documents, one well and one badly conditioned, the same draws
+    L = torch.stack([torch.eye(3, dtype=torch.float32),
+                     torch.diag(torch.tensor([1.0, 1.0, 1e-2]))])
+    x = np.ones((2, 2, 3), np.float32)
+    kappa, size, bound = cs.sim_bounds(torch, L, x)
+    np.testing.assert_allclose(kappa, [1.0, 1e4], rtol=1e-6)
+    np.testing.assert_allclose(bound, cs.SIM_C * kappa * 2.0 ** -24, rtol=1e-6)
+    # a rounding-sized gap passes on the badly conditioned document only
+    diff = np.full(2, 1e-4)
+    assert not cs.sim_verdict(kappa, bound, diff, np.array([True, True]))[0]
+    assert cs.sim_verdict(kappa, bound, diff, np.array([False, True]))[0]
