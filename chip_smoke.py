@@ -13,7 +13,7 @@ end, without the final result line):
      with ptxas' register and shared-memory report, the stage kernels'
      shared memory per block, the fused kernels' plan and B1's and B3's
      bf16-beta_doc plans (slab width, ring depth, blocks an SM, where
-     siginv is read, blocks a document) at K = 3 to 400;
+     siginv is read) at K = 3 to 400;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card at the main path's shapes (B=256, K=100, L = the bench
      corpus's bucket width, T=12, 6 CG steps), bf16 on and off, then
@@ -23,8 +23,9 @@ end, without the final result line):
      recipe's true beta, the row gather (gather) on the chunk's words;
      each beside its least time on the card (bound) and its share of it,
      and the whole loop's time per step of its slowest document; fgh,
-     cg, ls and newton on a permuted half of the chunk, each document's
-     outputs bit-equal to its outputs in the whole chunk;
+     cg, ls and newton, and fgh, ls and iter with a bf16 beta_doc, on a
+     permuted half of the chunk, each document's outputs bit-equal to its
+     outputs in the whole chunk;
      2b. the same checks at K=50 with L=200 (a partial slab) and L=201
      (not a multiple of 4), and at K=200 and K=400, the kernels' large-K
      branches;
@@ -114,8 +115,7 @@ end, without the final result line):
  12. the E-step options at the bench width: (a) B1, B3 and B4 in their
      bf16-beta_doc modes (``newton_bf16_beta``) against their plain
      versions given the same bf16 beta_doc, bf16 Hessian on and off, at
-     phase 2's chunks, a chunk of 64 (B1 and B3 on a cluster of two
-     blocks a document) and then at phase 2b's widths (L=201 takes the
+     phase 2's chunks and then at phase 2b's widths (L=201 takes the
      ragged copies), timed beside their bounds and, in turns, against
      their float32-beta_doc modes; (b) from one state after phase 4's 2
      cold iterations, one two-pass iteration with ``two_pass_fused`` and
@@ -556,10 +556,12 @@ def phase_widths(torch, stages, fails, B=32):
 
 def phase_determinism(torch, stages, fails, inputs, aux, seed=9):
     """fgh, cg (both bf16 modes), the sweep and the whole Newton loop (B5)
-    on a permuted half of phase 2's chunk: each document's outputs must
-    equal, bit for bit, its outputs in the whole chunk, since a document's
-    results may depend on nothing but its own inputs (the two-pass
-    schedule repacks documents into chunks)."""
+    on a permuted half of phase 2's chunk, and fgh, the sweep and one fused
+    iteration (B4) in their bf16-beta_doc modes: each document's outputs
+    must equal, bit for bit, its outputs in the whole chunk, since a
+    document's results may depend on nothing but its own inputs (the
+    two-pass schedule repacks documents into chunks, buckets and served
+    requests are smaller chunks)."""
     eta, bd, c, mu, siginv = inputs
     B = eta.shape[0]
     gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -584,26 +586,36 @@ def phase_determinism(torch, stages, fails, inputs, aux, seed=9):
                                      aux["iters"], bf16),
                   stages.newton_loop(sub[1], sub[2], sub[3], sub[0], siginv, ts, LOOP_ITERS,
                                      GRAD_TOL, aux["iters"], bf16))
+    sub_p = p[idx].contiguous()
     same_rows("ls: the sweep", (stages.linesearch(eta, p, ts, bd, c, mu, siginv),),
-              (stages.linesearch(sub[0], p[idx].contiguous(), ts, sub[1], sub[2], sub[3],
-                                 siginv),))
+              (stages.linesearch(sub[0], sub_p, ts, sub[1], sub[2], sub[3], siginv),))
+    bd_b, sub_b = bd.to(torch.bfloat16), sub[1].to(torch.bfloat16)
+    for bf16 in (False, True):
+        same_rows(f"fgh bf16={bf16}, bf16 beta_doc: f, g, H",
+                  stages.fgh(eta, bd_b, c, mu, siginv, bf16=bf16),
+                  stages.fgh(sub[0], sub_b, sub[2], sub[3], siginv, bf16=bf16))
+    same_rows("ls, bf16 beta_doc: the sweep", (stages.linesearch(eta, p, ts, bd_b, c, mu, siginv),),
+              (stages.linesearch(sub[0], sub_p, ts, sub_b, sub[2], sub[3], siginv),))
+    done = torch.zeros(eta.shape[0], dtype=torch.bool, device=eta.device)
+    same_rows("iter, bf16 beta_doc: eta, done, advance",
+              stages.newton_iter(eta, bd_b, c, mu, siginv, ts, done, GRAD_TOL, aux["iters"]),
+              stages.newton_iter(sub[0], sub_b, sub[2], sub[3], siginv, ts, done[idx], GRAD_TOL,
+                                 aux["iters"]))
 
 
-STAGE_PLAN_FIELDS = ("bytes", "W", "stages", "blocks_per_sm", "siginv", "cluster")
+STAGE_PLAN_FIELDS = ("bytes", "W", "stages", "blocks_per_sm", "siginv")
 SIGINV_PLACES = ("L2", "ring")
 
 
-def stage_plan(lib, which, K, B, L=384, bf16=True, beta_bf16=True):
-    """The plan of B1 (``which`` "fgh") or B3 ("ls") at K for a chunk of B
-    documents: bytes a block, slab width W, ring depth, blocks an SM it is
-    planned for, where its prior term reads siginv ("L2" or "ring", the
-    ring's spare slabs) and the blocks a document (a cluster); None where
-    no plan fits."""
+def stage_plan(lib, which, K, bf16=True, beta_bf16=True):
+    """The plan of B1 (``which`` "fgh") or B3 ("ls") at K: bytes a block,
+    slab width W, ring depth, blocks an SM it is planned for, where its
+    prior term reads siginv ("L2" or "ring", the ring's spare slabs);
+    None where no plan fits."""
     import ctypes
 
     out = (ctypes.c_int * len(STAGE_PLAN_FIELDS))()
-    if lib.stm_stage_plan(("fgh", "ls").index(which), K, int(bf16), int(beta_bf16), B, L,
-                          out) != 0:
+    if lib.stm_stage_plan(("fgh", "ls").index(which), K, int(bf16), int(beta_bf16), out) != 0:
         return None
     plan = dict(zip(STAGE_PLAN_FIELDS, out))
     plan["siginv"] = SIGINV_PLACES[plan["siginv"]]
@@ -611,13 +623,13 @@ def stage_plan(lib, which, K, B, L=384, bf16=True, beta_bf16=True):
 
 
 def check_beta_plans(fails, lib, K):
-    """The bf16 beta_doc plans of B1 and B3 at K, at the bench chunk
-    (B=256) and at phase 12a's chunk of 32: within the shared memory of
-    the blocks an SM each is planned for, one or two blocks a document."""
-    plans = {f"{which} B={B}": stage_plan(lib, which, K, B) for which in ("fgh", "ls")
-             for B in (256, 32)}
+    """The bf16 beta_doc plans of B1 (bf16 Hessian on and off) and B3 at
+    K: each within the shared memory of the blocks an SM it is planned
+    for."""
+    plans = {"fgh bf16": stage_plan(lib, "fgh", K), "fgh f32": stage_plan(lib, "fgh", K, False),
+             "ls": stage_plan(lib, "ls", K)}
     fails.check(all(p is not None and 0 < p["bytes"] <= SMEM_LIMIT // p["blocks_per_sm"]
-                    and p["cluster"] in (1, 2) for p in plans.values()),
+                    for p in plans.values()),
                 f"K={K}: bf16 beta_doc plans {plans}")
 
 
@@ -625,7 +637,7 @@ def check_smem_plans(fails, lib, stages):
     """The kernels' shared memory per block at every K the port takes:
     within what a block may opt in to (it does not depend on L); and the
     fused kernels' (B4/B5) plan in each bf16 mode; with a bf16 beta_doc
-    too (B1, B3, B4), B1's and B3's plans of their own apart."""
+    too (B1, B3, B4), and B1's and B3's bf16-β plans apart."""
     for K in (3, 10, 50, 100, 200, 400):
         plan = {"fgh bf16": lib.stm_fgh_smem(K, 1, 0), "fgh f32": lib.stm_fgh_smem(K, 0, 0),
                 "ls": lib.stm_ls_smem(K, 0),
@@ -2575,19 +2587,10 @@ def phase_beta_kernels(torch, stages, fails, words, counts, beta_true):
     modes; then at phase 2b's widths."""
     from strutopy_tpu_torch.corpus.bow import PaddedCorpus
 
-    from strutopy_tpu_torch.ops import build
-
     inputs = stage_inputs(torch, words, counts, K_BENCH, seed=1)
     B, L = words.shape
     print(f"phase 12a: bf16 beta_doc modes vs plain, B={B} K={K_BENCH} L={L} T=12")
     max_abs, inputs_b, aux = check_stages_beta(torch, stages, fails, inputs, f"K={K_BENCH}")
-    # a chunk that leaves SMs idle: B1 and B3 split each document over a
-    # cluster of two blocks
-    Bc = 64
-    print(f"phase 12a: bf16 beta_doc modes vs plain, B={Bc} K={K_BENCH} L={L}; plans "
-          f"{ {w: stage_plan(build.load(), w, K_BENCH, Bc, L) for w in ('fgh', 'ls')} }")
-    check_stages_beta(torch, stages, fails, stage_inputs(torch, words[:Bc], counts[:Bc],
-                                                         K_BENCH, seed=1), f"K={K_BENCH} B={Bc}")
     corpus = PaddedCorpus(words, counts, counts.sum(1) > 0, V_BENCH)
     inputs_loop = dgp_inputs(torch, corpus, beta_true)
     max_abs["iter_bf16_beta"] = check_iter_beta(torch, stages, fails, inputs_loop,
@@ -2630,24 +2633,24 @@ def phase_beta_kernels(torch, stages, fails, words, counts, beta_true):
                          "of 20 calls")
     # each mode against its float32 mode given the rounded values: every read
     # of the ring gives the float32 path the same numbers, so the two part
-    # only where the plans sum in another order.  B1 and B3 have plans of
-    # their own for bf16 slabs (a lane's word slots consecutive, wider
-    # slabs, fewer topic splits in B3's sweep), so q, the log-likelihood and
-    # the sweep's sums part by rounding (B·Bᵀ's tiles add the same 16-slot
-    # steps in the same order); B4 keeps the float32 plan and body order
-    # but for B1's lane slots.  A print, not a check: the checks above hold
-    # each mode to the plain version on the same bf16 beta_doc.
+    # only where the plans sum in another order.  B1 and B4 keep the float32
+    # slab plans and sum order (B1 pairs its B·Bᵀ tiles with bf16 slabs,
+    # which leaves each tile's sums as they were), so they should be
+    # bit-equal; B3's bf16 plan of its own (128-slot slabs at this width)
+    # gives each thread other word slots, so the sweep's sums part by
+    # rounding.  A print, not a check: the checks above hold each mode to
+    # the plain version on the same bf16 beta_doc.
     pairs = {
         "fgh_bf16_beta": (stages.fgh(eta, bd_b, c, mu, siginv),
                           stages.fgh(eta, bd_b.float(), c, mu, siginv)),
         "ls_bf16_beta": ((stages.linesearch(eta, p, ts, bd_b, c, mu, siginv),),
                          (stages.linesearch(eta, p, ts, bd_b.float(), c, mu, siginv),)),
         "iter_bf16_beta": (
-            stages.newton_iter(leta, lbd_b, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True)[:1],
+            stages.newton_iter(leta, lbd_b, lc, lmu, lsig, lts, ldone, GRAD_TOL, 6, True),
             stages.newton_iter(leta, lbd_b.float(), lc, lmu, lsig, lts, ldone, GRAD_TOL, 6,
-                               True)[:1])}
+                               True))}
     same = {k: (all(bool(torch.equal(x, y)) for x, y in zip(a, b)),
-                f"{max(float((x - y).abs().max()) for x, y in zip(a, b)):.3e}")
+                f"{max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b)):.3e}")
             for k, (a, b) in pairs.items()}
     print(f"  bf16 beta_doc modes vs their float32 modes given the same rounded values (bit-equal, "
           f"max |diff|; apart by the plans' order of sums): {same}")

@@ -15,10 +15,10 @@ Run from the root of a checkout:
 wrong on purpose and used for timing only), then times ``stm_fgh`` and
 ``stm_ls`` of each copy against the unchanged kernel, in turns with CUDA
 events, on a chunk of the bench corpus (B=256, K=100, L=384, T=12), with
-a float32 and with a bf16 beta_doc.  Then, built unchanged, each
-candidate plan of the bf16 beta_doc modes alone (``STM_BETA_PLAN``), a
-document on one block against a cluster of two (``STM_BETA_CLUSTER``) at
-B = 64, 132 and 256, and the unchanged kernels at B = 132, 264 and 528.
+a float32 and with a bf16 beta_doc.  Then each candidate plan of the
+bf16 beta_doc modes alone (``csrc/stages.cu``'s plan lists ``kFghPlans``
+and ``kBetaLs`` cut to that candidate in a copy), and the unchanged
+kernels at B = 132, 264 and 528.
 
 ``compare`` builds the CUDA sources of the checkout at DIR (under
 ``build/diag/``) and times its ``stm_fgh``, ``stm_cg``, ``stm_ls``,
@@ -77,8 +77,6 @@ PARTS = (
         ("e[k] * ldf(slab + k * W + col) / sl[u] : 0.f",
          "(ABLATE & 2 ? e[k] * ldf(slab + k * W + col) * sl[u]"
          " : e[k] * ldf(slab + k * W + col) / sl[u]) : 0.f"),
-        ("e[k] * b[u] / sl[u] : 0.f",
-         "(ABLATE & 2 ? e[k] * b[u] * sl[u] : e[k] * b[u] / sl[u]) : 0.f"),
         ("logf(fmaxf(sm, kTiny))", "(ABLATE & 2 ? sm : logf(fmaxf(sm, kTiny)))"),
     ]),
     (4, "the product (fgh's MMA, ls's FMA loop)", [
@@ -89,9 +87,9 @@ PARTS = (
     ]),
     (8, "all slab work but the stream", [
         ("    // s_l: warp w sums", "    if (ABLATE & 8) continue;\n    // s_l: warp w sums"),
-        ("    const TB* slab = ring + (size_t)(RESIDENT ? s : (s - s0) % STAGES) * K * W;\n\n"
+        ("    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n\n"
          "    if (4 * tg",
-         "    const TB* slab = ring + (size_t)(RESIDENT ? s : (s - s0) % STAGES) * K * W;\n"
+         "    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;\n"
          "    if (ABLATE & 8) continue;\n\n    if (4 * tg"),
     ]),
     (16, "fgh's H stores to device memory", [
@@ -111,21 +109,45 @@ def ablated_source(text: str) -> str:
     return text
 
 
-def build_variants(build, flag_sets):
-    """A library of ``stages.cu`` compiled against the ablated copy of
-    ``newton_doc.cuh`` for each named set of ``-D`` flags (under
-    build/ablate/, in parallel): ({name: lib}, the ptxas report of the
-    first)."""
+# stages.cu's plan lists ({W, stages, blocks an SM}, the first that fits
+# taken) and the candidates ablate times alone: B1's list serves both
+# beta_doc element types, kBetaLs B3's bf16 slabs
+PLAN_LISTS = {
+    "fgh": ("constexpr int kFghPlans[][3] = {{64, 3, 2}, {32, 3, 2}, {32, 2, 1}};",
+            ((64, 3, 2), (64, 2, 2), (32, 3, 2))),
+    "ls": ("constexpr int kBetaLs[][3] = {{128, 2, 2}, {64, 2, 2}, {64, 2, 1}};",
+           ((128, 2, 2), (64, 2, 2), (64, 3, 2))),
+}
+N_PLANS = 3
+
+
+def planned_source(text: str, i: int) -> str:
+    """stages.cu with each plan list of PLAN_LISTS cut to its candidate i."""
+    for old, cands in PLAN_LISTS.values():
+        if text.count(old) != 1:
+            raise RuntimeError(f"ablate: stages.cu no longer holds {old!r} once")
+        head = old.split("{{")[0]
+        text = text.replace(old, head + "{{%d, %d, %d}};" % cands[i])
+    return text
+
+
+def build_variants(build, variants):
+    """A library for each named (ABLATE value, plan candidate or None):
+    ``stages.cu`` (its plan lists cut to the candidate) compiled against
+    the ablated copy of ``newton_doc.cuh`` (under build/ablate/, in
+    parallel): ({name: lib}, the ptxas report of the first)."""
     out = build.BUILD_DIR.parent / "ablate"
     out.mkdir(parents=True, exist_ok=True)
-    src = out / "stages.cu"
-    src.write_bytes((build.CSRC / "stages.cu").read_bytes())
+    stages_text = (build.CSRC / "stages.cu").read_text()
     (out / "newton_doc.cuh").write_text(ablated_source((build.CSRC / "newton_doc.cuh").read_text()))
     nvcc = build._nvcc()
-    procs = {name: subprocess.Popen([nvcc, *build.NVCC_FLAGS, *(f"-D{f}" for f in flags),
-                                     "-shared", "-o", str(out / f"{i}.so"), str(src)],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for i, (name, flags) in enumerate(flag_sets.items())}
+    procs = {}
+    for i, (name, (ablate_v, plan)) in enumerate(variants.items()):
+        src = out / f"stages{i}.cu"
+        src.write_text(stages_text if plan is None else planned_source(stages_text, plan))
+        procs[name] = subprocess.Popen([nvcc, *build.NVCC_FLAGS, f"-DABLATE={ablate_v}", "-shared",
+                                        "-o", str(out / f"{i}.so"), str(src)],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, report = {}, ""
     for i, (name, p) in enumerate(procs.items()):
         text = p.communicate()[0]
@@ -258,28 +280,20 @@ def spread(ms) -> str:
 ABLATED = ("fgh", "fgh bf16 beta", "ls", "ls bf16 beta")
 
 
-def stage_plan(lib, which, K, beta_bf16, B, L=384):
-    """The plan stm_fgh (which 0) or stm_ls (1) takes at K for a chunk of
-    B documents (bf16 Hessian on): [bytes, W, stages, blocks an SM,
-    where the prior term reads siginv (0 L2, 1 the ring), blocks a
-    document], or None."""
-    out = (ctypes.c_int * 6)()
-    return list(out) if lib.stm_stage_plan(which, K, 1, beta_bf16, B, L, out) == 0 else None
-
-
-# candidates of the bf16 plans (stages.cu kBetaFgh, kBetaLs) built one by one
-BETA_PLANS = range(3)
-CLUSTERS = {"never": 1, "always": 2}
+def stage_plan(lib, which, K, beta_bf16):
+    """The plan stm_fgh (which 0) or stm_ls (1) takes at K (bf16 Hessian
+    on): [bytes, W, stages, blocks an SM, where the prior term reads
+    siginv (0 L2, 1 the ring)], or None."""
+    out = (ctypes.c_int * 5)()
+    return list(out) if lib.stm_stage_plan(which, K, 1, beta_bf16, out) == 0 else None
 
 
 def ablate(torch):
     from strutopy_tpu_torch.ops import build
 
-    flag_sets = {v: [f"ABLATE={v}"] for v in VARIANTS}
-    flag_sets.update({f"plan {i}": ["ABLATE=0", f"STM_BETA_PLAN={i}"] for i in BETA_PLANS})
-    flag_sets.update({f"cluster {name}": ["ABLATE=0", f"STM_BETA_CLUSTER={flag}"]
-                      for name, flag in CLUSTERS.items()})
-    libs, report = build_variants(build, flag_sets)
+    variants = {v: (v, None) for v in VARIANTS}
+    variants.update({f"plan {i}": (0, i) for i in range(N_PLANS)})
+    libs, report = build_variants(build, variants)
     print("ablate: ptxas, the unchanged kernels:")
     for line in report.splitlines():
         if "registers" in line or "Compiling entry" in line:
@@ -294,28 +308,17 @@ def ablate(torch):
             a, b = time_turns(torch, calls[name](libs[v])[0], calls[name](libs[0])[0])
             print(f"    {name}: {spread([1e3 * t for t in a])} "
                   f"(unchanged {spread([1e3 * t for t in b])})")
-    print("ablate: each bf16 plan alone [bytes, W, stages, blocks an SM, siginv in the ring, "
-          "blocks a document], us a call in turns with the default plan")
-    for i in BETA_PLANS:
+    print("ablate: each bf16 plan alone [bytes, W, stages, blocks an SM, siginv in the ring], "
+          "us a call in turns with the unchanged plan lists")
+    for i in range(N_PLANS):
         lib = libs[f"plan {i}"]
         for name, which in (("fgh bf16 beta", 0), ("ls bf16 beta", 1)):
-            plan = stage_plan(lib, which, K, 1, B, L)
+            plan = stage_plan(lib, which, K, 1)
             if plan is None:
                 continue
             a, b = time_turns(torch, calls[name](lib)[0], calls[name](libs[0])[0])
             print(f"  plan {i} {plan}: {name} {spread([1e3 * t for t in a])} "
-                  f"(default {spread([1e3 * t for t in b])})")
-    print("ablate: the bf16 plans by chunk size with a document on one block, on a cluster of "
-          "two, and as planned; us a call, in turns")
-    for n in (64, 132, B):
-        _, c_n = bench_chunk(torch, B=n)
-        for name, which in (("fgh bf16 beta", 0), ("ls bf16 beta", 1)):
-            one, two = (time_turns(torch, c_n[name](libs[f"cluster {c}"])[0],
-                                   c_n[name](libs[0])[0]) for c in CLUSTERS)
-            print(f"  B={n} {name}: one block {spread([1e3 * t for t in one[0]])}, two "
-                  f"{spread([1e3 * t for t in two[0]])}, as planned "
-                  f"{spread([1e3 * t for t in one[1] + two[1]])} "
-                  f"{stage_plan(libs[0], which, K, 1, n, L)}")
+                  f"(unchanged {spread([1e3 * t for t in b])})")
     print("ablate: the unchanged kernels by chunk size, 132 SMs; us a call, median [least-most]")
     for n in (132, 264, 528):
         _, c_n = bench_chunk(torch, B=n)

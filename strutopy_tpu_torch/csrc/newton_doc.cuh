@@ -31,13 +31,9 @@
 // under newton_bf16_beta: the ring then holds bf16 slabs (half the bytes),
 // and every read of the ring converts to float32 (ldf, ld4), so all the
 // arithmetic after that read is the float32 path's, on the rounded values.
-// The bf16 slabs have a design of their own (kWide below; the stage
-// kernels give them their own plans, stages.cu): B1 reads a lane's word
-// slots 4 or 8 bytes at a time and forms B·Bᵀ's tiles in pairs that share
-// their fragment loads, B3's prior term keeps more loads of siginv in
-// flight, and a document's word slots may be split over a thread-block
-// cluster of CL blocks, whose partial sums meet through distributed shared
-// memory in rank order.
+// With bf16 slabs B1 forms B·Bᵀ's tiles in pairs that share their
+// fragment loads (kPaired below), B3's prior term keeps more loads of
+// siginv in flight, and B3 takes a plan of its own (stages.cu).
 //
 // Notation: K topics, Km1 = K - 1 free coordinates, L padded word slots,
 // T step sizes, W word slots a slab; row-major float32 throughout but
@@ -45,7 +41,6 @@
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,70 +73,6 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
   const Bf16x4 v = *reinterpret_cast<const Bf16x4*>(p);
   const float2 a = __bfloat1622float2(v.lo), b = __bfloat1622float2(v.hi);
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// N consecutive bf16 slots of a slab as float32 (N = 1, 2 or 4: one 2-,
-// 4- or 8-byte shared-memory read, p aligned to it), and N floats stored
-// as bf16 the same way.
-template <int N>
-__device__ __forceinline__ void ldw(float* v, const __nv_bfloat16* p) {
-  static_assert(N == 1 || N == 2 || N == 4, "1, 2 or 4 slots");
-  if constexpr (N == 1) {
-    v[0] = __bfloat162float(*p);
-  } else if constexpr (N == 2) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    v[0] = a.x;
-    v[1] = a.y;
-  } else {
-    const float4 a = ld4(p);
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void stw(__nv_bfloat16* p, const float* v) {
-  static_assert(N == 1 || N == 2 || N == 4, "1, 2 or 4 slots");
-  if constexpr (N == 1) {
-    *p = __float2bfloat16(v[0]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  } else {
-    Bf16x4 w;
-    w.lo = __floats2bfloat162_rn(v[0], v[1]);
-    w.hi = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<Bf16x4*>(p) = w;
-  }
-}
-
-// N consecutive floats of shared memory in one 4-, 8- or 16-byte access.
-template <int N>
-__device__ __forceinline__ void ldfv(float* v, const float* p) {
-  if constexpr (N == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
-  } else if constexpr (N == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    v[0] = a.x;
-    v[1] = a.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void stfv(float* p, const float* v) {
-  if constexpr (N == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else if constexpr (N == 2)
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  else
-    *p = v[0];
 }
 
 // Floats of shared memory that n beta_doc elements of TB take (n even).
@@ -315,18 +246,10 @@ __device__ __forceinline__ void ldmatrix_b2(uint32_t* b, const __nv_bfloat16* op
 // keeps the operand in float32 and forms the same tiles with float32
 // FMAs on the CUDA cores.
 //
-// bf16 slabs (kWide): a lane takes W/32 consecutive word slots, read in
-// one 4- or 8-byte load a topic (the float32 slabs' lane takes slots
-// lane + 32u), and writes their operand entries in one store; a warp
-// takes its tiles in pairs side by side in one row tile (each row tile
-// holds an even number of tiles), with one A and one B load for the two
-// products.  The chain of a block's slabs, not the card's bandwidth, sets
-// the time (a block alone on an SM took 83% of the time of two on an
-// H100), so CL = 2 splits the slabs over a cluster of two blocks where the
-// chunk leaves SMs idle: rank r streams its half, the partial tiles of
-// B·Bᵀ, q and the log-likelihood go through distributed shared memory and
-// are added as rank 0's + rank 1's; rank 0 alone computes the prior term
-// and writes f and g, and the two ranks write H's halves.
+// bf16 slabs (kPaired): a warp takes its tiles in pairs side by side in
+// one row tile (each row tile holds an even number of tiles), with one A
+// and one B load for the two products; each tile's sums are the unpaired
+// order's.
 //
 // Operand row strides: bf16 rows of W + 8 (80 or 144 bytes: a warp's
 // ldmatrix rows hit distinct banks), float32 rows of W + 1.
@@ -391,18 +314,13 @@ struct HOut {
 // pointer stays live in a register across the stream.  RESIDENT: the ring
 // holds all of the document's slabs already (the fused kernel loads them
 // once for the whole Newton loop), so nothing is streamed.  TB: beta_doc's
-// element type.  CL: the blocks of the cluster that share the document (1
-// in the fused kernel); rank r streams slabs [r·per, (r+1)·per), per =
-// ceil(slabs / CL).
-template <int W, int STAGES, bool BF16, bool FUSED, bool RESIDENT = false, typename TB = float,
-          int CL = 1>
+// element type.
+template <int W, int STAGES, bool BF16, bool FUSED, bool RESIDENT = false, typename TB = float>
 __device__ __forceinline__ void fgh_body(
     const float* __restrict__ siginv, bool sig_shared, const float* eta_d, const float* mu,
     const TB* __restrict__ beta_d, const float* __restrict__ cnt_d, float* f_out,
     float* g_out, const HOut& hout, size_t d, int K, int L, int vec16, int grp, float* smem) {
-  constexpr bool kWide = sizeof(TB) == 2;  // bf16 slabs: a lane's slots are consecutive
-  static_assert(CL == 1 || CL == 2, "a document on one block or a cluster of two");
-  static_assert(CL == 1 || (!FUSED && !RESIDENT), "clusters in the stage kernel only");
+  constexpr bool kPaired = sizeof(TB) == 2;  // bf16 slabs: the tiles in pairs
   constexpr int kOpStrideBf = op_stride_bf(W), kOpStrideF = op_stride_f(W);
   constexpr int kCols = W / 32;  // word slots of a lane in a slab
   const int Km1 = K - 1, Kp = round16(Km1);
@@ -421,23 +339,19 @@ __device__ __forceinline__ void fgh_body(
   float* op_f = smem + lay.op;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int rank = 0;  // this block's place in the cluster
-  if constexpr (CL > 1) rank = (int)cooperative_groups::this_cluster().block_rank();
-  const int per = (n_slabs + CL - 1) / CL;
-  const int s0 = CL > 1 ? rank * per : 0, s1 = CL > 1 ? min(n_slabs, s0 + per) : n_slabs;
 
   // The first slabs load while the block does the per-document set-up.
   // Where the ring's other buffers hold siginv (and it is not in shared
   // memory already), it comes in first, for the prior term to read from
   // shared memory; the later slabs follow it.
-  const bool sig_ring = !RESIDENT && !sig_shared && grp == 0 && rank == 0 &&
+  const bool sig_ring = !RESIDENT && !sig_shared && grp == 0 &&
                         (size_t)Km1 * Km1 <= beta_floats((size_t)(STAGES - 1) * K * W, sizeof(TB));
   if (sig_ring) {
     load_siginv(sig_buf, siginv, Km1 * Km1);
     cp_async_commit();
   }
   for (int s = 0; !RESIDENT && s < (sig_ring ? 1 : STAGES - 1); ++s) {
-    if (s0 + s < s1) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, (s0 + s) * W, vec16);
+    if (s < n_slabs) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
     cp_async_commit();
   }
 
@@ -470,11 +384,11 @@ __device__ __forceinline__ void fgh_body(
   }
   const float Nd = block_sum(nd, red);  // its barriers publish the above
 
-  // prior term (group 0, rank 0 writes f and g): sdiff_j = Σ_i diff_i siginv[i, j],
+  // prior term (group 0 writes f and g): sdiff_j = Σ_i diff_i siginv[i, j],
   // each column's two halves of i summed by two threads (the upper half
   // into q, free until the stream ends), then added
   float quad = 0.f;
-  if (grp == 0 && rank == 0) {
+  if (grp == 0) {
     if (sig_ring) {
       cp_async_wait<1>();  // siginv has landed (slab 0 may not have)
       __syncthreads();
@@ -491,8 +405,7 @@ __device__ __forceinline__ void fgh_body(
     __syncthreads();  // also: siginv's buffers are free for the slabs
     if (sig_ring) {
       for (int s = 1; s < STAGES - 1; ++s) {
-        if (s0 + s < s1)
-          load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, (s0 + s) * W, vec16);
+        if (s < n_slabs) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
         cp_async_commit();
       }
     }
@@ -513,7 +426,7 @@ __device__ __forceinline__ void fgh_body(
 #pragma unroll
   for (int r = 0; r < kTilesPerWarp; ++r) {
     int t = grp * kTilesPerGroup + warp + kWarps * r;
-    if (kWide) t = grp * kTilesPerGroup + 2 * (warp + kWarps * (r >> 1)) + (r & 1);
+    if (kPaired) t = grp * kTilesPerGroup + 2 * (warp + kWarps * (r >> 1)) + (r & 1);
     ti0[r] = 0;
     tj0[r] = 0;
     if (t < n_tiles) {
@@ -535,126 +448,68 @@ __device__ __forceinline__ void fgh_body(
 
   const int g8 = lane >> 2, t4 = lane & 3;
   float llp = 0.f;  // warp 0: its lane's word slots' log-likelihood terms
-  for (int s = s0; s < s1; ++s) {
+  for (int s = 0; s < n_slabs; ++s) {
     if (!RESIDENT) cp_async_wait<STAGES - 2>();
     __syncthreads();  // slab s has landed; slab s-1's buffer is free
     if (!RESIDENT) {
       const int sn = s + STAGES - 1;
-      if (sn < s1)
-        load_slab<W>(ring + (size_t)((sn - s0) % STAGES) * K * W, beta_d, K, L, sn * W, vec16);
+      if (sn < n_slabs)
+        load_slab<W>(ring + (size_t)(sn % STAGES) * K * W, beta_d, K, L, sn * W, vec16);
       cp_async_commit();
     }
-    const TB* slab = ring + (size_t)(RESIDENT ? s : (s - s0) % STAGES) * K * W;
+    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;
 
     // s_l: warp w sums the topics k ≡ w (mod kWarps) of its lane's slots
-    if constexpr (kWide) {
-      const int c0 = lane * kCols;  // the lane's slots c0 .. c0 + kCols - 1
-      float ps[kCols];
+    float ps[kCols];
 #pragma unroll
-      for (int u = 0; u < kCols; ++u) ps[u] = 0.f;
+    for (int u = 0; u < kCols; ++u) ps[u] = 0.f;
 #pragma unroll 4
-      for (int k = warp; k < K; k += kWarps) {
-        float b[kCols];
-        ldw<kCols>(b, slab + k * W + c0);
+    for (int k = warp; k < K; k += kWarps) {
 #pragma unroll
-        for (int u = 0; u < kCols; ++u) ps[u] += e[k] * b[u];
-      }
-      stfv<kCols>(part + warp * W + c0, ps);
-      __syncthreads();
-      float sl[kCols], cl[kCols], rc[kCols];
-      bool live[kCols];
-      float v[kCols];
+      for (int u = 0; u < kCols; ++u) ps[u] += e[k] * ldf(slab + k * W + lane + 32 * u);
+    }
 #pragma unroll
-      for (int u = 0; u < kCols; ++u) v[u] = 0.f;
+    for (int u = 0; u < kCols; ++u) part[warp * W + lane + 32 * u] = ps[u];
+    __syncthreads();
+    float sl[kCols], cl[kCols], rc[kCols];
+    bool live[kCols];
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        float pw[kCols];
-        ldfv<kCols>(pw, part + w * W + c0);
+    for (int u = 0; u < kCols; ++u) {
+      float v = 0.f;
 #pragma unroll
-        for (int u = 0; u < kCols; ++u) v[u] += pw[u];
-      }
+      for (int w = 0; w < kWarps; ++w) v += part[w * W + lane + 32 * u];
+      sl[u] = fmaxf(v, kTiny);
+      const int l = s * W + lane + 32 * u;
+      cl[u] = l < L ? cnt_d[l] : 0.f;
+      live[u] = cl[u] > 0.f;
+      if (warp == 0 && live[u]) llp += cl[u] * (logf(sl[u]) + m);
+      rc[u] = live[u] ? sqrtf(cl[u]) : 0.f;
+    }
+
+    // phi_hat, its q terms and the B·Bᵀ operand, rows k < Km1
+#pragma unroll 4
+    for (int k = warp; k < Km1; k += kWarps) {
+      float qv = qpart[k * 32 + lane];
 #pragma unroll
       for (int u = 0; u < kCols; ++u) {
-        sl[u] = fmaxf(v[u], kTiny);
-        const int l = s * W + c0 + u;
-        cl[u] = l < L ? cnt_d[l] : 0.f;
-        live[u] = cl[u] > 0.f;
-        if (warp == 0 && live[u]) llp += cl[u] * (logf(sl[u]) + m);
-        rc[u] = live[u] ? sqrtf(cl[u]) : 0.f;
-      }
-
-      // phi_hat, its q terms and the B·Bᵀ operand of the lane's slots, rows k < Km1
-#pragma unroll 4
-      for (int k = warp; k < Km1; k += kWarps) {
-        float qv = qpart[k * 32 + lane];
-        float b[kCols], ov[kCols];
-        ldw<kCols>(b, slab + k * W + c0);
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) {
-          const float ph = live[u] ? e[k] * b[u] / sl[u] : 0.f;
-          qv += ph * cl[u];
-          ov[u] = ph * rc[u];
-        }
+        const int col = lane + 32 * u;
+        const float ph = live[u] ? e[k] * ldf(slab + k * W + col) / sl[u] : 0.f;
+        qv += ph * cl[u];
+        const float v = ph * rc[u];
         if (BF16) {
-          stw<kCols>(op_b + k * kOpStrideBf + c0, ov);
+          op_b[k * kOpStrideBf + col] = __float2bfloat16(v);
         } else {
-#pragma unroll
-          for (int u = 0; u < kCols; ++u) op_f[k * kOpStrideF + c0 + u] = ov[u];
+          op_f[k * kOpStrideF + col] = v;
         }
-        qpart[k * 32 + lane] = qv;
       }
-    } else {
-      float ps[kCols];
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) ps[u] = 0.f;
-#pragma unroll 4
-      for (int k = warp; k < K; k += kWarps) {
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) ps[u] += e[k] * ldf(slab + k * W + lane + 32 * u);
-      }
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) part[warp * W + lane + 32 * u] = ps[u];
-      __syncthreads();
-      float sl[kCols], cl[kCols], rc[kCols];
-      bool live[kCols];
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) {
-        float v = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) v += part[w * W + lane + 32 * u];
-        sl[u] = fmaxf(v, kTiny);
-        const int l = s * W + lane + 32 * u;
-        cl[u] = l < L ? cnt_d[l] : 0.f;
-        live[u] = cl[u] > 0.f;
-        if (warp == 0 && live[u]) llp += cl[u] * (logf(sl[u]) + m);
-        rc[u] = live[u] ? sqrtf(cl[u]) : 0.f;
-      }
-
-      // phi_hat, its q terms and the B·Bᵀ operand, rows k < Km1
-#pragma unroll 4
-      for (int k = warp; k < Km1; k += kWarps) {
-        float qv = qpart[k * 32 + lane];
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) {
-          const int col = lane + 32 * u;
-          const float ph = live[u] ? e[k] * ldf(slab + k * W + col) / sl[u] : 0.f;
-          qv += ph * cl[u];
-          const float v = ph * rc[u];
-          if (BF16) {
-            op_b[k * kOpStrideBf + col] = __float2bfloat16(v);
-          } else {
-            op_f[k * kOpStrideF + col] = v;
-          }
-        }
-        qpart[k * 32 + lane] = qv;
-      }
+      qpart[k * 32 + lane] = qv;
     }
     __syncthreads();  // the operand is complete
 
     if (BF16) {
 #pragma unroll
       for (int kk = 0; kk < W; kk += 16) {
-        if constexpr (kWide) {
+        if constexpr (kPaired) {
 #pragma unroll
           for (int j = 0; j < kTilesPerWarp / 2; ++j) {
             if (2 * j < my_tiles) {
@@ -702,49 +557,11 @@ __device__ __forceinline__ void fgh_body(
     const float v = warp_sum(qpart[k * 32 + lane]);
     if (lane == 0) q[k] = v;
   }
-  float ll = warp_sum(llp);  // meaningful in warp 0
+  const float ll = warp_sum(llp);  // meaningful in warp 0
   cp_async_wait<0>();  // (only empty groups are pending)
   __syncthreads();  // publishes q; the ring, part and qpart are free
 
-  if constexpr (CL > 1) {
-    // the two ranks' partial tiles, q and log-likelihood, each added as
-    // rank 0's + rank 1's; the tiles go through the free ring, part and
-    // qpart (4 floats a thread a tile, stages.cu checks that they fit)
-    auto cluster = cooperative_groups::this_cluster();
-    float* xch = smem;
-#pragma unroll
-    for (int r = 0; r < kTilesPerWarp; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (r < my_tiles) xch[(r * 4 + c) * kThreads + tid] = acc[r][c];
-    if (tid == 0) red[16] = ll;
-    cluster.sync();  // every rank's partials are in its shared memory
-    const int peer = rank ^ 1;
-    const float* pxch = cluster.map_shared_rank(xch, peer);
-#pragma unroll
-    for (int r = 0; r < kTilesPerWarp; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (r < my_tiles) {
-          const float o = pxch[(r * 4 + c) * kThreads + tid];
-          acc[r][c] = rank == 0 ? acc[r][c] + o : o + acc[r][c];
-        }
-    const float* pq = cluster.map_shared_rank(q, peer);
-    float qo[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) qo[h] = tid + h * kThreads < Km1 ? pq[tid + h * kThreads] : 0.f;
-    const float llo = cluster.map_shared_rank(red, peer)[16];
-    cluster.sync();  // the peer has read this block's partials
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = tid + h * kThreads;
-      if (i < Km1) q[i] = rank == 0 ? q[i] + qo[h] : qo[h] + q[i];
-    }
-    ll = rank == 0 ? ll + llo : llo + ll;
-    __syncthreads();  // publishes q
-  }
-
-  if (grp == 0 && rank == 0) {
+  if (grp == 0) {
     for (int i = tid; i < Km1; i += kThreads) {
       const float th = e[i] / sum_e;
       g_out[d * Km1 + i] = sdiff[i] + (Nd * th - q[i]);
@@ -753,13 +570,12 @@ __device__ __forceinline__ void fgh_body(
   }
 
   // H = B·Bᵀ - Nd θθᵀ + diag(Nd θ - q) + Σ⁻¹; each upper entry and its
-  // mirror, into the place hout names (a cluster: each rank its tiles r ≡
-  // rank, or, staged, its share of the rows)
+  // mirror, into the place hout names
   const bool staged = !FUSED && gridDim.y == 1 && (size_t)Km1 * Km1 <= lay.e;
   float* H_d = staged ? smem : hout.glob + d * Km1 * Km1;
 #pragma unroll
   for (int r = 0; r < kTilesPerWarp; ++r) {
-    if (r < my_tiles && (CL == 1 || staged || r % CL == rank)) {
+    if (r < my_tiles) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int i = ti0[r] + g8 + (c >= 2 ? 8 : 0);
@@ -792,14 +608,14 @@ __device__ __forceinline__ void fgh_body(
     const int n = Km1 * Km1;
     float* out = hout.glob + d * n;
     const int head = min(n, (int)((16 - (uintptr_t)out % 16) % 16 / 4));
-    if (tid < head && rank == 0) out[tid] = smem[tid];
+    if (tid < head) out[tid] = smem[tid];
     float4* out4 = reinterpret_cast<float4*>(out + head);
     const int n4 = (n - head) / 4;
-    for (int c = tid + rank * kThreads; c < n4; c += CL * kThreads) {
+    for (int c = tid; c < n4; c += kThreads) {
       const float* v = smem + head + 4 * c;
       out4[c] = make_float4(v[0], v[1], v[2], v[3]);
     }
-    for (int idx = head + 4 * n4 + tid; idx < n && rank == 0; idx += kThreads) out[idx] = smem[idx];
+    for (int idx = head + 4 * n4 + tid; idx < n; idx += kThreads) out[idx] = smem[idx];
   }
 }
 
@@ -1017,12 +833,10 @@ __device__ __forceinline__ void cg_body(const HM hm, const float* diag, const fl
 // prior term ½ dᵀΣ⁻¹d of each candidate is computed as before, once per
 // (t, j), with each thread reading a column of siginv once for 4 step
 // sizes, from shared memory where the ring holds siginv (as in B1).  Sums
-// over warps are added in warp order.  bf16 slabs take the plans of their
-// own that stages.cu gives them (wider slabs, and the cluster of two, CL,
-// as in B1: rank r sweeps its half of the slabs, rank 0 alone the prior
-// term, and each step size's log-likelihood is rank 0's + rank 1's), and
-// their prior term, which reads siginv from L2 where the ring cannot hold
-// it, keeps sixteen loads a thread in flight.
+// over warps are added in warp order.  bf16 slabs take the plan of their
+// own that stages.cu gives them (wider slabs), and their prior term, which
+// reads siginv from L2 where the ring cannot hold it, keeps sixteen loads
+// a thread in flight.
 template <int W>
 struct LsShape {
   static constexpr int kCG = W / 4;                       // slot groups of 4
@@ -1056,15 +870,13 @@ __host__ __device__ inline LsLayout ls_layout(int K, int W, int stages, int beta
 
 // Document d's eta, p and mu are rows d of `eta`, `pdir` and `mu`, its
 // sweep values row d of `fs` (addressed where they are used, as in
-// fgh_body).  RESIDENT, TB and CL as in fgh_body.
-template <int W, int STAGES, bool RESIDENT = false, typename TB = float, int CL = 1>
+// fgh_body).  RESIDENT and TB as in fgh_body.
+template <int W, int STAGES, bool RESIDENT = false, typename TB = float>
 __device__ __forceinline__ void ls_body(
     const float* __restrict__ siginv, bool sig_shared, const float* ts, int T, const float* eta,
     const float* pdir, const float* mu, const TB* __restrict__ beta_d,
     const float* __restrict__ cnt_d, float* fs, size_t d, int K, int L, int vec16,
     float* smem) {
-  static_assert(CL == 1 || CL == 2, "a document on one block or a cluster of two");
-  static_assert(CL == 1 || !RESIDENT, "clusters in the stage kernel only");
   using S = LsShape<W>;
   const int Km1 = K - 1;
   const int n_slabs = (L + W - 1) / W;
@@ -1085,10 +897,6 @@ __device__ __forceinline__ void ls_body(
   float* red = smem + lay.red;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int rank = 0;  // this block's place in the cluster
-  if constexpr (CL > 1) rank = (int)cooperative_groups::this_cluster().block_rank();
-  const int per = (n_slabs + CL - 1) / CL;
-  const int s0 = CL > 1 ? rank * per : 0, s1 = CL > 1 ? min(n_slabs, s0 + per) : n_slabs;
 
   // as in fgh: siginv first where the ring's other buffers hold it
   const bool sig_ring = !RESIDENT && !sig_shared &&
@@ -1098,7 +906,7 @@ __device__ __forceinline__ void ls_body(
     cp_async_commit();
   }
   for (int s = 0; !RESIDENT && s < (sig_ring ? 1 : STAGES - 1); ++s) {
-    if (s0 + s < s1) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, (s0 + s) * W, vec16);
+    if (s < n_slabs) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
     cp_async_commit();
   }
 
@@ -1150,7 +958,7 @@ __device__ __forceinline__ void ls_body(
     constexpr int kSigUnroll = sizeof(TB) == 2 ? 16 : 8;
     float qs[4] = {0.f, 0.f, 0.f, 0.f};
     if (4 * tg < T) {
-      for (int j = jj; j < Km1 && rank == 0; j += 64) {
+      for (int j = jj; j < Km1; j += 64) {
         float a[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll(kSigUnroll)
         for (int i = 0; i < Km1; ++i) {
@@ -1177,8 +985,7 @@ __device__ __forceinline__ void ls_body(
   if (sig_ring) {
     __syncthreads();  // siginv's buffers are free for the slabs
     for (int s = 1; s < STAGES - 1; ++s) {
-      if (s0 + s < s1)
-        load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, (s0 + s) * W, vec16);
+      if (s < n_slabs) load_slab<W>(ring + (size_t)s * K * W, beta_d, K, L, s * W, vec16);
       cp_async_commit();
     }
   }
@@ -1194,16 +1001,16 @@ __device__ __forceinline__ void ls_body(
 #pragma unroll
   for (int r = 0; r < kPairs; ++r) llp[r] = 0.f;
 
-  for (int s = s0; s < s1; ++s) {
+  for (int s = 0; s < n_slabs; ++s) {
     if (!RESIDENT) cp_async_wait<STAGES - 2>();
     __syncthreads();  // slab s has landed; slab s-1's buffer and part are free
     if (!RESIDENT) {
       const int sn = s + STAGES - 1;
-      if (sn < s1)
-        load_slab<W>(ring + (size_t)((sn - s0) % STAGES) * K * W, beta_d, K, L, sn * W, vec16);
+      if (sn < n_slabs)
+        load_slab<W>(ring + (size_t)(sn % STAGES) * K * W, beta_d, K, L, sn * W, vec16);
       cp_async_commit();
     }
-    const TB* slab = ring + (size_t)(RESIDENT ? s : (s - s0) % STAGES) * K * W;
+    const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;
 
     if (4 * tg < T) {
       float a[4][4];
@@ -1255,23 +1062,14 @@ __device__ __forceinline__ void ls_body(
     if (lane == 0 && t < T) llw[t * kWarps + warp] = v;
   }
   __syncthreads();
-  float qsum = 0.f, ll = 0.f;
   if (tid < T) {
+    float qsum = 0.f, ll = 0.f;
     for (int w = 0; w < kWarps; ++w) {
       qsum += qw[tid * kWarps + w];
       ll += llw[tid * kWarps + w];
     }
+    fs[d * T + tid] = 0.5f * qsum - ll + Nd * lse[tid];
   }
-  if constexpr (CL > 1) {
-    // each step size's log-likelihood, rank 0's + rank 1's
-    auto cluster = cooperative_groups::this_cluster();
-    if (tid < T) red[tid] = ll;
-    cluster.sync();  // every rank's sums are in its shared memory
-    const float llo = tid < T ? cluster.map_shared_rank(red, rank ^ 1)[tid] : 0.f;
-    cluster.sync();  // the peer has read this block's sums
-    ll = rank == 0 ? ll + llo : llo + ll;
-  }
-  if (tid < T && rank == 0) fs[d * T + tid] = 0.5f * qsum - ll + Nd * lse[tid];
 }
 
 // ---------------------------------------------------------------------------

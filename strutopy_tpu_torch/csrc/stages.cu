@@ -32,10 +32,8 @@
 // newton_doc.cuh (fgh_body, cg_body, ls_body), the bodies the fused
 // kernel of newton.cu (B4, B5) runs too.
 //
-// A bf16 beta_doc's slabs are half the bytes of float32 ones, and B1 and
-// B3 give them plans of their own (kBetaFgh, kBetaLs below, chosen by
-// timing the candidates), and, where the chunk leaves SMs idle, split each
-// document over a cluster of two blocks.
+// A bf16 beta_doc's slabs are half the bytes of float32 ones, and B3 gives
+// them a plan of its own (kBetaLs below, chosen by timing the candidates).
 
 #include <stdint.h>
 
@@ -46,26 +44,25 @@
 
 namespace {
 
-// B1: one block per document (a cluster of CL blocks a document) and tile
-// group (blockIdx.y); H assembled in the free ring and written in whole
-// rows where one group covers it.
-template <int W, int STAGES, bool BF16, typename TB, int CL = 1>
+// B1: one block per document and tile group (blockIdx.y); H assembled in
+// the free ring and written in whole rows where one group covers it.
+template <int W, int STAGES, bool BF16, typename TB>
 __global__ void __launch_bounds__(kThreads, 2)
 fgh_kernel(const float* __restrict__ siginv, const float* __restrict__ eta,
            const float* __restrict__ mu, const TB* __restrict__ beta_doc,
            const float* __restrict__ counts, float* __restrict__ f_out,
            float* __restrict__ g_out, float* __restrict__ H_out, int K, int L, int vec16) {
   extern __shared__ __align__(16) float smem[];
-  const size_t d = blockIdx.x / CL;
+  const size_t d = blockIdx.x;
   HOut hout{};
   hout.glob = H_out;
-  fgh_body<W, STAGES, BF16, false, false, TB, CL>(
-      siginv, false, eta + d * (K - 1), mu, beta_doc + d * K * L, counts + d * L, f_out, g_out,
-      hout, d, K, L, vec16, blockIdx.y, smem);
+  fgh_body<W, STAGES, BF16, false, false, TB>(siginv, false, eta + d * (K - 1), mu,
+                                              beta_doc + d * K * L, counts + d * L, f_out, g_out,
+                                              hout, d, K, L, vec16, blockIdx.y, smem);
 }
 
-// B3: one block per document (a cluster of CL blocks a document).
-template <int W, int STAGES, typename TB, int CL = 1>
+// B3: one block per document.
+template <int W, int STAGES, typename TB>
 __global__ void __launch_bounds__(kThreads)
 ls_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
           const float* __restrict__ eta, const float* __restrict__ pdir,
@@ -73,9 +70,9 @@ ls_kernel(const float* __restrict__ siginv, const float* __restrict__ ts,
           const float* __restrict__ counts, float* __restrict__ fs, int K, int L, int T,
           int vec16) {
   extern __shared__ __align__(16) float smem[];
-  const size_t d = blockIdx.x / CL;
-  ls_body<W, STAGES, false, TB, CL>(siginv, false, ts, T, eta, pdir, mu, beta_doc + d * K * L,
-                                    counts + d * L, fs, d, K, L, vec16, smem);
+  const size_t d = blockIdx.x;
+  ls_body<W, STAGES, false, TB>(siginv, false, ts, T, eta, pdir, mu, beta_doc + d * K * L,
+                                counts + d * L, fs, d, K, L, vec16, smem);
 }
 
 // B2: one block per document.  Shared memory: g[Km1] | diag[Km1] | cg
@@ -162,61 +159,34 @@ struct StagePlan {
   size_t bytes;
 };
 
-// STM_BETA_PLAN (a build flag of kernel_diag.py ablate): -1 the first bf16
-// plan that fits; i >= 0 candidate i of the lists below alone, where it
-// fits.  STM_BETA_CLUSTER: 0 a cluster of two where the chunk leaves SMs
-// idle, 1 never, 2 always (where the document has two slabs).
-#ifndef STM_BETA_PLAN
-#define STM_BETA_PLAN -1
-#endif
-#ifndef STM_BETA_CLUSTER
-#define STM_BETA_CLUSTER 0
-#endif
-
-// The bf16 slabs' candidates {W, stages, blocks an SM}, the first that
-// fits taken.  kernel_diag.py ablate timed these and others on the bench
-// chunk (K=100, B=256; H100 at 700 W): B1 with 64-slot slabs two or three
-// deep 44.0-44.3 us (the smaller ring taken), 128-slot slabs two deep
-// 45.9; B3 with 128-slot slabs two deep 26.9, 64-slot ones two deep 27.9,
-// three deep 32.3.  siginv in a
-// shared region of its own, on its way ahead of the first slab, lost (B1
-// 44.6, B3 32.3: 39 KB of copies a block before the first slab, and the
-// shared memory it takes), so the bodies read siginv from L2 where the
-// ring's spare slabs cannot hold it.  Large K falls back to one block an
-// SM and (B1's float32 operand at K=400) 32-slot slabs.
-constexpr int kBetaFgh[][3] = {{64, 2, 2}, {64, 2, 1}, {32, 2, 1}};
+// B1's ring, {W, stages, blocks an SM}: 64-slot slabs three deep where two
+// blocks fit an SM, then 32-slot slabs three deep, then 32-slot slabs two
+// deep up to the whole opt-in shared memory; the first that fits is taken.
+// A bf16 beta_doc's slabs take half the bytes of float32 ones and keep
+// this list: no other shape was faster on the bench chunk (K=100, B=256;
+// kernel_diag.py ablate times each candidate alone, PERF.md section 6).
+constexpr int kFghPlans[][3] = {{64, 3, 2}, {32, 3, 2}, {32, 2, 1}};
+// B3's ring with bf16 slabs: 128-slot slabs two deep were the fastest on
+// the bench chunk (the same measurement), then 64-slot ones two deep; one
+// block an SM where two do not fit.
 constexpr int kBetaLs[][3] = {{128, 2, 2}, {64, 2, 2}, {64, 2, 1}};
-constexpr int kNBetaFgh = sizeof(kBetaFgh) / sizeof(kBetaFgh[0]);
+constexpr int kNFghPlans = sizeof(kFghPlans) / sizeof(kFghPlans[0]);
 constexpr int kNBetaLs = sizeof(kBetaLs) / sizeof(kBetaLs[0]);
 
 template <int N, typename Bytes>
 inline StagePlan first_fit(const int (&cand)[N][3], Bytes bytes_of) {
   const size_t optin = (size_t)max_optin_smem();
-  for (int i = 0; i < N; ++i) {
-    const int* c = cand[i];
-    if (STM_BETA_PLAN >= 0 && i != STM_BETA_PLAN) continue;
+  for (const auto& c : cand) {
     const size_t bytes = bytes_of(c[0], c[1]);
     if (bytes <= optin / c[2]) return {c[0], c[1], c[2], bytes};
   }
   return {0, 0, 0, 0};
 }
 
-// B1's ring, float32 slabs: 64-slot slabs three deep where two blocks fit
-// an SM, then 32-slot slabs three deep, then 32-slot slabs two deep up to
-// the whole opt-in shared memory; the first that fits is taken.  bf16
-// slabs: kBetaFgh.
 inline StagePlan fgh_plan(int K, int bf16, int beta_bytes) {
-  if (beta_bytes == 2)
-    return first_fit(kBetaFgh, [&](int W, int stages) {
-      return sizeof(float) * fgh_layout(K, W, stages, bf16, 2).floats;
-    });
-  const size_t optin = (size_t)max_optin_smem();
-  const int cand[3][3] = {{64, 3, 2}, {32, 3, 2}, {32, 2, 1}};  // W, stages, blocks an SM
-  for (const auto& c : cand) {
-    const size_t bytes = sizeof(float) * fgh_layout(K, c[0], c[1], bf16, beta_bytes).floats;
-    if (bytes <= optin / c[2]) return {c[0], c[1], c[2], bytes};
-  }
-  return {0, 0, 0, 0};
+  return first_fit(kFghPlans, [&](int W, int stages) {
+    return sizeof(float) * fgh_layout(K, W, stages, bf16, beta_bytes).floats;
+  });
 }
 
 // B3's ring, float32 slabs: 64 slots by three slabs where two blocks fit
@@ -238,35 +208,6 @@ inline StagePlan ls_plan(int K, int beta_bytes) {
   return {0, 0, 0, 0};
 }
 
-inline int sm_count() {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-  return v;
-}
-
-// Blocks a document of a bf16 plan: two (a cluster) where the chunk's
-// blocks, doubled, still run in one wave (B3: one block an SM, since its
-// rank 0 keeps the prior term, so two ranks sharing an SM gain nothing),
-// the document has a slab for each, and (B1) each warp's partial tiles fit
-// in the ring, part and qpart for the exchange; else one.  On the bench
-// recipe (K=100; H100 at 700 W) B=64 took B1 31.4 us against 38.0 on one
-// block a document, B3 16.3 against 20.1; B=132 B1 35.1 against 37.7, B3
-// 21.5 against 20.0; B=256 two waves, 67.4 against 45.0.
-inline int beta_cluster(const StagePlan& plan, int B, int groups, int K, int L, int fgh,
-                        int bf16) {
-  if (STM_BETA_CLUSTER == 1 || (L + plan.W - 1) / plan.W < 2) return 1;
-  if (fgh) {
-    // tiles of the busiest warp: pairs of tiles, kWarps pairs a round
-    const int pairs = (fgh_tiles(K) < kTilesPerGroup ? fgh_tiles(K) : kTilesPerGroup) / 2;
-    const int run = 2 * ((pairs + kWarps - 1) / kWarps);
-    const FghLayout lay = fgh_layout(K, plan.W, plan.stages, bf16, 2);
-    if ((size_t)run * 4 * kThreads > lay.e) return 1;
-  }
-  if (STM_BETA_CLUSTER == 2) return 2;
-  return 2 * (size_t)B * groups <= (size_t)(fgh ? plan.blocks_per_sm : 1) * sm_count() ? 2 : 1;
-}
-
 // Where a plan's prior term reads siginv: 0 device memory (L2), 1 the
 // ring's spare slabs.
 inline int sig_on_chip(const StagePlan& plan, int K, int beta_bytes) {
@@ -282,71 +223,34 @@ inline int beta_vec16(const void* beta_doc, int L, int beta_bytes) {
   return L % (16 / beta_bytes) == 0 && (uintptr_t)beta_doc % 16 == 0;
 }
 
-// Launch `kernel` on clusters of `cl` blocks along x (cl = 1: a plain launch).
-template <typename... KArgs, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int cl, size_t bytes,
-                           void* stream, Args... args) {
-  if (cl == 1) return launch(kernel, grid, bytes, stream, args...);
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
 // f(W, stages) with the plan's values as compile-time constants, for each
 // of the N candidates of C (candidates of one shape share an instance).
 template <const int (*C)[3], int N, int I = 0, typename F>
-cudaError_t beta_shapes(const StagePlan& plan, F&& f) {
+cudaError_t plan_shapes(const StagePlan& plan, F&& f) {
   if constexpr (I == N) {
     return cudaErrorInvalidValue;
   } else {
     constexpr int W = C[I][0], ST = C[I][1];
     if (plan.W == W && plan.stages == ST)
       return f(std::integral_constant<int, W>(), std::integral_constant<int, ST>());
-    return beta_shapes<C, N, I + 1>(plan, static_cast<F&&>(f));
+    return plan_shapes<C, N, I + 1>(plan, static_cast<F&&>(f));
   }
 }
 
 template <typename TB>
-cudaError_t launch_fgh(const StagePlan& plan, int bf16, int B, int groups, void* stream,
+cudaError_t launch_fgh(const StagePlan& plan, int bf16, dim3 grid, void* stream,
                        const void* siginv, const void* eta, const void* mu, const void* beta_doc,
                        const void* counts, void* f, void* g, void* H, int K, int L) {
   const int vec16 = beta_vec16(beta_doc, L, sizeof(TB));
-  auto args = [&](auto kernel, int cl) {
-    return launch_cluster(kernel, dim3(cl * B, groups), cl, plan.bytes, stream,
-                          (const float*)siginv, (const float*)eta, (const float*)mu,
-                          (const TB*)beta_doc, (const float*)counts, (float*)f, (float*)g,
-                          (float*)H, K, L, vec16);
+  auto args = [&](auto kernel) {
+    return launch(kernel, grid, plan.bytes, stream, (const float*)siginv, (const float*)eta,
+                  (const float*)mu, (const TB*)beta_doc, (const float*)counts, (float*)f,
+                  (float*)g, (float*)H, K, L, vec16);
   };
-  if constexpr (std::is_same<TB, float>::value) {
-    if (plan.W == 64)
-      return bf16 ? args(fgh_kernel<64, 3, true, TB>, 1) : args(fgh_kernel<64, 3, false, TB>, 1);
-    if (plan.stages == 3)
-      return bf16 ? args(fgh_kernel<32, 3, true, TB>, 1) : args(fgh_kernel<32, 3, false, TB>, 1);
-    return bf16 ? args(fgh_kernel<32, 2, true, TB>, 1) : args(fgh_kernel<32, 2, false, TB>, 1);
-  } else {
-    const int cl = beta_cluster(plan, B, groups, K, L, 1, bf16);
-    return beta_shapes<kBetaFgh, kNBetaFgh>(plan, [&](auto w, auto st) {
-      constexpr int W = decltype(w)::value, ST = decltype(st)::value;
-      if (cl == 2)
-        return bf16 ? args(fgh_kernel<W, ST, true, TB, 2>, 2)
-                    : args(fgh_kernel<W, ST, false, TB, 2>, 2);
-      return bf16 ? args(fgh_kernel<W, ST, true, TB, 1>, 1)
-                  : args(fgh_kernel<W, ST, false, TB, 1>, 1);
-    });
-  }
+  return plan_shapes<kFghPlans, kNFghPlans>(plan, [&](auto w, auto st) {
+    constexpr int W = decltype(w)::value, ST = decltype(st)::value;
+    return bf16 ? args(fgh_kernel<W, ST, true, TB>) : args(fgh_kernel<W, ST, false, TB>);
+  });
 }
 
 template <typename TB>
@@ -354,21 +258,18 @@ cudaError_t launch_ls(const StagePlan& plan, int B, void* stream, const void* si
                       const void* ts, const void* eta, const void* p, const void* mu,
                       const void* beta_doc, const void* counts, void* fs, int K, int L, int T) {
   const int vec16 = beta_vec16(beta_doc, L, sizeof(TB));
-  auto args = [&](auto kernel, int cl) {
-    return launch_cluster(kernel, dim3(cl * B), cl, plan.bytes, stream, (const float*)siginv,
-                          (const float*)ts, (const float*)eta, (const float*)p,
-                          (const float*)mu, (const TB*)beta_doc, (const float*)counts,
-                          (float*)fs, K, L, T, vec16);
+  auto args = [&](auto kernel) {
+    return launch(kernel, dim3(B), plan.bytes, stream, (const float*)siginv, (const float*)ts,
+                  (const float*)eta, (const float*)p, (const float*)mu, (const TB*)beta_doc,
+                  (const float*)counts, (float*)fs, K, L, T, vec16);
   };
   if constexpr (std::is_same<TB, float>::value) {
     if (plan.W == 64)
-      return plan.stages == 3 ? args(ls_kernel<64, 3, TB>, 1) : args(ls_kernel<64, 2, TB>, 1);
-    return plan.stages == 3 ? args(ls_kernel<32, 3, TB>, 1) : args(ls_kernel<32, 2, TB>, 1);
+      return plan.stages == 3 ? args(ls_kernel<64, 3, TB>) : args(ls_kernel<64, 2, TB>);
+    return plan.stages == 3 ? args(ls_kernel<32, 3, TB>) : args(ls_kernel<32, 2, TB>);
   } else {
-    const int cl = beta_cluster(plan, B, 1, K, L, 0, 0);
-    return beta_shapes<kBetaLs, kNBetaLs>(plan, [&](auto w, auto st) {
-      constexpr int W = decltype(w)::value, ST = decltype(st)::value;
-      return cl == 2 ? args(ls_kernel<W, ST, TB, 2>, 2) : args(ls_kernel<W, ST, TB, 1>, 1);
+    return plan_shapes<kBetaLs, kNBetaLs>(plan, [&](auto w, auto st) {
+      return args(ls_kernel<decltype(w)::value, decltype(st)::value, TB>);
     });
   }
 }
@@ -386,19 +287,16 @@ int stm_fgh_smem(int K, int bf16, int beta_bf16) {
   return plan.W ? (int)plan.bytes : -1;
 }
 
-// The plan of stm_fgh (which = 0) or stm_ls (1) at K for a chunk of B
-// documents of L slots into out[6]: bytes a block, W, ring depth, blocks
-// an SM, where the prior term reads siginv (0 L2, 1 the ring's spare
-// slabs), blocks a document (a cluster); -1 where no plan fits.
-int stm_stage_plan(int which, int K, int bf16, int beta_bf16, int B, int L, int* out) {
+// The plan of stm_fgh (which = 0) or stm_ls (1) at K into out[5]: bytes a
+// block, W, ring depth, blocks an SM, where the prior term reads siginv (0
+// L2, 1 the ring's spare slabs); -1 where no plan fits.
+int stm_stage_plan(int which, int K, int bf16, int beta_bf16, int* out) {
   const int bb = beta_bytes_of(beta_bf16);
   const StagePlan plan = which == 0 ? fgh_plan(K, bf16, bb) : ls_plan(K, bb);
   if (!plan.W) return -1;
-  const int groups = which == 0 ? fgh_groups(K) : 1;
-  const int cl = beta_bf16 ? beta_cluster(plan, B, groups, K, L, which == 0, bf16) : 1;
-  const int v[6] = {(int)plan.bytes, plan.W, plan.stages, plan.blocks_per_sm,
-                    sig_on_chip(plan, K, bb), cl};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  const int v[5] = {(int)plan.bytes, plan.W, plan.stages, plan.blocks_per_sm,
+                    sig_on_chip(plan, K, bb)};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -408,12 +306,12 @@ int stm_fgh(const void* siginv, const void* eta, const void* mu, const void* bet
   if (B == 0) return 0;
   const StagePlan plan = fgh_plan(K, bf16, beta_bytes_of(beta_bf16));
   if (!plan.W || L < 1) return (int)cudaErrorInvalidValue;
-  const int groups = fgh_groups(K);
+  const dim3 grid(B, fgh_groups(K));
   const cudaError_t err =
-      beta_bf16 ? launch_fgh<__nv_bfloat16>(plan, bf16, B, groups, stream, siginv, eta, mu,
-                                            beta_doc, counts, f, g, H, K, L)
-                : launch_fgh<float>(plan, bf16, B, groups, stream, siginv, eta, mu, beta_doc,
-                                    counts, f, g, H, K, L);
+      beta_bf16 ? launch_fgh<__nv_bfloat16>(plan, bf16, grid, stream, siginv, eta, mu, beta_doc,
+                                            counts, f, g, H, K, L)
+                : launch_fgh<float>(plan, bf16, grid, stream, siginv, eta, mu, beta_doc, counts,
+                                    f, g, H, K, L);
   return (int)err;
 }
 

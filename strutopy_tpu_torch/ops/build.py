@@ -41,7 +41,7 @@ _SIGNATURES = {
     "stm_fgh": [_P] * 8 + [_I] * 5 + [_P],
     "stm_cg": [_P] * 3 + [_I] * 4 + [_P],
     "stm_ls_smem": [_I] * 2,
-    "stm_stage_plan": [_I] * 6 + [_P],
+    "stm_stage_plan": [_I] * 4 + [_P],
     "stm_ls": [_P] * 8 + [_I] * 5 + [_P],
     "stm_newton_plan": [_I] * 5 + [_P],
     "stm_iter": [_P] * 11 + [_I] * 4 + [_F] + [_I] * 3 + [_P],

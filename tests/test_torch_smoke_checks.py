@@ -482,15 +482,16 @@ def test_phase_12_checks_fail_a_wrong_bf16_beta_doc_kernel(mutant, bf16):
     assert all(worst[name] > 1.0 for name in wrong), worst
 
 
-# Faults of the bf16 slabs' own design: 128-slot slabs, siginv in its own
-# region, a document split over a cluster of two blocks (rank 1 takes the
-# word slots from 128 on).  The chunk has K=13 and L=256, every slot live.
+# Faults of the bf16 slabs' designs: 128-slot slabs (B3's plan), siginv
+# read before it has landed, and a document's word slots summed in two
+# halves (slots from 128 on apart: a split over two blocks, or two
+# half-sums added at the end) with one half's partial sum left out or
+# added twice.  The chunk has K=13 and L=256, every slot live.
 
 
-def _rank1_partials(inputs_r, bf16, lo=128):
-    """Rank 1's share of a document (slots lo ..): its log-likelihood
-    terms (B,), q (B, K-1), B·Bᵀ (B, K-1, K-1) and the sweep's
-    log-likelihood terms (B, T)."""
+def _upper_half_partials(inputs_r, bf16, lo=128):
+    """The share of a document's word slots lo ..: its log-likelihood
+    terms (B,), q (B, K-1) and B·Bᵀ (B, K-1, K-1)."""
     eta, bd, c, mu, siginv = inputs_r
     K = bd.shape[1]
     *_, phi = stages.f_g_H_batched(eta, bd, c, mu, siginv, torch.sum(c, dim=1), False)
@@ -505,7 +506,7 @@ def _rank1_partials(inputs_r, bf16, lo=128):
     return ll, torch.sum(phi * ch[:, None, :], dim=2)[:, :K - 1], _gram(Bm[:, :K - 1])
 
 
-def _sweep_rank1_terms(inputs_r, aux, lo=128):
+def _sweep_upper_half_terms(inputs_r, aux, lo=128):
     eta, bd, c, mu, siginv = inputs_r
     cand = eta[:, None, :] + aux["ts"][None, :, None] * aux["p"][:, None, :]
     full = torch.cat([cand, cand.new_zeros(*cand.shape[:2], 1)], dim=2)
@@ -517,7 +518,7 @@ def _sweep_rank1_terms(inputs_r, aux, lo=128):
 
 def _sweep_drops_slots_128_to_255(inputs_r, want, aux, bf16):
     # a 128-slot slab that the sweep never reads
-    return {"ls": want["ls"] + _sweep_rank1_terms(inputs_r, aux)}
+    return {"ls": want["ls"] + _sweep_upper_half_terms(inputs_r, aux)}
 
 
 def _prior_term_from_a_siginv_not_landed(inputs_r, want, aux, bf16):
@@ -530,11 +531,11 @@ def _prior_term_from_a_siginv_not_landed(inputs_r, want, aux, bf16):
             "ls": stages.linesearch_plain(eta, aux["p"], aux["ts"], bd, c, mu, zero)}
 
 
-def _cluster_partial(what, times):
-    """rank 1's partial of ``what`` added ``times`` times (0: left out, 2:
-    added twice) in place of once"""
+def _half_partial(what, times):
+    """the upper half of the slots' partial of ``what`` added ``times``
+    times (0: left out, 2: added twice) in place of once"""
     def mutant(inputs_r, want, aux, bf16):
-        ll, q, G = _rank1_partials(inputs_r, bf16)
+        ll, q, G = _upper_half_partials(inputs_r, bf16)
         k = times - 1
         if what == "BBt":  # B·Bᵀ
             return {"fgh.H": want["fgh.H"] + k * G}
@@ -543,8 +544,8 @@ def _cluster_partial(what, times):
                     "fgh.H": want["fgh.H"] - k * torch.diag_embed(q)}
         if what == "f":
             return {"fgh.f": want["fgh.f"] - k * ll}
-        return {"ls": want["ls"] - k * _sweep_rank1_terms(inputs_r, aux)}
-    mutant.__name__ = f"cluster {what} partial {('left out', '', 'added twice')[times]}"
+        return {"ls": want["ls"] - k * _sweep_upper_half_terms(inputs_r, aux)}
+    mutant.__name__ = f"half-slots {what} partial {('left out', '', 'added twice')[times]}"
     return mutant
 
 
@@ -552,9 +553,9 @@ def _cluster_partial(what, times):
     (_sweep_drops_slots_128_to_255, True),
     (_sweep_drops_slots_128_to_255, False),
     (_prior_term_from_a_siginv_not_landed, True),
-    *[(_cluster_partial(what, times), True) for what in ("BBt", "q", "f", "sweep")
+    *[(_half_partial(what, times), True) for what in ("BBt", "q", "f", "sweep")
       for times in (0, 2)],
-    (_cluster_partial("BBt", 0), False),
+    (_half_partial("BBt", 0), False),
 ], ids=lambda v: v.__name__.strip("_") if callable(v) else f"bf16={v}")
 def test_phase_12_checks_fail_the_bf16_slab_designs_faults(mutant, bf16):
     _inputs, _inputs_b, inputs_r, want, aux = _beta_chunk(bf16, L=256)
