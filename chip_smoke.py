@@ -146,7 +146,15 @@ end, without the final result line):
      each against its unmeshed twin run here afterwards: cold iterations
      within 2e-4, one iteration from the meshed fit's state within 1e-5,
      served theta within 1e-5; every rank's B1-B3 launches, walls and the
-     backend printed.  Both ranks share one card: no scaling figure.
+     backend printed.  Both ranks share one card: no scaling figure;
+ 14. the E-step against the float64 oracle at full width: phase 4's warm
+     state (beta, sigma, and the mu and eta of its first 256 documents in
+     document order), ``run_estep`` on the card (single pass, float32
+     beta, B1-B3 launched) against ``utils/reference_numpy.e_step`` on the
+     host: the summed bound, beta_ss and sigma_ss (relative Frobenius),
+     eta and theta per document where both solves converged, the
+     documents either leaves unconverged counted; the oracle's docs/s on
+     the host's CPU and the port's on the card printed.
 
 The last three lines of standard output are the card line, one JSON
 object of per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -1742,7 +1750,7 @@ def phase_streaming(torch, stages, fails, corpus, X, card, default_model, defaul
     beta0 = random_beta(K, V, seed=5)
 
     def fresh(sem, n_rows):
-        shared = init_state(K=K, V=V, N=n_rows, P=D_np.shape[1], beta_init=beta0,
+        shared = init_state(None, K=K, V=V, N=n_rows, P=D_np.shape[1], beta_init=beta0,
                             device="cuda")
         return shared, sem.init_parts(None, K=K, V=V)
 
@@ -3195,6 +3203,201 @@ def phase_mesh_two(torch, stages, fails, card):
     print(f"phase 13b took {time.time() - t_phase:.1f} s (the world {wall:.1f} s) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the card's E-step against the float64 oracle at full width
+# ---------------------------------------------------------------------------
+
+ORACLE_N = 256  # phase 4's first documents: one chunk of the bench batch
+# The card's float32 E-step (run_estep, single pass, B1-B3) against
+# reference_numpy.e_step (float64, scipy BFGS a document) on the same
+# documents from the same warm state.  Each tolerance is about ten times
+# the largest of three runs on an H100 (NVIDIA H100 80GB HBM3, 700 W;
+# K=100, V=10,000; the warm state moves run to run with index_add_'s
+# atomics):
+#   the summed bound (256 per-document bounds of ~-2,500 nats, each with
+#   the log-determinant of a float32 Cholesky factor) 5.5e-8, 1.7e-8 and
+#   1.8e-7 relative -> 2e-6, 250 times under the 5e-4 that full-width fits
+#   of the two packages need after several iterations;
+#   beta_ss 6.5e-7, 1.0e-6 and 2.0e-6, sigma_ss 6.5e-6, 6.1e-6 and 6.4e-6,
+#   relative Frobenius norm -> 2e-5 and 1e-4 (sigma_ss sums the inverses
+#   of float32 Hessians);
+#   eta and theta per document (max over coordinates) where both solves
+#   converged, i.e. the float64 gradient at each one's eta has max |g| <=
+#   ORACLE_G: eta 3.1e-5, 5.7e-5 and 1.2e-5, theta 6.1e-7, 9.4e-7 and
+#   1.9e-7 -> 5e-4 and 1e-5.  A float32 Newton solve stops at max |g| <=
+#   1e-5 or where no Armijo step passes (the float32 floor), so 10
+#   grad_tol, as STALL_G, marks one that got there; a document stopped at
+#   max |g| = 1.7e-4 lay 1.5e-4 from the oracle's eta.  The documents the
+#   port leaves above ORACLE_G (2, 4 and 4 of 256) are counted and
+#   printed, and at most ORACLE_STALL_FRAC of them may be, the slack a
+#   serve has (TEXT_STALL_FRAC).
+ORACLE_BOUND_RTOL = 2e-6
+ORACLE_SS_RTOL = {"beta_ss": 2e-5, "sigma_ss": 1e-4}
+ORACLE_ETA_ATOL = 5e-4
+ORACLE_THETA_ATOL = 1e-5
+ORACLE_G = STALL_G
+ORACLE_STALL_FRAC = TEXT_STALL_FRAC
+
+
+def cpu_name() -> str:
+    """The host CPU as /proc/cpuinfo names it: its model name, with its
+    vendor, family and model numbers where the name is not given, and
+    the count of processors."""
+    info, n = {}, 0
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key, value = key.strip(), value.strip()
+                n += key == "processor"
+                info.setdefault(key, value)
+    except OSError:
+        return "CPU not named (no /proc/cpuinfo)"
+    name = info.get("model name", "unknown")
+    if name in ("", "unknown"):
+        name = (f"model name {name!r}, {info.get('vendor_id', '?')} family "
+                f"{info.get('cpu family', '?')} model {info.get('model', '?')}")
+    return f"{name}, {n} processors"
+
+
+def oracle_inputs(model, docs, n=ORACLE_N):
+    """A fitted model's warm state for its first ``n`` documents, float64
+    on the host: beta, sigma, and each document's mu and eta (the warm
+    start), mapped out of the bucketed storage through the plan."""
+    state = model._whole()
+    rows = model._plan.storage_index[:n]
+
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    return {"docs": docs[:n], "beta": host(state.beta), "sigma": host(state.sigma),
+            "mu": host(state.mu)[rows], "eta": host(state.eta)[rows]}
+
+
+def oracle_estep(ref, st):
+    """reference_numpy.e_step on ``st`` -> (its outputs, seconds)."""
+    t0 = time.perf_counter()
+    beta_ss, sigma_ss, bound, eta, theta = ref.e_step(st["docs"], st["beta"], st["mu"],
+                                                      st["eta"], st["sigma"])
+    sec = time.perf_counter() - t0
+    return {"beta_ss": beta_ss, "sigma_ss": sigma_ss, "bound": float(bound), "eta": eta,
+            "theta": theta}, sec
+
+
+def port_estep(torch, st, device):
+    """The port's E-step on ``st``'s documents and state: a function that
+    runs ``run_estep`` (one chunk, single pass, float32 beta, the default
+    NewtonConfig) and returns its EStepResult."""
+    from strutopy_tpu_torch.corpus.bow import pad_corpus
+    from strutopy_tpu_torch.ops import precompute_sigma, run_estep
+    from strutopy_tpu_torch.ops.estep import NewtonConfig
+
+    corpus = pad_corpus(st["docs"], V=st["beta"].shape[-1])
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+    siginv, sigmaentropy = precompute_sigma(dev(st["sigma"]))
+    args = (dev(st["beta"]), dev(st["mu"]), dev(st["eta"]), siginv, sigmaentropy,
+            dev(corpus.words, torch.int32), dev(corpus.counts),
+            torch.zeros(corpus.N, dtype=torch.int32, device=device),
+            dev(corpus.doc_ok, torch.bool))
+    return lambda: run_estep(*args, NewtonConfig(), corpus.N)
+
+
+def port_outputs(res) -> dict:
+    return {"beta_ss": res.beta_ss.double().cpu().numpy(),
+            "sigma_ss": res.sigma_ss.double().cpu().numpy(),
+            "bound": float(res.bound), "eta": res.eta.double().cpu().numpy(),
+            "theta": res.theta.double().cpu().numpy()}
+
+
+def doc_gmax(ref, st, eta):
+    """max |gradient| of each document's objective at ``eta``, in float64
+    (the oracle's doc_grad, with its siginv)."""
+    Linv = np.linalg.inv(np.linalg.cholesky(st["sigma"]))
+    siginv = Linv.T @ Linv
+    out = np.empty(len(st["docs"]))
+    for i, doc in enumerate(st["docs"]):
+        ids = np.asarray([w for w, _ in doc], np.int64)
+        c = np.asarray([ct for _, ct in doc], np.float64)
+        g = ref.doc_grad(eta[i], c, st["beta"][:, ids], st["mu"][i], siginv)
+        out[i] = np.abs(g).max()
+    return out
+
+
+def oracle_gaps(ref, st, port, oracle) -> dict:
+    """The port's E-step outputs against the oracle's on the same state."""
+    g_port, g_oracle = doc_gmax(ref, st, port["eta"]), doc_gmax(ref, st, oracle["eta"])
+    both = (g_port <= ORACLE_G) & (g_oracle <= ORACLE_G)
+
+    def rel_fro(name):
+        return float(np.linalg.norm(port[name] - oracle[name]) / np.linalg.norm(oracle[name]))
+
+    def per_doc(name):
+        d = np.abs(port[name] - oracle[name]).max(axis=1)[both]
+        return float(d.max()) if d.size else 0.0
+
+    return {"bound": abs(port["bound"] - oracle["bound"]) / abs(oracle["bound"]),
+            "beta_ss": rel_fro("beta_ss"), "sigma_ss": rel_fro("sigma_ss"),
+            "eta": per_doc("eta"), "theta": per_doc("theta"),
+            "port_unconverged": int(np.sum(g_port > ORACLE_G)),
+            "oracle_unconverged": int(np.sum(g_oracle > ORACLE_G)),
+            "compared": int(both.sum()), "n": len(st["docs"])}
+
+
+def judge_oracle(fails, gaps, label):
+    n = gaps["n"]
+    fails.check(gaps["bound"] <= ORACLE_BOUND_RTOL,
+                f"{label}: summed bound within {ORACLE_BOUND_RTOL} relative of the oracle's "
+                f"({gaps['bound']:.3e})")
+    for name, tol in ORACLE_SS_RTOL.items():
+        fails.check(gaps[name] <= tol, f"{label}: {name} within {tol} relative (Frobenius) "
+                    f"of the oracle's ({gaps[name]:.3e})")
+    fails.check(gaps["port_unconverged"] <= math.ceil(ORACLE_STALL_FRAC * n),
+                f"{label}: {gaps['port_unconverged']} of {n} documents left above max|g| "
+                f"{ORACLE_G:g} by the port (oracle: {gaps['oracle_unconverged']}); at most "
+                f"{math.ceil(ORACLE_STALL_FRAC * n)}")
+    fails.check(gaps["eta"] <= ORACLE_ETA_ATOL and gaps["theta"] <= ORACLE_THETA_ATOL,
+                f"{label}: on the {gaps['compared']} documents both converged, eta within "
+                f"{ORACLE_ETA_ATOL} ({gaps['eta']:.3e}) and theta within {ORACLE_THETA_ATOL} "
+                f"({gaps['theta']:.3e}) of the oracle's")
+
+
+def phase_oracle(torch, stages, fails, st, card):
+    """Phase 14: the card's E-step against the float64 oracle on phase 4's
+    warm state, and both one's docs/s (printed, not compared)."""
+    from strutopy_tpu_torch.utils import reference_numpy as ref
+
+    n = len(st["docs"])
+    K, V = st["beta"].shape
+    print(f"phase 14: run_estep on the card against reference_numpy.e_step (float64), "
+          f"{n} documents of phase 4's warm state, K={K} V={V}; {card}")
+    oracle, sec_oracle = oracle_estep(ref, st)
+    print(f"  oracle (serial scipy BFGS, float64): {sec_oracle:.3f} s, "
+          f"{n / sec_oracle:.2f} docs/s on the host's {cpu_name()} [{card}]")
+    call = port_estep(torch, st, "cuda")
+    reset(stages)
+    res = call()
+    torch.cuda.synchronize()
+    launches = {k: stages.LAUNCHES[k] for k in ("fgh", "cg", "ls")}
+    fails.check(all(v > 0 for v in launches.values()),
+                f"phase 14: run_estep launched B1-B3 {launches}")
+    port = port_outputs(res)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    sec_port = float(np.median(secs))
+    print(f"  port (run_estep, float32, B1-B3): {sec_port * 1e3:.3f} ms (median of 3), "
+          f"{n / sec_port:.1f} docs/s on the card [{card}]")
+    gaps = oracle_gaps(ref, st, port, oracle)
+    print(f"  gaps to the oracle: {gaps}")
+    judge_oracle(fails, gaps, "phase 14")
+
+
 def main() -> int:
     import torch
 
@@ -3269,6 +3472,7 @@ def main() -> int:
                 and np.allclose(theta.sum(1), 1, atol=1e-4)
                 and np.allclose(beta.sum(1), 1, atol=1e-4),
                 "theta (N, K) and beta (K, V) finite, rows on the simplex")
+    oracle_state = oracle_inputs(model, docs)
     phase_fused_fit(torch, fails, stages, docs, X, cfg, card)
 
     # ----- phase 5: serving -----
@@ -3310,6 +3514,9 @@ def main() -> int:
     phase_mesh_one(torch, stages, fails, corpus, X, card)
     torch.cuda.empty_cache()
     phase_mesh_two(torch, stages, fails, card)
+
+    # ----- phase 14: the E-step against the float64 oracle -----
+    phase_oracle(torch, stages, fails, oracle_state, card)
 
     print(f"total {time.time() - t_start:.1f} s")
     if fails:

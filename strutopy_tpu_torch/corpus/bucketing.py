@@ -71,6 +71,10 @@ class BucketPlan:
     def n_buckets(self) -> int:
         return len(self.Ls)
 
+    def padded_area(self) -> int:
+        """Total word slots the bucketed E-step processes."""
+        return sum(s * L for s, L in zip(self.sizes, self.Ls))
+
 
 def make_bucket_plan(
     corpus: PaddedCorpus,

@@ -34,6 +34,19 @@ TPU_ONLY = {
     "scan_unroll": 1,
     "chol_block": 0,
 }
+
+
+def refuse_tpu_only(name: str, value) -> None:
+    """Raise unless the TPU-only setting ``name`` has its JAX default
+    (``TPU_ONLY[name]``; None for an argument not in it)."""
+    default = TPU_ONLY.get(name)
+    if value != default:
+        raise ValueError(
+            f"{name}={value!r} is a TPU-only setting; "
+            f"the PyTorch port accepts only {default!r}"
+        )
+
+
 # JAX fields the port accepts in from_json and drops: the stage kernels
 # are the default path here
 STAGE_FLAGS = ("pallas_fgh", "pallas_cg", "pallas_ls")
@@ -134,12 +147,8 @@ class STMConfig:
                 "the two-pass schedule is incompatible with the whole-loop "
                 "kernel (use_pallas); the stage kernels are fine"
             )
-        for name, default in TPU_ONLY.items():
-            if getattr(self, name) != default:
-                raise ValueError(
-                    f"{name}={getattr(self, name)!r} is a TPU-only setting; "
-                    f"the PyTorch port accepts only {default!r}"
-                )
+        for name in TPU_ONLY:
+            refuse_tpu_only(name, getattr(self, name))
         if self.nu_method == "ns":
             raise ValueError(
                 "nu_method='ns' (Newton-Schulz inverse) is a TPU-only setting; "

@@ -37,6 +37,11 @@ class CorpusData:
     doc_ok: Tuple[torch.Tensor, ...]  # each (N_b,) bool
     D: Tuple[torch.Tensor, ...]  # each (N_b, P); zero rows for padding
 
+    @classmethod
+    def single(cls, words, counts, aspects, doc_ok, D) -> "CorpusData":
+        """One length bucket."""
+        return cls((words,), (counts,), (aspects,), (doc_ok,), (D,))
+
     @property
     def n_buckets(self) -> int:
         return len(self.words)
@@ -141,9 +146,9 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
 
 
 def em_iteration(state: STMState, data: CorpusData, design: mstep.PrevalenceDesign,
-                 kappa_design, wcounts, cfg: STMConfig,
+                 kappa_design, wcounts, cfg: STMConfig, psum=None,
                  bucket_batches: Optional[Tuple[int, ...]] = None,
-                 psum=None, vocab: Optional[MeshAxis] = None) -> STMState:
+                 vocab: Optional[MeshAxis] = None) -> STMState:
     """One full EM iteration.
 
     ``psum`` sums this rank's statistics over the document axis (None,

@@ -39,14 +39,28 @@ class STMState:
     straggler_overflow: torch.Tensor
 
 
-def init_state(K: int, V: int, N: int, P: int, beta_init: np.ndarray,
-               device, A: int = 1, content: bool = False,
-               kappa_p: Optional[int] = None, dtype=torch.float32) -> STMState:
-    """Initial state from a (K, V) beta (broadcast to (A, K, V) for a
-    content model): sigma = 20 I, mu = eta = 0, theta uniform, kappa
-    zeros of ``kappa_p`` rows (the kappa design's width; 0 with the LDA
-    beta update)."""
-    beta = torch.as_tensor(np.asarray(beta_init), device=device).to(dtype)
+def init_state(generator: Optional[torch.Generator], K: int, V: int, N: int, P: int,
+               A: int = 1, content: bool = False, beta_init: Optional[np.ndarray] = None,
+               kappa_p: Optional[int] = None, dtype=torch.float32, *,
+               device="cuda") -> STMState:
+    """Initial state (JAX's arguments in JAX's order; ``generator`` takes
+    the place of JAX's PRNG key): sigma = 20 I, mu = eta = 0, theta
+    uniform, kappa zeros of ``kappa_p`` rows (the kappa design's width; 0
+    with the LDA beta update).
+
+    beta is ``beta_init`` (K, V) (broadcast to (A, K, V) for a content
+    model), or, when it is None, rows of Gamma(0.1, 1) draws from
+    ``generator`` normalized to the simplex, as the reference draws them
+    (the bits are torch's, not ``jax.random``'s).
+    """
+    if beta_init is None:
+        if generator is None:
+            raise ValueError("init_state needs a generator to draw beta, or beta_init")
+        alpha = torch.full((K, V), 0.1, dtype=torch.float32, device=generator.device)
+        g = torch._standard_gamma(alpha, generator=generator)
+        beta = (g / torch.sum(g, dim=1, keepdim=True)).to(device=device, dtype=dtype)
+    else:
+        beta = torch.as_tensor(np.asarray(beta_init), device=device).to(dtype)
     if beta.ndim == 3 and not content:
         beta = beta[0]
     if content and beta.ndim == 2:

@@ -30,7 +30,7 @@ from strutopy_tpu_torch.corpus.bucketing import (
     make_bucket_plan,
     split_corpus_by_plan,
 )
-from strutopy_tpu_torch.models.config import STMConfig
+from strutopy_tpu_torch.models.config import STMConfig, refuse_tpu_only
 from strutopy_tpu_torch.models.em import CorpusData, make_em_step
 from strutopy_tpu_torch.models.state import init_state
 from strutopy_tpu_torch.ops import mstep
@@ -265,7 +265,7 @@ class STM:
 
         dev = self.device
         self._set_state(init_state(
-            K=config.K, V=self.V, N=plan.n_storage, P=self._D_np.shape[1],
+            None, K=config.K, V=self.V, N=plan.n_storage, P=self._D_np.shape[1],
             beta_init=beta_init, device=dev, A=config.A, content=config.content,
             # kappa keeps the actual design width across EM iterations
             kappa_p=(self._kappa_design.shape[1]
@@ -449,7 +449,7 @@ class STM:
                 "all produce the same model"
             )
         self._set_state(init_state(
-            K=cfg.K, V=self.V, N=self._plan.n_storage, P=self._D_np.shape[1],
+            None, K=cfg.K, V=self.V, N=self._plan.n_storage, P=self._D_np.shape[1],
             beta_init=self._random_beta(seed), device=self.device, A=cfg.A,
             content=cfg.content, kappa_p=self._state.kappa.shape[0],
         ))
@@ -469,9 +469,11 @@ class STM:
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 5,
         resume: bool = False,
+        profile_dir: Optional[str] = None,
         start_iter: int = 0,
     ):
-        """Run EM until convergence or ``config.max_em_iter``.
+        """Run EM until convergence or ``config.max_em_iter`` (JAX's
+        arguments in JAX's order).
 
         Each iteration's wall time (ending in a device synchronize) is
         kept in ``iter_seconds``; a non-finite bound is recorded in
@@ -483,10 +485,13 @@ class STM:
         partial fit in place (the state and ``last_bounds`` carry over):
         iterations run from ``start_iter`` to ``config.max_em_iter``.
         ``saving`` writes the artifact set to ``output_dir`` at the end.
+        ``profile_dir`` (JAX's ``jax.profiler`` trace) is TPU-only: any
+        value but None raises; ``profile_torch.py`` profiles the port.
 
         Under a mesh every rank calls it: a checkpoint is gathered on every
         rank and written by the first, and every rank resumes from it.
         """
+        refuse_tpu_only("profile_dir", profile_dir)
         cfg = self.config
         if resume and checkpoint_path and os.path.exists(checkpoint_path):
             state, self.last_bounds, start_iter, _ = load_checkpoint(

@@ -243,7 +243,7 @@ class StreamedEM:
         beta0 = np.full((K, V), 1.0 / V, np.float32)
         states: List[STMState] = []
         for _ in range(self.n_parts):
-            s = init_state(K=K, V=V, N=n, P=P, beta_init=beta0, device=self.device)
+            s = init_state(None, K=K, V=V, N=n, P=P, beta_init=beta0, device=self.device)
             states.append(dataclasses.replace(s, beta=states[0].beta) if states else s)
         return states
 

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from strutopy_tpu_torch.models.config import refuse_tpu_only
 from strutopy_tpu_torch.ops import stages
 from strutopy_tpu_torch.ops.linalg import cholesky_checked, make_pd
 from strutopy_tpu_torch.parallel.mesh import MeshAxis, all_sum
@@ -458,10 +459,12 @@ def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, a
 
 def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok,
               cfg: NewtonConfig = NewtonConfig(), batch_size: int = 1024,
-              pass1_iters: int = 0, straggler_frac: float = 0.3,
-              use_pallas: bool = False, fused_finalize: bool = False,
-              vocab: Optional[MeshAxis] = None) -> EStepResult:
-    """E-step over a corpus (twin of ``strutopy_tpu/ops/estep.py::run_estep``).
+              use_pallas: bool = False, pallas_block: Optional[int] = None,
+              vocab: Optional[MeshAxis] = None, pass1_iters: int = 0,
+              straggler_frac: float = 0.3, scan_unroll: int = 1,
+              fused_finalize: bool = False) -> EStepResult:
+    """E-step over a corpus (twin of ``strutopy_tpu/ops/estep.py::run_estep``,
+    its arguments in the same order).
 
     Args:
       beta: (K, V) topic-word distributions, or (A, K, V) for a content
@@ -475,6 +478,8 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_
       pass1_iters: > 0 enables the two-pass schedule.
       use_pallas: the whole Newton loop of a chunk as one kernel
         (``stages.newton_loop``); incompatible with ``pass1_iters``.
+      pallas_block, scan_unroll: TPU-only (JAX's whole-loop kernel's
+        block and its scan's unroll); any value but JAX's default raises.
       fused_finalize: with the two-pass schedule, finalize inside passes 1
         and 2 (:func:`_two_pass_fused_estep`), without pass 3's re-gather.
         No-op when ``pass1_iters`` is 0 or leaves no pass-2 budget.
@@ -484,6 +489,9 @@ def run_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_
         loops, the straggler budget and the overflow sweep take the same
         branches on each and the per-chunk all-reduces pair up.
     """
+    if pallas_block is not None:
+        refuse_tpu_only("pallas_block", pallas_block)
+    refuse_tpu_only("scan_unroll", scan_unroll)
     N = words.shape[0]
     B = min(batch_size, N)
     if N % B != 0:

@@ -59,6 +59,13 @@ def chol_pd(H: torch.Tensor, jitter: float = 1e-5) -> torch.Tensor:
     return L3 if bool(ok3) else torch.full_like(L3, float("nan"))
 
 
+def cho_inverse(L: torch.Tensor) -> torch.Tensor:
+    """Inverse from a lower Cholesky factor, ``(L Lᵀ)⁻¹``, batched over
+    leading axes.  This is the reference's optimize_nu: nu is the inverse
+    of the (repaired) Hessian."""
+    return torch.cholesky_inverse(L)
+
+
 def precompute_sigma(sigma: torch.Tensor, jitter: float = 1e-5):
     """Per-EM-iteration sigma factorization.
 
@@ -67,7 +74,7 @@ def precompute_sigma(sigma: torch.Tensor, jitter: float = 1e-5):
     """
     L = chol_pd(sigma, jitter=jitter)
     sigmaentropy = torch.sum(torch.log(torch.diagonal(L)))
-    siginv = torch.cholesky_inverse(L)  # (L Lᵀ)⁻¹, the JAX cho_inverse
+    siginv = cho_inverse(L)
     # symmetrize; LAPACK hands back column-major strides, and the stage
     # kernels take row-major contiguous input
     siginv = (0.5 * (siginv + siginv.T)).contiguous()

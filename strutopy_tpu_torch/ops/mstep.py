@@ -129,16 +129,24 @@ def make_prevalence_design(
     X: Optional[np.ndarray],
     doc_ok: np.ndarray,
     fit_intercept: bool = True,
+    dtype=np.float32,
     ridge_alpha: float = 0.1,
+    *,
     device="cuda",
 ):
-    """Returns (D (N, P) float32 numpy, PrevalenceDesign on ``device``, the
-    card unless the caller asks for the CPU, as every entry point).
+    """Returns (D (N, P) numpy, PrevalenceDesign on ``device``, the card
+    unless the caller asks for the CPU, as every entry point).
 
-    The OLS pseudoinverse and the ridge inverse of the normal equations
-    are computed here in float64 (rcond matched to the float32 moments,
-    as in the JAX twin).
+    ``dtype`` (float32 or float64, numpy's or torch's) is that of D and
+    of the design's tensors.  The OLS pseudoinverse and the ridge inverse
+    of the normal equations are computed here in float64 (rcond matched
+    to the float32 moments, as in the JAX twin).
     """
+    if isinstance(dtype, torch.dtype):
+        dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    np_dtype = np.dtype(dtype)
+    if np_dtype not in (np.float32, np.float64):
+        raise ValueError(f"dtype must be float32 or float64, got {dtype!r}")
     D = build_design(X, doc_ok, fit_intercept=fit_intercept)
     P = D.shape[1]
     pen = np.ones(P)
@@ -147,7 +155,7 @@ def make_prevalence_design(
     DtD = D.T @ D
 
     def dev(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return torch.as_tensor(np.asarray(a, np_dtype), device=device)
 
     design = PrevalenceDesign(
         DtD=dev(DtD),
@@ -157,7 +165,7 @@ def make_prevalence_design(
         inv_ridge=dev(np.linalg.inv(DtD + ridge_alpha * np.diag(pen))),
         built_ridge_alpha=float(ridge_alpha),
     )
-    return D.astype(np.float32), design
+    return D.astype(np_dtype), design
 
 
 def eta_moments(D: torch.Tensor, eta: torch.Tensor) -> EtaMoments:
@@ -418,10 +426,10 @@ def update_beta_content(
     iters: int = 40,
     kappa0=None,  # (P, V) warm start (the previous EM iteration's kappa)
     tol: float = 1e-6,
-    ftol_rel: float = 0.0,
     vocab_psum=None,  # sum over the vocab axis (beta_ss a block of words)
     vocab_pmax=None,  # max over the vocab axis
     wcounts_total=None,  # the sum of the FULL vocabulary's word counts
+    ftol_rel: float = 0.0,
 ):
     """Content model: V parallel Poisson regressions -> (beta, kappa).
 

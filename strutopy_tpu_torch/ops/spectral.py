@@ -242,8 +242,8 @@ def spectral_init(
     maxV: int = 5000,
     verbose: bool = False,
     dtype=torch.float32,
-    gram_norm: str = "none",
     mesh=None,
+    gram_norm: str = "none",
     *,
     device="cuda",
 ) -> np.ndarray:
@@ -253,10 +253,10 @@ def spectral_init(
     filter, Gram matrix, greedy anchors, L2 recovery, re-expansion with a
     ``0.001/V`` pseudocount.  The three device stages run on ``device``.
 
+    ``mesh``: a 1-D document mesh to shard the Gram scan over (every
+    rank calls with the whole corpus; see :func:`_gram_scan_sharded`).
     ``gram_norm``: row normalization of Q — ``"none"`` (default),
-    ``"l1"`` or ``"l2"``; see :func:`_gram_finish`.  ``mesh``: a 1-D
-    document mesh to shard the Gram scan over (every rank calls with the
-    whole corpus; see :func:`_gram_scan_sharded`).
+    ``"l1"`` or ``"l2"``; see :func:`_gram_finish`.
     """
     if not isinstance(corpus, PaddedCorpus):
         corpus = pad_corpus(corpus, V=V)

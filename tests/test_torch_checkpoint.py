@@ -13,6 +13,17 @@ from strutopy_tpu_torch import STM
 from strutopy_tpu_torch.dgp import CorpusCreation
 from strutopy_tpu_torch.utils import checkpoint
 from strutopy_tpu_torch.utils.convert import state_to_numpy
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 K = 3
 

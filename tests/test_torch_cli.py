@@ -22,6 +22,17 @@ import pytest
 from strutopy_tpu import cli as jax_cli
 from strutopy_tpu_torch import cli
 from strutopy_tpu_torch.corpus.io import write_mm
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SYNTH = ["synth", "--K", "3", "--n-corpora", "1", "--n-docs", "40", "--n-words", "50",

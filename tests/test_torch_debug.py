@@ -17,6 +17,17 @@ from strutopy_tpu_torch import STM, STMConfig
 from strutopy_tpu_torch.models import stm as stm_module
 from strutopy_tpu_torch.utils.convert import state_from_numpy
 from strutopy_tpu_torch.utils.debug import NumericalCheckError, validate_state
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 K, V, N = 4, 12, 6
 

@@ -30,6 +30,17 @@ from strutopy_tpu_torch.models import em
 from strutopy_tpu_torch.models.config import TPU_ONLY
 from strutopy_tpu_torch.ops import mstep
 from strutopy_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 STAGE_KERNELS = dict(pallas_fgh=True, pallas_cg=True, pallas_ls=True)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -12,6 +12,17 @@ from strutopy_tpu.ops import estep as jax_estep
 from strutopy_tpu.ops.linalg import precompute_sigma as jax_precompute_sigma
 from strutopy_tpu_torch.ops import estep, stages
 from strutopy_tpu_torch.ops.linalg import precompute_sigma
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 STAGE_KERNELS = dict(pallas_fgh=True, pallas_cg=True, pallas_ls=True)
 

@@ -19,6 +19,17 @@ from strutopy_tpu.models.stm import STM as JaxSTM
 from strutopy_tpu_torch import STM, CorpusCreation
 from strutopy_tpu_torch.corpus.bow import pad_corpus
 from strutopy_tpu_torch.utils.convert import state_from_numpy
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ("diagnostics", "residuals", "align", "predict", "graph", "ldavis", "plots",

@@ -24,6 +24,17 @@ from strutopy_tpu_torch.dgp import CorpusCreation
 from strutopy_tpu_torch.eval import (cut_in_half, eval_heldout, eval_heldout_torch,
                                      perplexity, split_corpus)
 from strutopy_tpu_torch.ops import design
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 K = 4
 

@@ -12,6 +12,17 @@ import torch
 from strutopy_tpu.ops import estep as jax_estep
 from strutopy_tpu.ops import linalg as jax_linalg
 from strutopy_tpu_torch.ops import estep, linalg, stages
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "nan_bisect_H.npz")
 

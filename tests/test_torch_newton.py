@@ -20,6 +20,17 @@ from strutopy_tpu.ops.pallas_stages import pallas_gather_beta, pallas_iter_impl
 from strutopy_tpu_torch.models.config import STMConfig
 from strutopy_tpu_torch.ops import estep, stages
 from strutopy_tpu_torch.ops.linalg import precompute_sigma
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 NEW = ("iter", "newton", "gather")
 

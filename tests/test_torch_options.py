@@ -27,6 +27,17 @@ from strutopy_tpu_torch import STM, STMConfig, ThetaServer
 from strutopy_tpu_torch.ops import estep, stages
 from strutopy_tpu_torch.ops.linalg import precompute_sigma
 from test_torch_estep import STAGE_KERNELS, _check_iters, _corpus
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 BF16 = torch.bfloat16
 OPTIONS = dict(two_pass_fused=True, newton_bf16_beta=True)

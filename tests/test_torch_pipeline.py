@@ -21,6 +21,17 @@ from strutopy_tpu_torch import STM, STMConfig, StreamedEM, pipeline
 from strutopy_tpu_torch.corpus.bow import pad_corpus
 from strutopy_tpu_torch.ops import mstep
 from strutopy_tpu_torch.utils.chunk_it import chunkIt, chunk_it
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 ARTIFACTS = {"beta_hat.npy", "theta_hat.npy", "sigma_hat.npy", "eta_hat.npy", "mu_hat.npy",
              "gamma_hat.npy", "X.npy", "lower_bound.pickle", "fit_health.json",

@@ -21,6 +21,17 @@ from strutopy_tpu_torch.ops import mstep
 from strutopy_tpu_torch.ops.spectral import spectral_init
 from strutopy_tpu_torch.pipeline import train_and_eval_heldout
 from strutopy_tpu_torch.utils.precision import float32_matmul
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -28,6 +28,17 @@ from strutopy_tpu_torch.corpus.io import load_model_artifacts
 from strutopy_tpu_torch.ops import stages
 from strutopy_tpu_torch.ops.estep import _gather_beta
 from strutopy_tpu_torch.ops.linalg import precompute_sigma
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 # the JAX Newton body on its Pallas stage kernels (interpret mode on the
 # CPU): the semantics the port's kernels carry (ROADMAP Queue C)

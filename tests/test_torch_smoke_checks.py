@@ -20,6 +20,16 @@ from strutopy_tpu.ops.pallas_stages import (
     pallas_linesearch_impl,
 )
 from strutopy_tpu_torch.ops import stages
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
 
 
 def _chunk(bf16, K=13, B=16, L=128, seed=5):

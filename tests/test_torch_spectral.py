@@ -27,6 +27,17 @@ from strutopy_tpu_torch import STM
 from strutopy_tpu_torch.corpus.bow import pad_corpus
 from strutopy_tpu_torch.dgp.corpus_creation import CorpusCreation
 from strutopy_tpu_torch.ops import spectral
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 K = 5
 

@@ -29,6 +29,17 @@ from strutopy_tpu_torch.models.serving import _prior_means
 from strutopy_tpu_torch.ops import stages
 from strutopy_tpu_torch.ops.estep import _gather_beta
 from strutopy_tpu_torch.ops.linalg import precompute_sigma
+from torch_world import one_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_on_one_thread():
+    """torch's CPU ops on one thread for every test of this file and its
+    fixtures (tests/torch_world.py::one_thread): under parallel test
+    workers a toy fit on torch's default pool waits on busy cores."""
+    with one_thread():
+        yield
+
 
 # tests/test_text_prep_extras.py's classic Porter cases
 PORTER_CASES = {
