@@ -154,7 +154,19 @@ end, without the final result line):
      host: the summed bound, beta_ss and sigma_ss (relative Frobenius),
      eta and theta per document where both solves converged, the
      documents either leaves unconverged counted; the oracle's docs/s on
-     the host's CPU and the port's on the card printed.
+     the host's CPU and the port's on the card printed;
+ 15. the bench entry point: ``python -m strutopy_tpu_torch.cli bench`` in a
+     subprocess whose working directory is a temporary directory outside
+     the checkout, so the CLI must find bench_torch.py from the package
+     (5 two-pass warm-up EM iterations of bench.py's configuration, then
+     ``local_estep_stats`` timed 5 times, and the float64 oracle's docs/s
+     on the host's CPU, measured unless cached for this CPU): return code
+     0, standard output exactly one JSON line with bench.py's four keys,
+     value and vs_baseline finite and positive, vs_baseline the value over
+     the baseline printed on standard error, B1-B3 launched in the timed
+     calls, the baseline cache written with the configuration and the
+     CPU's name.  The headline is not compared with phase 4 or 14: its
+     beta is torch's draw, and phase 14 times one chunk.
 
 The last three lines of standard output are the card line, one JSON
 object of per-kernel results, and ``{"ok": true, "device": {...}}``.
@@ -167,13 +179,18 @@ import hashlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-K_BENCH, V_BENCH, N_BENCH, WORDS_BENCH = 100, 10_000, 8_192, 300
+import bench_torch
+from bench_torch import card_line, cpu_name, make_corpus
+
+K_BENCH, V_BENCH, N_BENCH, WORDS_BENCH = (bench_torch.K, bench_torch.V, bench_torch.N,
+                                          bench_torch.N_WORDS)
 REPLACES = {
     "fgh": "strutopy_tpu/ops/pallas_stages.py:52",
     "cg": "strutopy_tpu/ops/pallas_stages.py:172",
@@ -222,35 +239,9 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may opt in to
 
 
-def make_corpus(K, V, N, n_words, seed=0, return_beta=False):
-    """bench.py's synthetic STM-DGP corpus recipe (bench.py:38-55); with
-    ``return_beta`` also the true beta (K, V) the documents come from."""
-    rng = np.random.default_rng(seed)
-    beta_true = rng.dirichlet(np.full(V, 0.05), size=K)
-    eta_true = rng.normal(0.0, 1.0, (N, K - 1))
-    eta_full = np.concatenate([eta_true, np.zeros((N, 1))], axis=1)
-    theta = np.exp(eta_full - eta_full.max(axis=1, keepdims=True))
-    theta /= theta.sum(axis=1, keepdims=True)
-    X = rng.integers(0, 2, N).astype(np.float64)
-    p = theta @ beta_true
-    docs = []
-    for d in range(N):
-        draw = rng.multinomial(n_words, p[d])
-        ids = np.nonzero(draw)[0]
-        docs.append(list(zip(ids.tolist(), draw[ids].tolist())))
-    return (docs, X, beta_true) if return_beta else (docs, X)
-
-
 def random_beta(K, V, seed):
     g = np.random.RandomState(seed).gamma(0.1, 1.0, (K, V))
     return g / np.maximum(g.sum(axis=1, keepdims=True), 1e-300)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip()
 
 
 CARD = ""  # the card line, set by main()
@@ -3239,27 +3230,6 @@ ORACLE_G = STALL_G
 ORACLE_STALL_FRAC = TEXT_STALL_FRAC
 
 
-def cpu_name() -> str:
-    """The host CPU as /proc/cpuinfo names it: its model name, with its
-    vendor, family and model numbers where the name is not given, and
-    the count of processors."""
-    info, n = {}, 0
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                key, _, value = line.partition(":")
-                key, value = key.strip(), value.strip()
-                n += key == "processor"
-                info.setdefault(key, value)
-    except OSError:
-        return "CPU not named (no /proc/cpuinfo)"
-    name = info.get("model name", "unknown")
-    if name in ("", "unknown"):
-        name = (f"model name {name!r}, {info.get('vendor_id', '?')} family "
-                f"{info.get('cpu family', '?')} model {info.get('model', '?')}")
-    return f"{name}, {n} processors"
-
-
 def oracle_inputs(model, docs, n=ORACLE_N):
     """A fitted model's warm state for its first ``n`` documents, float64
     on the host: beta, sigma, and each document's mu and eta (the warm
@@ -3398,6 +3368,103 @@ def phase_oracle(torch, stages, fails, st, card):
     judge_oracle(fails, gaps, "phase 14")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the bench entry point on the card
+# ---------------------------------------------------------------------------
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}  # bench.py's result line
+BENCH_BASELINE = re.compile(r"^baseline: (\S+) docs/s on (.+) \((from the cache|measured), ",
+                            re.M)
+BENCH_LAUNCHES = re.compile(r"^launches during the timed calls: (\{.*\})$", re.M)
+BENCH_TIMEOUT = 600  # s; the run takes about a minute, the oracle's 4 e_steps most of it
+
+
+def bench_figures(err: str) -> dict:
+    """The figures phase 15 reads from bench_torch.py's standard error:
+    the baseline's docs/s, its CPU, whether it came from the cache, and
+    B1-B3's launches during the timed calls (None where a line is missing)."""
+    base, launches = BENCH_BASELINE.search(err), BENCH_LAUNCHES.search(err)
+    return {"baseline": float(base.group(1)) if base else None,
+            "cpu": base.group(2) if base else None,
+            "cached": base.group(3) == "from the cache" if base else None,
+            "launches": json.loads(launches.group(1)) if launches else None}
+
+
+def check_bench(fails, rc, out, err, cache, cpu):
+    """Phase 15's checks on one run of the bench entry point: its return
+    code; its standard output exactly one line, JSON with bench.py's four
+    keys and no others, a finite positive value and ratio; the ratio the
+    value over the baseline on its standard error to within the rounding
+    of both; B1-B3 launched in the timed calls; ``cache`` (the baseline
+    cache's JSON after the run, or None) holding the configuration, the
+    host CPU's name ``cpu`` and that baseline.  Returns the headline."""
+    fails.check(rc == 0, f"phase 15: bench exits with 0 (rc {rc})")
+    lines = out.splitlines()
+    fails.check(len(lines) == 1, f"phase 15: standard output is one line ({len(lines)})")
+    try:
+        head = json.loads(lines[0]) if lines else {}
+    except json.JSONDecodeError:
+        head = {}
+    head = head if isinstance(head, dict) else {}
+    fails.check(set(head) == BENCH_KEYS,
+                f"phase 15: the line is JSON with the keys {sorted(BENCH_KEYS)}: {lines[:1]}")
+    fails.check(head.get("metric") == bench_torch.METRIC and head.get("unit") == "docs/s",
+                f"phase 15: metric {head.get('metric')!r}, unit {head.get('unit')!r}")
+    value, ratio = head.get("value"), head.get("vs_baseline")
+    finite = all(isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+                 for x in (value, ratio))
+    fails.check(finite, f"phase 15: value {value} and vs_baseline {ratio} finite and > 0")
+    fig = bench_figures(err)
+    base = fig["baseline"]
+    # value is rounded to 0.1 docs/s and vs_baseline to 0.01
+    fails.check(finite and base is not None and base > 0
+                and abs(ratio - value / base) <= 0.005 + 0.05 / base + 1e-9,
+                f"phase 15: vs_baseline {ratio} is value / baseline ({value} / {base}) to "
+                f"within the rounding")
+    launches = fig["launches"] or {}
+    fails.check(all(launches.get(k, 0) > 0 for k in bench_torch.NEWTON_KERNELS),
+                f"phase 15: B1-B3 launched in the timed calls {launches}")
+    cache = cache or {}
+    want = [bench_torch.K, bench_torch.V, bench_torch.N_WORDS]
+    fails.check(cache.get("config") == want and cache.get("cpu") == cpu
+                and cache.get("docs_per_sec") == base,
+                f"phase 15: the baseline cache holds config {cache.get('config')} (want {want}), "
+                f"CPU {cache.get('cpu')!r} (want {cpu!r}) and {cache.get('docs_per_sec')} docs/s")
+    return head
+
+
+def phase_bench(fails, card):
+    """Phase 15: ``python -m strutopy_tpu_torch.cli bench`` in a subprocess
+    whose working directory is a temporary directory outside the
+    checkout (the CLI finds bench_torch.py from the package), on the
+    kernels phase 1 built."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    print(f"phase 15: python -m strutopy_tpu_torch.cli bench, from a temporary directory; {card}")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            proc = subprocess.run([sys.executable, "-m", "strutopy_tpu_torch.cli", "bench"],
+                                  cwd=work, env=env, capture_output=True, text=True,
+                                  timeout=BENCH_TIMEOUT)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = "timeout", e.stdout or "", e.stderr or ""
+            out, err = (x.decode() if isinstance(x, bytes) else x for x in (out, err))
+    sec = time.time() - t0
+    for line in err.strip().splitlines()[-20:]:
+        print(f"  bench: {line} [{card}]")
+    cache = None
+    if os.path.exists(bench_torch.BASELINE_PATH):
+        with open(bench_torch.BASELINE_PATH) as f:
+            cache = json.load(f)
+    head = check_bench(fails, rc, out, err, cache, cpu_name())
+    print(f"  headline: {json.dumps(head)} [{card}]; the run took {sec:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3517,6 +3584,9 @@ def main() -> int:
 
     # ----- phase 14: the E-step against the float64 oracle -----
     phase_oracle(torch, stages, fails, oracle_state, card)
+
+    # ----- phase 15: the bench entry point -----
+    phase_bench(fails, card)
 
     print(f"total {time.time() - t_start:.1f} s")
     if fails:

@@ -18,8 +18,11 @@ processes started by torchrun, one a device::
 
 Each rank joins the process group from torchrun's environment (NCCL for
 ``--device cuda``, each rank on card ``LOCAL_RANK``; gloo for ``cpu``);
-only rank 0 prints results and writes files.  ``bench`` exits with an
-error: the port's benchmark is ROADMAP.md Queue A item 1.
+only rank 0 prints results and writes files.  ``bench`` runs the
+port's headline benchmark, ``bench_torch.py`` beside the package (found
+from the package's location, not the working directory), on one device::
+
+    python -m strutopy_tpu_torch.cli bench
 """
 
 from __future__ import annotations
@@ -86,6 +89,20 @@ def _mesh_from_args(args):
     args.own_group = not dist.is_initialized()
     dev = init_from_env("nccl" if args.device == "cuda" else "gloo", args.device)
     return make_mesh(n), str(dev)
+
+
+def _bench(args):
+    """Run bench_torch.py (at the root of the checkout that holds this
+    package) on ``--device`` in a new interpreter; exit with its code."""
+    if args.n_devices > 1:
+        raise SystemExit(f"bench runs on one device, as bench.py does; "
+                         f"--n-devices {args.n_devices} is refused")
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = Path(__file__).resolve().parents[1] / "bench_torch.py"
+    sys.exit(subprocess.call([sys.executable, str(script), "--device", args.device]))
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -180,13 +197,17 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--X", type=str, default=None, help="covariates .npy for the new docs")
     p.add_argument("--out", type=str, required=True, help="output theta .npy")
 
-    sub.add_parser("bench", help="the port's benchmark (not written yet)")
+    p = sub.add_parser("bench", help="run the E-step throughput benchmark "
+                       "(bench_torch.py, one device)")
+    _add_mesh_arg(p)
     return ap
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = _build_parser().parse_args(argv)
+    if args.cmd == "bench":
+        _bench(args)
     mesh, dev = _mesh_from_args(args)
     from strutopy_tpu_torch.parallel.mesh import is_first
 
@@ -343,11 +364,6 @@ def main(argv=None):
         np.save(args.out, theta)
         print(f"wrote theta {theta.shape} to {args.out}")
 
-    elif args.cmd == "bench":
-        raise SystemExit(
-            "bench: the port has no benchmark yet (ROADMAP.md Queue A item 1); "
-            "chip_smoke.py checks and times the port on the card"
-        )
     if mesh is not None and args.own_group:
         import torch.distributed as dist
 

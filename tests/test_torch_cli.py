@@ -164,16 +164,32 @@ def test_infer_matches_the_jax_cli(walk, tmp_path, source):
 @pytest.mark.parametrize("argv", [["bench"], ["fit", "--corpus", "c.pickle", "--K", "3",
                                               "--out", "x", "--n-devices", "2"]])
 def test_bench_and_several_devices_exit_non_zero(argv, monkeypatch):
-    """``bench`` exits naming its Queue A item; ``--n-devices 2`` without
-    torchrun's environment exits naming torchrun and both counts (the
-    mesh runs under torchrun: tests/test_torch_parallel.py)."""
+    """``bench`` runs bench_torch.py by its absolute path with the CLI's
+    ``--device`` and exits with the script's code, so a failing script
+    gives a non-zero exit, and ``bench --n-devices 2`` exits non-zero
+    (bench runs on one device); ``--n-devices 2`` without torchrun's
+    environment exits naming torchrun and both counts (the mesh runs
+    under torchrun: tests/test_torch_parallel.py)."""
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
+    calls = []
+
+    def call(cmd):
+        calls.append(cmd)
+        return 3
+
+    monkeypatch.setattr(subprocess, "call", call)
     with pytest.raises(SystemExit) as e:
         cli.main(["--device", "cpu"] + argv)
     assert e.value.code not in (0, None)
     if argv[0] == "bench":
-        assert "Queue A item" in str(e.value.code)
+        assert e.value.code == 3
+        assert calls == [[sys.executable, str(ROOT / "bench_torch.py"), "--device", "cpu"]]
+        assert os.path.isabs(calls[0][1])
+        with pytest.raises(SystemExit) as e:
+            cli.main(["--device", "cpu", "bench", "--n-devices", "2"])
+        assert e.value.code not in (0, None) and "one device" in str(e.value.code)
+        assert len(calls) == 1
     else:
         msg = str(e.value.code)
         assert "torchrun" in msg and "--n-devices 2" in msg and "world of 1" in msg, msg
@@ -220,6 +236,7 @@ def test_every_subcommand_runs_where_jax_cannot_be_imported(tmp_path):
 
 def test_the_port_imports_nothing_of_jax():
     pattern = re.compile(r"^\s*(import|from) (jax|strutopy_tpu)\b", re.M)
-    files = sorted((ROOT / "strutopy_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "strutopy_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                   ROOT / "bench_torch.py"]
     assert len(files) > 40
     assert [str(f) for f in files if pattern.search(f.read_text())] == []
