@@ -159,8 +159,8 @@ def time_estep(state, data, cfg, repeats=REPEATS):
     compile call), then ``repeats`` timed calls from the same state (the
     function is pure), each wall ending when the bound is read to the
     host.  Returns a dict: docs_per_sec (N / median wall), walls, bounds,
-    bound_gap (the largest relative gap between the calls' bounds:
-    ``index_add_``'s atomics may move their last bits) and the launches
+    bound_gap (the largest relative gap between the calls' bounds: 0,
+    the E-step being a function of its inputs) and the launches
     of B1-B3 during the timed calls."""
     from strutopy_tpu_torch.models.em import local_estep_stats
     from strutopy_tpu_torch.ops import stages

@@ -486,10 +486,11 @@ def fit():
             "bounds": list(m.last_bounds), "gc_over_10ms": long}
 
 def two_loops(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects, doc_ok, cfg, B,
-              use_pallas):
-    eta, iters = estep._newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B)[:2]
+              use_pallas, vocab=None):
+    eta, iters = estep._newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B,
+                                   vocab=vocab)[:2]
     if "acc" in inspect.signature(estep._finalize_all).parameters:  # sums into an accumulator
-        acc = estep._StatsSum(beta)
+        acc = estep._StatsSum(beta, vocab)
         theta = estep._finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts,
                                     aspects, doc_ok, B)
         beta_ss, sigma_ss, bound = acc.beta_ss, acc.sigma_ss, acc.bound

@@ -44,6 +44,8 @@ GROUPS = (
     ("Cholesky / cholesky_inverse", ("potrf", "trsm", "magma", "cholesky", "zdisplace",
                                      "syrk", "trmm", "lauum", "cusolver")),
     ("gemm / bmm (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas")),
+    ("ordered phi scatter", ("scatter_phi_kernel",)),
+    ("sorts, searchsorted (the scatter's plan, the straggler budget)", ("sort", "searchsorted")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
     ("reductions", ("reduce_kernel",)),
 )

@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels (``csrc/stages.cu``, ``csrc/newton.cu``).
+"""Build and load the CUDA kernels (``csrc/stages.cu``, ``csrc/newton.cu``,
+``csrc/scatter.cu``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface and loaded with ``ctypes``.  The build
@@ -25,7 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "stages.cu", CSRC / "newton.cu")
+SOURCES = (CSRC / "stages.cu", CSRC / "newton.cu", CSRC / "scatter.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "stm_iter": [_P] * 11 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "stm_newton": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "stm_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
+    "stm_scatter_phi": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

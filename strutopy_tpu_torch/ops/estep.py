@@ -22,6 +22,9 @@ accumulated as
 
     sigma_ss += nu        beta_ss[(a_d,) :, w_d] += phi_d      bound += bound_d
 
+the phi scatter in a fixed order (``stages.scatter_phi``, a kernel on the
+card), so the statistics, and the fit, are a function of the inputs.
+
 Documents go through in chunks of ``batch_size``, in one pass or in the
 two-pass straggler schedule, whose finalize either re-gathers beta_doc
 in a third pass or rides passes 1 and 2 (``fused_finalize``).  With
@@ -180,7 +183,8 @@ def _chol_pd_batched(H, jitter: float = 1e-5, rel_jitter: float = 1e-3):
 
 def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd):
     """Per-document theta, nu, bound and phi at the converged eta, all
-    float32 (reference lower_bound / optimize_nu)."""
+    float32 (reference lower_bound / optimize_nu).  phi is (B, K, L) with
+    (B, L, K) memory, the layout :func:`_scatter_phi` reads."""
     _f, _g, H, theta, phi_hat = stages.f_g_H_batched(
         eta, beta_doc, counts, mu, siginv, Nd, bf16=False)
     L, _rung = _chol_pd_batched(H)
@@ -198,10 +202,14 @@ def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd):
     quad = 0.5 * torch.sum((diff @ siginv) * diff, dim=1)
     bound = loglik + detTerm - quad - sigmaentropy
 
-    phi = phi_hat * counts[:, None, :]
+    # phi (B, K, L) laid out entry-major, (B, L, K) in memory: the rows the
+    # ordered scatter reads (one slot's K values contiguous)
+    B, K, L = phi_hat.shape
+    phi = torch.empty(B, L, K, dtype=phi_hat.dtype, device=phi_hat.device).transpose(1, 2)
+    torch.mul(phi_hat, counts[:, None, :], out=phi)
     nu = doc_w[:, None, None] * nu
     bound = doc_w * bound
-    phi = doc_w[:, None, None] * phi
+    phi.mul_(doc_w[:, None, None])
     return theta, nu, bound, phi
 
 
@@ -245,27 +253,40 @@ def _gather_beta(beta, words, aspects=None, vocab: Optional[MeshAxis] = None):
     return bd
 
 
-def _scatter_phi(beta_ss, phi, words, aspects=None, vocab: Optional[MeshAxis] = None):
-    """beta_ss[(aspect,) :, words] += phi for a whole chunk (in place).
-    Padding slots carry phi = 0 (zero counts), so they add nothing.  The
-    aspect case adds into the (K, A·V) layout at column ``aspect·V +
-    word``, as the JAX package does.  With ``vocab``, beta_ss is this
-    rank's block of words and only the words it owns are added, with no
-    collective."""
+def _scatter_phi(beta_ss, phi, words, aspects=None, vocab: Optional[MeshAxis] = None,
+                 counts=None):
+    """beta_ss[(aspect,) :, words] += phi for a whole chunk (in place), in
+    a fixed order on every device: each key (the word; ``aspect·V + word``
+    in a content model's (A, K, V) beta_ss; with ``vocab``, the word's id in
+    this rank's block) takes its entries' phi one at a time in ascending
+    flat position b·L + l, the order of the JAX package's XLA scatter, bit
+    for bit (:func:`~strutopy_tpu_torch.ops.stages.scatter_phi`, a kernel
+    on the card).  So the statistics are a function of (phi, words,
+    aspects), whatever the device or the run.
+
+    Entries that carry phi = +0 by construction are left out, which changes
+    no bit of a column that holds no -0: slots with ``counts`` 0 (phi =
+    phi_hat · counts; all slots count when ``counts`` is None) and, with
+    ``vocab``, the words another rank owns (only the words this rank owns
+    are added, with no collective).  phi may be (B, K, L) of any layout;
+    the finalize's is entry-major and goes to the kernel as it is."""
+    B, K, L = phi.shape
+    plan = _scatter_plan(beta_ss, words, aspects, vocab, counts)
+    return stages.scatter_phi(beta_ss, phi.transpose(1, 2).reshape(B * L, K), plan,
+                              beta_ss.shape[-1])
+
+
+def _scatter_plan(beta_ss, words, aspects=None, vocab: Optional[MeshAxis] = None,
+                  counts=None):
+    """The order of :func:`_scatter_phi`'s sums for a chunk: its keys,
+    with the slots left out, through ``stages.scatter_plan``."""
+    live = None if counts is None else counts > 0
     if vocab is not None:
         words, ok = _local_word_ids(words, beta_ss.shape[-1], vocab)
-        phi = torch.where(ok[:, None, :], phi, 0.0)
-    B, K, L = phi.shape
-    phi_flat = phi.permute(1, 0, 2).reshape(K, B * L)
-    if beta_ss.ndim == 2:
-        beta_ss.index_add_(1, words.reshape(-1).long(), phi_flat)
-        return beta_ss
-    A, _, V = beta_ss.shape
-    flat = beta_ss.permute(1, 0, 2).reshape(K, A * V)
-    idx = (aspects.long()[:, None] * V + words.long()).reshape(B * L)
-    flat.index_add_(1, idx, phi_flat)
-    beta_ss.copy_(flat.reshape(K, A, V).permute(1, 0, 2))
-    return beta_ss
+        live = ok if live is None else live & ok
+    V = beta_ss.shape[-1]
+    keys = words if beta_ss.ndim == 2 else aspects.to(words.dtype)[:, None] * V + words
+    return stages.scatter_plan(keys, live, beta_ss.numel() // beta_ss.shape[-2])
 
 
 def _chunks(n: int, B: int):
@@ -290,7 +311,7 @@ class _StatsSum:
         theta, nu, bound_d, phi = _finalize_chunk(
             eta, beta_doc, counts, mu, weight.to(beta_doc.dtype), siginv,
             sigmaentropy, torch.sum(counts, dim=1))
-        _scatter_phi(self.beta_ss, phi, words, aspects, self.vocab)
+        _scatter_phi(self.beta_ss, phi, words, aspects, self.vocab, counts)
         self.sigma_ss = self.sigma_ss + torch.sum(nu, dim=0)
         self.bound = self.bound + torch.sum(bound_d)
         return theta

@@ -1,7 +1,9 @@
-"""The damped-Newton iteration of the E-step, and the beta row gather.
+"""The damped-Newton iteration of the E-step, the beta row gather and the
+ordered phi scatter.
 
 Each function has a plain PyTorch version and a CUDA kernel
-(``csrc/stages.cu``, ``csrc/newton.cu``), with the same signature:
+(``csrc/stages.cu``, ``csrc/newton.cu``, ``csrc/scatter.cu``), with the
+same signature:
 
   ===========  ===========================  ==================================
   function     plain version                kernel wrapper (launch counter)
@@ -12,6 +14,7 @@ Each function has a plain PyTorch version and a CUDA kernel
   iteration    :func:`newton_iter_plain`    :func:`newton_iter` (``"iter"``)
   Newton loop  :func:`newton_loop_plain`    :func:`newton_loop` (``"newton"``)
   row gather   :func:`gather_rows_plain`    :func:`gather_rows` (``"gather"``)
+  phi scatter  :func:`scatter_phi_plain`    :func:`scatter_phi` (``"scatter"``)
   ===========  ===========================  ==================================
 
 :func:`stage_iter` is the default Newton iteration: the step glue of
@@ -39,12 +42,13 @@ quantities.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from strutopy_tpu_torch.ops import build
 
-LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0,
+LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0, "scatter": 0,
             "fgh_bf16_beta": 0, "ls_bf16_beta": 0, "iter_bf16_beta": 0}
 BETA_DTYPES = (torch.float32, torch.bfloat16)  # the beta_doc fgh, ls and iter take
 
@@ -250,6 +254,52 @@ def gather_rows_plain(beta_T, words):
     """Plain version of :func:`gather_rows`: beta_T[words] -> (B, L, K)."""
     B, L = words.shape
     return torch.index_select(beta_T, 0, words.reshape(-1).long()).reshape(B, L, -1)
+
+
+class ScatterPlan(NamedTuple):
+    """The order of an ordered scatter (:func:`scatter_plan`): key j's
+    entries are ``perm[offsets[j]:offsets[j + 1]]``, in ascending flat
+    position; the entries left out sit after ``offsets[-1]``."""
+
+    perm: torch.Tensor  # (n_entries,) int32, every flat position once
+    offsets: torch.Tensor  # (n_keys + 1,) int32, non-decreasing
+
+
+def scatter_plan(keys: torch.Tensor, live: Optional[torch.Tensor], n_keys: int) -> ScatterPlan:
+    """The plan of a scatter of ``keys`` (any shape, flattened in row-major
+    order: the flat position) into ``n_keys`` keys: a stable sort of the
+    keys, and every key's first place in it by ``searchsorted``.  Fixed
+    shapes and no host sync, on the device of ``keys``.  Entries outside
+    ``live`` (a bool mask of ``keys``' shape, or None for all) and keys
+    outside ``[0, n_keys)`` are left out, as the XLA scatter drops an index
+    out of range."""
+    k = keys.reshape(-1).to(torch.int32)
+    if live is not None:
+        k = torch.where(live.reshape(-1), k, n_keys)
+    sorted_k, perm = torch.sort(k, stable=True)
+    first = torch.arange(n_keys + 1, dtype=torch.int32, device=k.device)
+    offsets = torch.searchsorted(sorted_k, first, out_int32=True)
+    return ScatterPlan(perm.to(torch.int32), offsets)
+
+
+def scatter_phi_plain(beta_ss, phi, plan: ScatterPlan, V: int):
+    """Plain version of :func:`scatter_phi`, in the kernel's order: each
+    touched key's column of ``beta_ss`` takes its entries' rows one at a
+    time in the plan's order, one vectorized add a segment depth (in place,
+    returned)."""
+    n_keys, K = plan.offsets.shape[0] - 1, phi.shape[1]
+    start = plan.offsets[:-1].long()
+    depth = plan.offsets[1:].long() - start
+    perm = plan.perm.long()
+    hit = torch.nonzero(depth > 0).squeeze(1)
+    cols = beta_ss.view(-1, K, V)
+    acc = torch.zeros(n_keys, K, dtype=phi.dtype, device=phi.device)
+    acc[hit] = cols[hit // V, :, hit % V]
+    for d in range(int(depth.max()) if n_keys else 0):
+        keys = torch.nonzero(depth > d).squeeze(1)
+        acc[keys] += phi[perm[start[keys] + d]]
+    cols[hit // V, :, hit % V] = acc[hit]
+    return beta_ss
 
 
 # ---------------------------------------------------------------------------
@@ -542,3 +592,40 @@ def gather_rows(beta_T, words):
     build.check(rc, "stm_gather_rows")
     LAUNCHES["gather"] += 1
     return out
+
+
+def scatter_phi(beta_ss, phi, plan: ScatterPlan, V: int):
+    """Ordered scatter: for each key j of ``plan``, its entries' rows of
+    ``phi`` (n_entries, K) added into ``beta_ss`` at key j one at a time,
+    in the plan's order, in float32 (in place, returned): the order of the
+    XLA scatter and of ``index_add_`` on the CPU.  ``beta_ss`` holds
+    ``n_keys`` keys of V an aspect block: (K, V), or (A, K, V) with key
+    a·V + w.
+
+    Replaces the XLA scatter ``beta_ss.at[:, idx].add(phi)`` of
+    ``strutopy_tpu/ops/estep.py::_scatter_phi`` (no Pallas kernel: an
+    ordered XLA scatter, deterministic on the TPU), where PyTorch's
+    ``index_add_`` adds with atomics in no fixed order on the card.  Bound
+    by bytes: the live entries' rows read once and the touched columns of
+    beta_ss read and written once (~32 MB at B=256, K=100, L=384).  Design
+    (``csrc/scatter.cu``): one warp a key and K tile of 128, the entries'
+    rows read as coalesced 128-byte loads, eight entries' loads in flight
+    before they are added in order to a running sum in registers, and the
+    block's columns of beta_ss read and written through shared memory a
+    32-byte sector at a time.  Bit for bit :func:`scatter_phi_plain`.
+    """
+    if _use_plain("scatter", beta_ss, phi, plan.perm, plan.offsets,
+                  dtypes=[torch.float32, torch.float32, torch.int32, torch.int32]):
+        return scatter_phi_plain(beta_ss, phi, plan, V)
+    n_keys, K = plan.offsets.shape[0] - 1, phi.shape[1]
+    _expect("scatter", perm=(plan.perm, (phi.shape[0],)))
+    if phi.ndim != 2 or beta_ss.numel() != n_keys * K or n_keys % V != 0:
+        raise ValueError(f"scatter: beta_ss {tuple(beta_ss.shape)} does not hold {n_keys} keys "
+                         f"of {K} topics, {V} an aspect block, for phi {tuple(phi.shape)}")
+    lib = build.load()
+    with torch.cuda.device(phi.device):
+        rc = lib.stm_scatter_phi(phi.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
+                                 beta_ss.data_ptr(), n_keys, K, V, _stream(phi))
+    build.check(rc, "stm_scatter_phi")
+    LAUNCHES["scatter"] += 1
+    return beta_ss
