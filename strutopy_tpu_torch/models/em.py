@@ -25,6 +25,7 @@ from strutopy_tpu_torch.ops import mstep
 from strutopy_tpu_torch.ops.estep import NewtonConfig, run_estep
 from strutopy_tpu_torch.ops.linalg import precompute_sigma
 from strutopy_tpu_torch.parallel.mesh import MeshAxis, all_max, all_sum
+from strutopy_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,59 +88,60 @@ def local_estep_stats(state: STMState, data: CorpusData, cfg: STMConfig,
     ``jnp.argsort``), so a chunk's Newton loop runs about its own
     documents' iterations rather than the bucket's worst case.
     """
-    siginv, sigmaentropy = precompute_sigma(state.sigma)
-    ncfg = _newton_cfg(cfg)
-    dev = state.beta.device
+    with trace.span("em.estep", attrs={"buckets": data.n_buckets}):
+        siginv, sigmaentropy = precompute_sigma(state.sigma)
+        ncfg = _newton_cfg(cfg)
+        dev = state.beta.device
 
-    beta_ss = torch.zeros_like(state.beta)
-    sigma_ss = torch.zeros_like(state.sigma)
-    bound = torch.zeros((), dtype=state.beta.dtype, device=dev)
-    Dt_eta = None
-    eta_sum = torch.zeros(state.eta.shape[1], dtype=state.eta.dtype, device=dev)
-    overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    etas, thetas, iters = [], [], []
+        beta_ss = torch.zeros_like(state.beta)
+        sigma_ss = torch.zeros_like(state.sigma)
+        bound = torch.zeros((), dtype=state.beta.dtype, device=dev)
+        Dt_eta = None
+        eta_sum = torch.zeros(state.eta.shape[1], dtype=state.eta.dtype, device=dev)
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        etas, thetas, iters = [], [], []
 
-    lo = 0
-    for b in range(data.n_buckets):
-        words_b, counts_b = data.words[b], data.counts[b]
-        aspects_b, ok_b = data.aspects[b], data.doc_ok[b]
-        n_b = words_b.shape[0]
-        hi = lo + n_b
-        B_b = (bucket_batches[b] if bucket_batches is not None
-               else min(cfg.batch_size, n_b))
-        mu_b, eta_b = state.mu[lo:hi], state.eta[lo:hi]
+        lo = 0
+        for b in range(data.n_buckets):
+            words_b, counts_b = data.words[b], data.counts[b]
+            aspects_b, ok_b = data.aspects[b], data.doc_ok[b]
+            n_b = words_b.shape[0]
+            hi = lo + n_b
+            B_b = (bucket_batches[b] if bucket_batches is not None
+                   else min(cfg.batch_size, n_b))
+            mu_b, eta_b = state.mu[lo:hi], state.eta[lo:hi]
 
-        perm = None
-        if cfg.sort_by_difficulty and n_b > B_b:
-            perm = torch.argsort(state.opt_iters[lo:hi], stable=True)
-            mu_b, eta_b = mu_b[perm], eta_b[perm]
-            words_b, counts_b = words_b[perm], counts_b[perm]
-            aspects_b, ok_b = aspects_b[perm], ok_b[perm]
+            perm = None
+            if cfg.sort_by_difficulty and n_b > B_b:
+                perm = torch.argsort(state.opt_iters[lo:hi], stable=True)
+                mu_b, eta_b = mu_b[perm], eta_b[perm]
+                words_b, counts_b = words_b[perm], counts_b[perm]
+                aspects_b, ok_b = aspects_b[perm], ok_b[perm]
 
-        res = run_estep(
-            state.beta, mu_b, eta_b, siginv, sigmaentropy, words_b, counts_b,
-            aspects_b, ok_b,
-            cfg=ncfg, batch_size=B_b, pass1_iters=cfg.newton_pass1_iters,
-            straggler_frac=cfg.newton_straggler_frac, use_pallas=cfg.use_pallas,
-            fused_finalize=cfg.two_pass_fused, vocab=vocab,
-        )
-        eta_out, theta_out, iters_out = res.eta, res.theta, res.newton_iters
-        if perm is not None:
-            eta_out = torch.empty_like(eta_out).index_copy_(0, perm, eta_out)
-            theta_out = torch.empty_like(theta_out).index_copy_(0, perm, theta_out)
-            iters_out = torch.empty_like(iters_out).index_copy_(0, perm, iters_out)
+            res = run_estep(
+                state.beta, mu_b, eta_b, siginv, sigmaentropy, words_b, counts_b,
+                aspects_b, ok_b,
+                cfg=ncfg, batch_size=B_b, pass1_iters=cfg.newton_pass1_iters,
+                straggler_frac=cfg.newton_straggler_frac, use_pallas=cfg.use_pallas,
+                fused_finalize=cfg.two_pass_fused, vocab=vocab,
+            )
+            eta_out, theta_out, iters_out = res.eta, res.theta, res.newton_iters
+            if perm is not None:
+                eta_out = torch.empty_like(eta_out).index_copy_(0, perm, eta_out)
+                theta_out = torch.empty_like(theta_out).index_copy_(0, perm, theta_out)
+                iters_out = torch.empty_like(iters_out).index_copy_(0, perm, iters_out)
 
-        mom = mstep.eta_moments(data.D[b], eta_out)
-        beta_ss = beta_ss + res.beta_ss
-        sigma_ss = sigma_ss + res.sigma_ss
-        bound = bound + res.bound
-        overflow = overflow + res.straggler_overflow
-        Dt_eta = mom.Dt_eta if Dt_eta is None else Dt_eta + mom.Dt_eta
-        eta_sum = eta_sum + mom.eta_sum
-        etas.append(eta_out)
-        thetas.append(theta_out)
-        iters.append(iters_out)
-        lo = hi
+            mom = mstep.eta_moments(data.D[b], eta_out)
+            beta_ss = beta_ss + res.beta_ss
+            sigma_ss = sigma_ss + res.sigma_ss
+            bound = bound + res.bound
+            overflow = overflow + res.straggler_overflow
+            Dt_eta = mom.Dt_eta if Dt_eta is None else Dt_eta + mom.Dt_eta
+            eta_sum = eta_sum + mom.eta_sum
+            etas.append(eta_out)
+            thetas.append(theta_out)
+            iters.append(iters_out)
+            lo = hi
 
     stats = GlobalStats(beta_ss, sigma_ss, bound, Dt_eta, eta_sum, overflow)
     return stats, torch.cat(etas), torch.cat(thetas), torch.cat(iters)
@@ -165,18 +167,20 @@ def em_iteration(state: STMState, data: CorpusData, design: mstep.PrevalenceDesi
                                                         vocab)
     stats = GlobalStats(*psum(tuple(stats)))
 
-    mom = mstep.EtaMoments(Dt_eta=stats.Dt_eta, eta_sum=stats.eta_sum)
-    gamma, mu_mean = mstep.update_prevalence(
-        mom, design, cfg.model_type, cfg.mode,
-        ridge_alpha=cfg.ridge_alpha, lasso_alpha=cfg.lasso_alpha,
-    )
-    mu = torch.cat([
-        mstep.compute_mu(D_b, gamma, mu_mean, ok_b, cfg.model_type)
-        for D_b, ok_b in zip(data.D, data.doc_ok)
-    ])
-    resid = psum(mstep.residual_moment(eta, mu))
-    sigma = mstep.update_sigma(resid, stats.sigma_ss, design.n_docs, cfg.sigma_prior)
-    beta, kappa = m_step_beta(stats.beta_ss, state.kappa, kappa_design, wcounts, cfg, vocab)
+    with trace.span("em.mstep"):
+        mom = mstep.EtaMoments(Dt_eta=stats.Dt_eta, eta_sum=stats.eta_sum)
+        gamma, mu_mean = mstep.update_prevalence(
+            mom, design, cfg.model_type, cfg.mode,
+            ridge_alpha=cfg.ridge_alpha, lasso_alpha=cfg.lasso_alpha,
+        )
+        mu = torch.cat([
+            mstep.compute_mu(D_b, gamma, mu_mean, ok_b, cfg.model_type)
+            for D_b, ok_b in zip(data.D, data.doc_ok)
+        ])
+        resid = psum(mstep.residual_moment(eta, mu))
+        sigma = mstep.update_sigma(resid, stats.sigma_ss, design.n_docs, cfg.sigma_prior)
+        beta, kappa = m_step_beta(stats.beta_ss, state.kappa, kappa_design, wcounts, cfg,
+                                  vocab)
     return STMState(
         beta=beta, mu=mu, sigma=sigma, eta=eta, theta=theta, gamma=gamma,
         kappa=kappa, bound=stats.bound, opt_iters=newton_iters,

@@ -42,6 +42,7 @@ from strutopy_tpu_torch.ops import build
 from strutopy_tpu_torch.ops.mstep import encode_new_covariates
 from strutopy_tpu_torch.parallel.mesh import doc_axis, vocab_axis
 from strutopy_tpu_torch.parallel.sharding import gather_rows, shard_corpus, shard_cols, shard_rows
+from strutopy_tpu_torch.utils import trace
 from strutopy_tpu_torch.utils.precision import true_float32
 
 
@@ -51,6 +52,10 @@ def _require_beta_index(beta, beta_index) -> None:
             "this is a content-covariate model (per-aspect beta); pass "
             "beta_index for the new documents"
         )
+
+
+def _n_docs(documents) -> int:
+    return documents.N if isinstance(documents, PaddedCorpus) else len(documents)
 
 
 @true_float32
@@ -74,81 +79,89 @@ def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
     training layout (the device-major ``plan.storage_index``), under a 2-D
     mesh on its block of beta's vocabulary with one vocab all-reduce a
     chunk, and the rows come back whole on every rank by the exact sum.
+
+    While recording (``utils/trace.py``) a request is a ``serve.request``
+    record: ``serve.prepare`` (the host's padding, buckets, prior means and
+    their copy to the device), then the E-step's spans.
     """
-    dev = torch.device(device)
-    V = beta.shape[-1]
-    K = beta.shape[-2]
-    if full_convergence and cfg.newton_pass1_iters:
-        cfg = cfg.replace(newton_straggler_frac=1.0)
-    corpus = documents if isinstance(documents, PaddedCorpus) else pad_corpus(documents, V=V)
-    live = (corpus.counts > 0) & corpus.doc_ok[:, None]
-    max_id = int(corpus.words[live].max()) if live.any() else -1
-    if max_id >= V:
-        raise ValueError(
-            f"documents contain word id {max_id} but the model vocabulary "
-            f"has only {V} terms — were they encoded with a different "
-            "vocabulary? (a gather would read past beta)"
-        )
-    if corpus.V != V:
-        corpus = PaddedCorpus(corpus.words, corpus.counts, corpus.doc_ok, V)
-    N_new = corpus.N
+    with trace.session(), trace.span("serve.request", attrs={"docs": _n_docs(documents)}):
+        with trace.span("serve.prepare"):
+            dev = torch.device(device)
+            V = beta.shape[-1]
+            K = beta.shape[-2]
+            if full_convergence and cfg.newton_pass1_iters:
+                cfg = cfg.replace(newton_straggler_frac=1.0)
+            corpus = (documents if isinstance(documents, PaddedCorpus)
+                      else pad_corpus(documents, V=V))
+            live = (corpus.counts > 0) & corpus.doc_ok[:, None]
+            max_id = int(corpus.words[live].max()) if live.any() else -1
+            if max_id >= V:
+                raise ValueError(
+                    f"documents contain word id {max_id} but the model vocabulary "
+                    f"has only {V} terms — were they encoded with a different "
+                    "vocabulary? (a gather would read past beta)"
+                )
+            if corpus.V != V:
+                corpus = PaddedCorpus(corpus.words, corpus.counts, corpus.doc_ok, V)
+            N_new = corpus.N
 
-    docs = vocab = None
-    if mesh is not None:
-        docs, vocab = doc_axis(mesh), vocab_axis(mesh)
-    plan = make_bucket_plan(corpus, cfg.batch_size, n_devices=docs.size if docs else 1,
-                            max_buckets=cfg.max_buckets if cfg.auto_bucket else 1)
-    buckets = split_corpus_by_plan(corpus, plan)
-    # device-major storage (the training layout): storage_index maps user
-    # doc i to its row, and each rank's rows of every bucket line up with
-    # its rows of the state; padding rows are zeros
-    mu32 = np.asarray(mu_user, np.float32)
-    mu_full = np.zeros((plan.n_storage, mu32.shape[1]), np.float32)
-    mu_full[plan.storage_index] = mu32
-    mu_storage = torch.as_tensor(mu_full)
-    if docs is not None:
-        mu_storage = shard_rows(mu_storage, docs)
-    N_pad = mu_storage.shape[0]
-    mu_storage = mu_storage.to(dev)
+            docs = vocab = None
+            if mesh is not None:
+                docs, vocab = doc_axis(mesh), vocab_axis(mesh)
+            plan = make_bucket_plan(corpus, cfg.batch_size,
+                                    n_devices=docs.size if docs else 1,
+                                    max_buckets=cfg.max_buckets if cfg.auto_bucket else 1)
+            buckets = split_corpus_by_plan(corpus, plan)
+            # device-major storage (the training layout): storage_index maps
+            # user doc i to its row, and each rank's rows of every bucket line
+            # up with its rows of the state; padding rows are zeros
+            mu32 = np.asarray(mu_user, np.float32)
+            mu_full = np.zeros((plan.n_storage, mu32.shape[1]), np.float32)
+            mu_full[plan.storage_index] = mu32
+            mu_storage = torch.as_tensor(mu_full)
+            if docs is not None:
+                mu_storage = shard_rows(mu_storage, docs)
+            N_pad = mu_storage.shape[0]
+            mu_storage = mu_storage.to(dev)
 
-    if aspects_user is None:
-        aspects_user = np.zeros(N_new, np.int32)
-    aspect_buckets = gather_per_bucket(np.asarray(aspects_user, np.int32), plan)
+            if aspects_user is None:
+                aspects_user = np.zeros(N_new, np.int32)
+            aspect_buckets = gather_per_bucket(np.asarray(aspects_user, np.int32), plan)
 
-    def zeros(*shape, dt=torch.float32):
-        return torch.zeros(shape, dtype=dt, device=dev)
+            def zeros(*shape, dt=torch.float32):
+                return torch.zeros(shape, dtype=dt, device=dev)
 
-    data = CorpusData(
-        words=tuple(torch.as_tensor(b.words) for b in buckets),
-        counts=tuple(torch.as_tensor(b.counts) for b in buckets),
-        aspects=tuple(torch.as_tensor(a) for a in aspect_buckets),
-        doc_ok=tuple(torch.as_tensor(b.doc_ok) for b in buckets),
-        D=tuple(torch.zeros(b.N, 1) for b in buckets),
-    )
-    if docs is not None:
-        data = shard_corpus(mesh, data)
-    data = data.to(dev)
-    beta = torch.as_tensor(beta, dtype=torch.float32, device=dev)
-    if vocab is not None:
-        beta = shard_cols(beta, vocab)
-    state = STMState(
-        beta=beta,
-        mu=mu_storage,
-        sigma=torch.as_tensor(sigma, dtype=torch.float32, device=dev),
-        eta=mu_storage.clone(),  # warm start at the prior mean
-        theta=zeros(N_pad, K),
-        gamma=zeros(K - 1, 1),
-        kappa=zeros(0, V),
-        bound=zeros(),
-        opt_iters=zeros(N_pad, dt=torch.int32),
-        straggler_overflow=zeros(dt=torch.int32),
-    )
-    _stats, eta, theta, _iters = local_estep_stats(state, data, cfg, plan.batch_sizes,
-                                                   vocab)
-    if docs is not None:
-        theta, eta = gather_rows(theta, docs), gather_rows(eta, docs)
-    return (theta.cpu().numpy()[plan.storage_index],
-            eta.cpu().numpy()[plan.storage_index])
+            data = CorpusData(
+                words=tuple(torch.as_tensor(b.words) for b in buckets),
+                counts=tuple(torch.as_tensor(b.counts) for b in buckets),
+                aspects=tuple(torch.as_tensor(a) for a in aspect_buckets),
+                doc_ok=tuple(torch.as_tensor(b.doc_ok) for b in buckets),
+                D=tuple(torch.zeros(b.N, 1) for b in buckets),
+            )
+            if docs is not None:
+                data = shard_corpus(mesh, data)
+            data = data.to(dev)
+            beta = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+            if vocab is not None:
+                beta = shard_cols(beta, vocab)
+            state = STMState(
+                beta=beta,
+                mu=mu_storage,
+                sigma=torch.as_tensor(sigma, dtype=torch.float32, device=dev),
+                eta=mu_storage.clone(),  # warm start at the prior mean
+                theta=zeros(N_pad, K),
+                gamma=zeros(K - 1, 1),
+                kappa=zeros(0, V),
+                bound=zeros(),
+                opt_iters=zeros(N_pad, dt=torch.int32),
+                straggler_overflow=zeros(dt=torch.int32),
+            )
+        _stats, eta, theta, _iters = local_estep_stats(state, data, cfg, plan.batch_sizes,
+                                                       vocab)
+        if docs is not None:
+            theta, eta = gather_rows(theta, docs), gather_rows(eta, docs)
+        theta, eta = trace.read("serve.readback", lambda: (theta.cpu(), eta.cpu()))
+        return theta.numpy()[plan.storage_index], eta.numpy()[plan.storage_index]
 
 
 def _load_params(model_dir: str):

@@ -12,6 +12,7 @@ methods (``eval/``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -30,7 +31,7 @@ from strutopy_tpu_torch.corpus.bucketing import (
     make_bucket_plan,
     split_corpus_by_plan,
 )
-from strutopy_tpu_torch.models.config import STMConfig, refuse_tpu_only
+from strutopy_tpu_torch.models.config import STMConfig
 from strutopy_tpu_torch.models.em import CorpusData, make_em_step
 from strutopy_tpu_torch.models.state import init_state
 from strutopy_tpu_torch.ops import mstep
@@ -45,6 +46,7 @@ from strutopy_tpu_torch.parallel.sharding import (
 from strutopy_tpu_torch.ops.spectral import spectral_init
 from strutopy_tpu_torch.utils.debug import validate_state
 from strutopy_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from strutopy_tpu_torch.utils import trace
 from strutopy_tpu_torch.utils.precision import true_float32
 
 logger = logging.getLogger(__name__)
@@ -321,6 +323,9 @@ class STM:
         self.time_processed: Optional[float] = None
         self.docs_per_sec: Optional[float] = None
         self._overflow_warned = False
+        self._stall_warned = False
+        # the trace records (utils/trace.py) of the last fit that recorded
+        self.trace: list = []
 
     def _make_streamed_step(self, cfg, bucket, aspects_np, D_bucket, kappa_design,
                             wcounts):
@@ -459,6 +464,8 @@ class STM:
         self.time_processed = None
         self.docs_per_sec = None
         self._overflow_warned = False
+        self._stall_warned = False
+        self.trace = []
         return self
 
     @true_float32
@@ -477,7 +484,9 @@ class STM:
 
         Each iteration's wall time (ending in a device synchronize) is
         kept in ``iter_seconds``; a non-finite bound is recorded in
-        ``nonfinite_bound_iters`` and warned about once.
+        ``nonfinite_bound_iters`` and warned about once.  While recording
+        (``utils/trace.py``) each iteration is a ``fit.iteration`` record,
+        kept in ``trace`` and logged in one INFO line.
 
         ``checkpoint_path`` writes a resumable checkpoint every
         ``checkpoint_every`` iterations and at the end; ``resume=True``
@@ -485,21 +494,59 @@ class STM:
         partial fit in place (the state and ``last_bounds`` carry over):
         iterations run from ``start_iter`` to ``config.max_em_iter``.
         ``saving`` writes the artifact set to ``output_dir`` at the end.
-        ``profile_dir`` (JAX's ``jax.profiler`` trace) is TPU-only: any
-        value but None raises; ``profile_torch.py`` profiles the port.
+        ``profile_dir`` writes a ``torch.profiler`` chrome trace of the
+        iterations (``<host>_<pid>.<ms>.pt.trace.json``, TensorBoard's
+        layout; the card's kernels as well on a CUDA device) under that
+        directory, with the spans in it, and records them.
 
         Under a mesh every rank calls it: a checkpoint is gathered on every
         rank and written by the first, and every rank resumes from it.
         """
-        refuse_tpu_only("profile_dir", profile_dir)
         cfg = self.config
         if resume and checkpoint_path and os.path.exists(checkpoint_path):
             state, self.last_bounds, start_iter, _ = load_checkpoint(
                 checkpoint_path, device=self.device)
             self._set_state(state)
             logger.info("resumed from %s at EM iteration %d", checkpoint_path, start_iter)
+        with contextlib.ExitStack() as stack:
+            if profile_dir is not None:
+                stack.enter_context(trace.recording())
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                stack.enter_context(torch.profiler.profile(
+                    activities=acts,
+                    on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir)))
+            stack.enter_context(trace.session())
+            self._em_loop(start_iter, checkpoint_path, checkpoint_every)
+        # the fitted parameters, whole on every rank
+        state = self._gather()
+        if checkpoint_path:
+            self._checkpoint(checkpoint_path, len(self.last_bounds), state)
+        if saving:
+            if output_dir is None:
+                raise ValueError("saving=True needs output_dir")
+            self.save_model(output_dir)
+        return self
+
+    fit = expectation_maximization
+
+    def _schedule(self, step) -> str:
+        """The E-step schedule of ``step``: ``single``, ``two-pass`` or
+        ``fused``."""
+        cfg = self.config
+        if step is self._em_step_cold or not cfg.newton_pass1_iters:
+            return "single"
+        if cfg.two_pass_fused and cfg.newton_max_iters > cfg.newton_pass1_iters:
+            return "fused"
+        return "two-pass"
+
+    def _em_loop(self, start_iter: int, checkpoint_path, checkpoint_every: int) -> None:
+        """The EM iterations of :meth:`expectation_maximization`."""
+        cfg = self.config
         self._sync()
         t0 = time.time()
+        recorded = []
         for it in range(start_iter, cfg.max_em_iter):
             it_t0 = time.time()
             step = (
@@ -507,11 +554,28 @@ class STM:
                 if self._em_step_cold is not None and it < cfg.newton_warmup_iters
                 else self._em_step
             )
-            self._state = step(self._state, self._data)
-            self._gathered = None
-            self._sync()
-            it_dt = time.time() - it_t0
-            bound = float(self._state.bound)
+            with trace.span("fit.iteration", self.device,
+                            {"it": it, "schedule": self._schedule(step)}) as rec:
+                self._state = step(self._state, self._data)
+                self._gathered = None
+                with trace.span("fit.readback"):
+                    trace.read("fit.synchronize", self._sync)
+                    it_dt = time.time() - it_t0
+                    bound = trace.read("fit.bound", float, self._state.bound)
+                    ov = (trace.read("fit.overflow", int, self._state.straggler_overflow)
+                          if cfg.newton_pass1_iters else 0)
+            if rec is not None:
+                recorded.append(rec)
+                self.trace = recorded
+                logger.info("EM iteration %d trace: %s", it, rec.summary())
+                stalled = rec.counters.get("newton.stalled")
+                if stalled and not self._stall_warned:
+                    self._stall_warned = True
+                    logger.warning(
+                        "EM iteration %d: %d docs stopped where no Armijo step passed "
+                        "before converging (newton.stalled; further counts in the "
+                        "per-iteration trace lines)", it, stalled,
+                    )
             if not np.isfinite(bound):
                 self.nonfinite_bound_iters.append(it)
                 if len(self.nonfinite_bound_iters) == 1:
@@ -521,7 +585,6 @@ class STM:
                         "records every occurrence)", it, bound,
                     )
             if cfg.newton_pass1_iters:
-                ov = int(self._state.straggler_overflow)
                 if ov > 0 and not self._overflow_warned:
                     self._overflow_warned = True
                     logger.warning(
@@ -554,17 +617,6 @@ class STM:
             self.time_processed = time.time() - t0
             logger.info("max EM iterations (%d) reached after %.2fs",
                         cfg.max_em_iter, self.time_processed)
-        # the fitted parameters, whole on every rank
-        state = self._gather()
-        if checkpoint_path:
-            self._checkpoint(checkpoint_path, len(self.last_bounds), state)
-        if saving:
-            if output_dir is None:
-                raise ValueError("saving=True needs output_dir")
-            self.save_model(output_dir)
-        return self
-
-    fit = expectation_maximization
 
     def _checkpoint(self, path, em_iter, state=None):
         state = self._gather() if state is None else state

@@ -46,6 +46,7 @@ from strutopy_tpu_torch.models.state import STMState, init_state
 from strutopy_tpu_torch.ops import mstep
 from strutopy_tpu_torch.parallel.mesh import doc_axis, vocab_axis
 from strutopy_tpu_torch.parallel.sharding import psum_over, shard_rows
+from strutopy_tpu_torch.utils import trace
 from strutopy_tpu_torch.utils.precision import true_float32
 
 logger = logging.getLogger(__name__)
@@ -318,7 +319,7 @@ class StreamedEM:
             bound=stats_sum.bound,
             straggler_overflow=stats_sum.straggler_overflow,
         )
-        if not np.isfinite(float(stats_sum.bound)):
+        if not np.isfinite(trace.read("stream.bound", float, stats_sum.bound)):
             self.nonfinite_bound_count += 1
             if self.nonfinite_bound_count == 1:
                 logger.warning(

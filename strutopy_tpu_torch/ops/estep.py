@@ -39,6 +39,7 @@ inputs.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -47,6 +48,7 @@ from strutopy_tpu_torch.models.config import refuse_tpu_only
 from strutopy_tpu_torch.ops import stages
 from strutopy_tpu_torch.ops.linalg import cholesky_checked, make_pd
 from strutopy_tpu_torch.parallel.mesh import MeshAxis, all_sum
+from strutopy_tpu_torch.utils import trace
 
 
 class NewtonConfig(NamedTuple):
@@ -117,7 +119,10 @@ def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
     with ``done0`` carrying the earlier call's flags.
 
     The loop stops once every document is done, which costs a host sync
-    per iteration (the JAX ``while_loop`` condition).
+    per iteration (the JAX ``while_loop`` condition).  While recording
+    (``utils/trace.py``) it counts its steps and the documents' advances;
+    inside ``trace.recording()`` the stage path's steps count stalls, the
+    fused iteration's none.
     """
     B, K, _ = beta_doc.shape
     counts = _search_counts(counts, cfg)
@@ -128,22 +133,38 @@ def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
     done = (torch.zeros(B, dtype=torch.bool, device=eta0.device)
             if done0 is None else done0)
     n_iters = torch.zeros(B, dtype=torch.int32, device=eta0.device)
+    steps = 0
     for _ in range(cfg.max_iters):
-        if not cfg.fixed_iters and bool(torch.all(done)):
+        if not cfg.fixed_iters and trace.read("newton.done", bool, torch.all(done)):
             break
         eta, done, advance = step(eta, beta_doc, counts, mu, siginv, ts, done,
                                   cfg.grad_tol, cg_iters, cfg.bf16_hessian)
         n_iters = n_iters + advance.to(torch.int32)
+        steps += 1
+    if trace.active():
+        trace.count("newton.chunk_steps", steps)
+        trace.count("newton.row_steps", steps * B)
+        trace.count("newton.doc_steps", n_iters)
+        if cfg.pallas_iter:
+            trace.count("newton.stalled", None)
     return eta, n_iters, done
 
 
 def _newton_loop(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig):
     """The whole Newton loop of a chunk in one kernel (``use_pallas``):
     (eta, n_iters).  Each document leaves the loop when it is done, so
-    ``fixed_iters`` changes nothing."""
-    return stages.newton_loop(beta_doc, _search_counts(counts, cfg), mu, eta0, siginv,
-                              _step_sizes(cfg, eta0), cfg.max_iters, cfg.grad_tol,
-                              min(cfg.cg_iters, beta_doc.shape[1] - 1), cfg.bf16_hessian)
+    ``fixed_iters`` changes nothing.  Its steps and stalls are not
+    counted (None while recording); the documents' advances are."""
+    eta, n_iters = stages.newton_loop(beta_doc, _search_counts(counts, cfg), mu, eta0, siginv,
+                                      _step_sizes(cfg, eta0), cfg.max_iters, cfg.grad_tol,
+                                      min(cfg.cg_iters, beta_doc.shape[1] - 1),
+                                      cfg.bf16_hessian)
+    if trace.active():
+        for name in ("newton.chunk_steps", "newton.row_steps", "newton.stalled",
+                     "newton.capped"):
+            trace.count(name, None)
+        trace.count("newton.doc_steps", n_iters)
+    return eta, n_iters
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +182,16 @@ def _chol_pd_batched(H, jitter: float = 1e-5, rel_jitter: float = 1e-3):
     the JAX ladder's ``isfinite`` test: ``cholesky_ex`` may leave finite
     garbage behind a failure.  A document that fails all four rungs gets
     a NaN factor, as in JAX.  The repair rungs run only when some
-    document fails rung 1 (one host sync, the JAX ``lax.cond``).
+    document fails rung 1 (one host sync, the JAX ``lax.cond``; counted
+    while recording, with the chunks that ran them).
     """
     B, P, _ = H.shape
     L1, ok1 = cholesky_checked(H)
     rung = torch.ones(B, dtype=torch.int8, device=H.device)
-    if bool(torch.all(ok1)):
+    if trace.read("finalize.rung", bool, torch.all(ok1)):
+        trace.count("finalize.repair_chunks", 0)
         return L1, rung
+    trace.count("finalize.repair_chunks", 1)
     eye = torch.eye(P, dtype=H.dtype, device=H.device)[None]
     H2 = make_pd(H)
     L2, ok2 = cholesky_checked(H2)
@@ -181,14 +205,38 @@ def _chol_pd_batched(H, jitter: float = 1e-5, rel_jitter: float = 1e-3):
     return L, rung
 
 
-def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd):
+def _by_rung(rung, doc_w):
+    """(B, 4): the weighted documents by the rung of their factor."""
+    rungs = torch.arange(1, 5, dtype=rung.dtype, device=rung.device)
+    return (rung[:, None] == rungs) & (doc_w > 0)[:, None]
+
+
+def _over_tol(grad_tol: float, g_max, doc_w):
+    """(B,): the weighted documents whose max|g| exceeds ``grad_tol``."""
+    return (g_max > grad_tol) & (doc_w > 0)
+
+
+def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd,
+                    grad_tol: Optional[float] = None):
     """Per-document theta, nu, bound and phi at the converged eta, all
     float32 (reference lower_bound / optimize_nu).  phi is (B, K, L) with
-    (B, L, K) memory, the layout :func:`_scatter_phi` reads."""
-    _f, _g, H, theta, phi_hat = stages.f_g_H_batched(
+    (B, L, K) memory, the layout :func:`_scatter_phi` reads.  Inside
+    ``trace.recording()`` it times the factor on the device and counts the
+    weighted documents by the rung of their factor and, given ``grad_tol``,
+    those whose gradient here exceeds it."""
+    _f, g, H, theta, phi_hat = stages.f_g_H_batched(
         eta, beta_doc, counts, mu, siginv, Nd, bf16=False)
-    L, _rung = _chol_pd_batched(H)
-    nu = torch.cholesky_inverse(L)
+    full = trace.full()
+    with trace.span("finalize.factor", H.device if full else None):
+        L, rung = _chol_pd_batched(H)
+        nu = trace.read("finalize.cholesky_inverse", torch.cholesky_inverse, L)
+    if full:
+        trace.count("finalize.rungs", rung, doc_w, op=_by_rung)
+        if grad_tol is not None:
+            # max|g| (B,) is held to the record's end, not g (B, K-1)
+            trace.count("finalize.unconverged",
+                        torch.linalg.vector_norm(g, float("inf"), dim=1), doc_w,
+                        op=functools.partial(_over_tol, grad_tol))
 
     eta_full = stages.pad_eta(eta)
     m = torch.amax(eta_full, dim=1, keepdim=True)
@@ -294,39 +342,49 @@ def _chunks(n: int, B: int):
 
 
 class _StatsSum:
-    """The E-step's sums over chunks, added in the order they come."""
+    """The E-step's sums over chunks, added in the order they come.
+    ``grad_tol`` is the Newton solve's, for the finalize's count of
+    unconverged documents while recording."""
 
-    def __init__(self, beta, vocab: Optional[MeshAxis] = None):
+    def __init__(self, beta, vocab: Optional[MeshAxis] = None,
+                 grad_tol: Optional[float] = None):
         K = beta.shape[-2]
         self.vocab = vocab
+        self.grad_tol = grad_tol
         self.beta_ss = torch.zeros_like(beta)
         self.sigma_ss = torch.zeros(K - 1, K - 1, dtype=beta.dtype, device=beta.device)
         self.bound = torch.zeros((), dtype=beta.dtype, device=beta.device)
 
     def finalize(self, eta, beta_doc, words, counts, aspects, mu, weight, siginv,
-                 sigmaentropy):
+                 sigmaentropy, at: Optional[dict] = None):
         """Finalize one chunk at its eta, add its statistics with each
         document weighted by ``weight`` (bool: its doc_ok, or the subset a
-        schedule finalizes here), and return its theta."""
-        theta, nu, bound_d, phi = _finalize_chunk(
-            eta, beta_doc, counts, mu, weight.to(beta_doc.dtype), siginv,
-            sigmaentropy, torch.sum(counts, dim=1))
-        _scatter_phi(self.beta_ss, phi, words, aspects, self.vocab, counts)
-        self.sigma_ss = self.sigma_ss + torch.sum(nu, dim=0)
-        self.bound = self.bound + torch.sum(bound_d)
+        schedule finalizes here), and return its theta.  ``at``: the
+        span's attributes (pass, chunk)."""
+        dev = beta_doc.device
+        with trace.span("estep.finalize", dev, at):
+            theta, nu, bound_d, phi = _finalize_chunk(
+                eta, beta_doc, counts, mu, weight.to(beta_doc.dtype), siginv,
+                sigmaentropy, torch.sum(counts, dim=1), grad_tol=self.grad_tol)
+            with trace.span("finalize.scatter"):
+                _scatter_phi(self.beta_ss, phi, words, aspects, self.vocab, counts)
+            self.sigma_ss = self.sigma_ss + torch.sum(nu, dim=0)
+            self.bound = self.bound + torch.sum(bound_d)
         return theta
 
 
 def _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspects,
-                  weight, B):
+                  weight, B, pass_name: str = "3"):
     """Finalize every document in storage order, chunk by chunk, from a
     fresh gather of beta_doc, into ``acc`` (the two-pass schedule's pass
     3, and the fused schedule's overflow sweep): the documents' theta."""
     thetas = []
-    for sl in _chunks(words.shape[0], B):
-        bd = _gather_beta(beta, words[sl], aspects[sl], acc.vocab)
+    for i, sl in enumerate(_chunks(words.shape[0], B)):
+        at = {"pass": pass_name, "chunk": i, "rows": B}
+        with trace.span("estep.gather", attrs=at):
+            bd = _gather_beta(beta, words[sl], aspects[sl], acc.vocab)
         thetas.append(acc.finalize(eta[sl], bd, words[sl], counts[sl], aspects[sl], mu[sl],
-                                   weight[sl], siginv, sigmaentropy))
+                                   weight[sl], siginv, sigmaentropy, at))
     return torch.cat(thetas)
 
 
@@ -337,17 +395,22 @@ def _single_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspe
     (the JAX ``chunk_fn``).  With ``use_pallas`` the whole Newton loop of
     a chunk is one kernel, on the float32 gather whatever ``bf16_beta``
     says (as in JAX)."""
-    acc = _StatsSum(beta, vocab)
+    acc = _StatsSum(beta, vocab, cfg.grad_tol)
     etas, thetas, iters = [], [], []
-    for sl in _chunks(words.shape[0], B):
-        bd = _gather_beta(beta, words[sl], aspects[sl], vocab)
-        if use_pallas:
-            eta, it = _newton_loop(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
-        else:
-            eta, it, _done = _batched_newton(_search_beta(bd, cfg), counts[sl], mu[sl],
-                                             eta0[sl], siginv, cfg)
+    for i, sl in enumerate(_chunks(words.shape[0], B)):
+        at = {"pass": "single", "chunk": i, "rows": B}
+        with trace.span("estep.gather", attrs=at):
+            bd = _gather_beta(beta, words[sl], aspects[sl], vocab)
+        with trace.span("estep.newton", beta.device, at):
+            if use_pallas:
+                eta, it = _newton_loop(bd, counts[sl], mu[sl], eta0[sl], siginv, cfg)
+            else:
+                eta, it, done = _batched_newton(_search_beta(bd, cfg), counts[sl], mu[sl],
+                                                eta0[sl], siginv, cfg)
+                if trace.full():
+                    trace.count("newton.capped", done, doc_ok[sl], op=torch.lt)
         thetas.append(acc.finalize(eta, bd, words[sl], counts[sl], aspects[sl], mu[sl],
-                                   doc_ok[sl], siginv, sigmaentropy))
+                                   doc_ok[sl], siginv, sigmaentropy, at))
         etas.append(eta)
         iters.append(it)
     overflow = torch.zeros((), dtype=torch.int32, device=words.device)
@@ -366,16 +429,20 @@ def _newton_all(beta, mu, eta0, siginv, words, counts, aspects, cfg, B, done0=No
     those pass 1 left (``~done0``), converged or not; theta is returned
     for every document.  Without ``fin`` theta is None."""
     etas, iters, dones, thetas = [], [], [], []
-    for sl in _chunks(words.shape[0], B):
-        bd = _gather_beta(beta, words[sl], aspects[sl], vocab)
+    pass_name = "1" if done0 is None else "2"
+    for i, sl in enumerate(_chunks(words.shape[0], B)):
+        at = {"pass": pass_name, "chunk": i, "rows": B}
+        with trace.span("estep.gather", attrs=at):
+            bd = _gather_beta(beta, words[sl], aspects[sl], vocab)
         d0 = None if done0 is None else done0[sl]
-        eta, it, done = _batched_newton(
-            _search_beta(bd, cfg), counts[sl], mu[sl], eta0[sl], siginv, cfg, done0=d0)
+        with trace.span("estep.newton", beta.device, at):
+            eta, it, done = _batched_newton(
+                _search_beta(bd, cfg), counts[sl], mu[sl], eta0[sl], siginv, cfg, done0=d0)
         if fin is not None:
             acc, doc_ok, *sig = fin
             weight = (done if d0 is None else ~d0) & doc_ok[sl]
             thetas.append(acc.finalize(eta, bd, words[sl], counts[sl], aspects[sl], mu[sl],
-                                       weight, *sig))
+                                       weight, *sig, at))
         etas.append(eta)
         iters.append(it)
         dones.append(done)
@@ -388,12 +455,30 @@ def _straggler_budget(done, doc_ok, N: int, B: int, straggler_frac: float):
     chunks, at least one) of a stable ascending sort of ``done``, so the
     unconverged documents pack to the front in storage order, as
     ``jnp.argsort`` does; and the unconverged real documents it leaves
-    out (``over``)."""
-    M = min(max(-(-int(straggler_frac * N) // B) * B, B), N)
-    idx = torch.argsort(done.to(torch.int32), stable=True)[:M]
-    selected = torch.zeros(N, dtype=torch.bool, device=done.device)
-    selected[idx] = True
-    return idx, ~done & ~selected & doc_ok
+    out (``over``).  Inside ``trace.recording()`` it counts the
+    unconverged real documents it admits (``estep.stragglers``) and leaves
+    out (``estep.overflow``)."""
+    with trace.span("estep.budget"):
+        M = min(max(-(-int(straggler_frac * N) // B) * B, B), N)
+        idx = torch.argsort(done.to(torch.int32), stable=True)[:M]
+        selected = torch.zeros(N, dtype=torch.bool, device=done.device)
+        selected[idx] = True
+        over = ~done & ~selected & doc_ok
+        if trace.full():
+            trace.count("estep.stragglers", done, selected & doc_ok, op=torch.lt)
+            trace.count("estep.overflow", over)
+    return idx, over
+
+
+def _count_capped(done, doc_ok, idx=None, done2=None) -> None:
+    """Inside ``trace.recording()``, count the real documents still not
+    done when their last Newton pass ended (``done`` after pass 1,
+    ``done2`` after pass 2 for the rows ``idx``)."""
+    if trace.full():
+        if idx is not None:
+            done = done.clone()
+            done[idx] = done2
+        trace.count("newton.capped", done, doc_ok, op=torch.lt)
 
 
 def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects,
@@ -421,13 +506,16 @@ def _two_pass_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, aspects
     if rest > 0:
         idx, over = _straggler_budget(done, doc_ok, N, B, straggler_frac)
         overflow = torch.sum(over).to(torch.int32)
-        eta2, it2, _, _ = _newton_all(
+        eta2, it2, done2, _ = _newton_all(
             beta, mu[idx], eta[idx], siginv, words[idx], counts[idx], aspects[idx],
             cfg._replace(max_iters=rest), B, done0=done[idx], vocab=vocab)
         eta[idx] = eta2  # eta and iters are fresh tensors (torch.cat)
         iters[idx] += it2
+        _count_capped(done, doc_ok, idx, done2)
+    else:
+        _count_capped(done, doc_ok)
 
-    acc = _StatsSum(beta, vocab)
+    acc = _StatsSum(beta, vocab, cfg.grad_tol)
     theta = _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspects,
                           doc_ok, B)
     return EStepResult(acc.beta_ss, acc.sigma_ss, acc.bound, eta, theta, iters, overflow)
@@ -455,7 +543,7 @@ def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, a
     """
     N = words.shape[0]
     cfg1 = cfg._replace(max_iters=min(pass1_iters, cfg.max_iters))
-    acc = _StatsSum(beta, vocab)
+    acc = _StatsSum(beta, vocab, cfg.grad_tol)
     eta, iters, done, theta = _newton_all(beta, mu, eta0, siginv, words, counts, aspects,
                                           cfg1, B, fin=(acc, doc_ok, siginv, sigmaentropy),
                                           vocab=vocab)
@@ -463,7 +551,7 @@ def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, a
     idx, over = _straggler_budget(done, doc_ok, N, B, straggler_frac)
     overflow = torch.sum(over).to(torch.int32)
     done0 = done[idx]
-    eta2, it2, _, theta2 = _newton_all(
+    eta2, it2, done2, theta2 = _newton_all(
         beta, mu[idx], eta[idx], siginv, words[idx], counts[idx], aspects[idx],
         cfg._replace(max_iters=cfg.max_iters - cfg1.max_iters), B, done0=done0,
         fin=(acc, doc_ok[idx], siginv, sigmaentropy), vocab=vocab)
@@ -472,9 +560,11 @@ def _two_pass_fused_estep(beta, mu, eta0, siginv, sigmaentropy, words, counts, a
     eta[idx] = eta2  # eta, theta and iters are fresh tensors (torch.cat)
     theta[idx] = torch.where(done0[:, None], theta[idx], theta2)
     iters[idx] += it2
+    _count_capped(done, doc_ok, idx, done2)
 
-    if int(overflow) > 0:
-        _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, over, B)
+    if trace.read("estep.overflow", int, overflow) > 0:
+        _finalize_all(acc, beta, eta, mu, siginv, sigmaentropy, words, counts, aspects, over, B,
+                      "overflow")
     return EStepResult(acc.beta_ss, acc.sigma_ss, acc.bound, eta, theta, iters, overflow)
 
 

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from strutopy_tpu_torch.utils import trace
+
 
 def make_pd(M: torch.Tensor) -> torch.Tensor:
     """Force diagonal dominance on a (..., P, P) matrix (reference
@@ -46,17 +48,17 @@ def cholesky_checked(M: torch.Tensor):
 def chol_pd(H: torch.Tensor, jitter: float = 1e-5) -> torch.Tensor:
     """Cholesky of one (P, P) matrix with the reference's 3-rung ladder."""
     L1, ok1 = cholesky_checked(H)
-    if bool(ok1):
+    if trace.read("sigma.rung", bool, ok1):
         return L1
     H2 = make_pd(H)
     L2, ok2 = cholesky_checked(H2)
-    if bool(ok2):
+    if trace.read("sigma.rung", bool, ok2):
         return L2
     eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
     L3, ok3 = cholesky_checked(H2 + jitter * eye)
     # the JAX ladder returns the NaN-filled rung-3 factor when every
     # rung fails; keep that so a non-PD sigma shows up as a NaN bound
-    return L3 if bool(ok3) else torch.full_like(L3, float("nan"))
+    return L3 if trace.read("sigma.rung", bool, ok3) else torch.full_like(L3, float("nan"))
 
 
 def cho_inverse(L: torch.Tensor) -> torch.Tensor:
@@ -74,7 +76,7 @@ def precompute_sigma(sigma: torch.Tensor, jitter: float = 1e-5):
     """
     L = chol_pd(sigma, jitter=jitter)
     sigmaentropy = torch.sum(torch.log(torch.diagonal(L)))
-    siginv = cho_inverse(L)
+    siginv = trace.read("sigma.cholesky_inverse", cho_inverse, L)
     # symmetrize; LAPACK hands back column-major strides, and the stage
     # kernels take row-major contiguous input
     siginv = (0.5 * (siginv + siginv.T)).contiguous()

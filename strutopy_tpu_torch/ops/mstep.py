@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from strutopy_tpu_torch.utils import trace
+
 
 class PrevalenceDesign(NamedTuple):
     """Static design statistics for the prevalence regression.
@@ -359,7 +361,7 @@ def _poisson_newton_batch(Y, m, Xd, offset, alpha, n, iters, W0,
     done = torch.amax(torch.abs(G0), dim=0) < tol
     W, F = W0, obj(W0)
     n_it = 0
-    while n_it < iters and not bool(torch.all(done)):
+    while n_it < iters and not trace.read("kappa.done", bool, torch.all(done)):
         Z = torch.clamp(base + Xd @ W, -lp_clip, lp_clip)
         lam = torch.exp(Z)  # (R, Vc)
         G = Xd.T @ ((lam - Y) / n) + alpha * W  # (P, Vc)

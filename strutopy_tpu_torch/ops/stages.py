@@ -47,6 +47,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from strutopy_tpu_torch.ops import build
+from strutopy_tpu_torch.utils import trace
 
 LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0, "scatter": 0,
             "fgh_bf16_beta": 0, "ls_bf16_beta": 0, "iter_bf16_beta": 0}
@@ -193,7 +194,8 @@ def _newton_step(fgh_fn, cg_fn, ls_fn, eta, beta_doc, counts, mu, siginv, ts, do
     Returns (eta, done, advance): done documents keep their eta; a
     document advances unless it was done or has converged (max|g| <=
     grad_tol), and is done after a step when no step size passes the
-    Armijo test.
+    Armijo test.  Inside ``trace.recording()``, a document that advances
+    with no step size passing counts in ``newton.stalled``.
     """
     f, g, H = fgh_fn(eta, beta_doc, counts, mu, siginv, bf16=bf16)
     conv = torch.amax(torch.abs(g), dim=1) <= grad_tol
@@ -210,6 +212,8 @@ def _newton_step(fgh_fn, cg_fn, ls_fn, eta, beta_doc, counts, mu, siginv, ts, do
     t = torch.amax(torch.where(ok, ts[None, :], 0.0), dim=1)
 
     advance = ~done & ~conv
+    if trace.full():
+        trace.count("newton.stalled", advance, any_ok, op=torch.gt)
     step = advance & any_ok
     eta = torch.where(step[:, None], eta + t[:, None] * p, eta)
     done = done | conv | ~any_ok

@@ -10,6 +10,7 @@ complete the surface: the subpackages' exports, ``cho_inverse``,
 random beta.
 """
 
+import json
 import subprocess
 import sys
 
@@ -401,10 +402,12 @@ def _stm_pair():
             lambda: STM(docs, K=K, X=X, config=cfg, init_beta=beta0, device="cpu"))
 
 
-def test_expectation_maximization_positional_is_jax_s():
+def test_expectation_maximization_positional_is_jax_s(tmp_path):
     """profile_dir 6th and start_iter 7th, as in JAX: after a fit of two
     iterations, a call with start_iter 1 in that place runs one more; the
-    bound tolerance of tests/test_torch_em.py::test_stm_bound_trajectory_matches_jax."""
+    bound tolerance of tests/test_torch_em.py::test_stm_bound_trajectory_matches_jax.
+    A profile_dir in 6th place gets a torch.profiler chrome trace of the
+    iterations, with the fit's spans in it."""
     jm, port = _stm_pair()
     a, b = port(), port()
     for m in (a, b, jm):
@@ -417,5 +420,10 @@ def test_expectation_maximization_positional_is_jax_s():
     np.testing.assert_array_equal(a.theta, b.theta)
     jm.expectation_maximization(False, None, None, 5, False, None, 1)
     np.testing.assert_allclose(a.last_bounds, jm.last_bounds, rtol=1e-5)
-    with pytest.raises(ValueError, match="profile_dir.*TPU-only"):
-        a.expectation_maximization(False, None, None, 5, False, "trace_dir")
+    a.expectation_maximization(False, None, None, 5, False, str(tmp_path / "prof"), 1)
+    assert len(a.last_bounds) == 4 and len(a.trace) == 1
+    (path,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"fit.iteration", "fit.readback", "em.estep", "em.mstep", "estep.gather",
+            "estep.newton", "estep.finalize", "finalize.factor", "finalize.scatter"} <= spans
