@@ -31,7 +31,8 @@ another's.
 Everything else goes to standard error: the card's name and power limit,
 the 5 walls with their median and spread, the largest gap between their
 bounds, the warm-up bounds and straggler overflow, the launches of B1-B3
-during the timed calls, and the baseline with its CPU.
+and the two glue kernels during the timed calls, and the baseline with
+its CPU.
 
     python3 bench_torch.py [--device cuda|cpu]
     python -m strutopy_tpu_torch.cli bench
@@ -62,7 +63,7 @@ BETA_SEED = 123456
 METRIC = "estep_docs_per_sec_K100_V10k"
 BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              ".bench_baseline_torch.json")
-NEWTON_KERNELS = ("fgh", "cg", "ls")  # B1-B3, the E-step's kernels
+NEWTON_KERNELS = ("fgh", "cg", "ls", "direction", "accept")  # B1-B3 and the step's glue
 
 
 def make_corpus(K=K, V=V, N=N, n_words=N_WORDS, seed=0, return_beta=False):
@@ -161,7 +162,7 @@ def time_estep(state, data, cfg, repeats=REPEATS):
     host.  Returns a dict: docs_per_sec (N / median wall), walls, bounds,
     bound_gap (the largest relative gap between the calls' bounds: 0,
     the E-step being a function of its inputs) and the launches
-    of B1-B3 during the timed calls."""
+    of B1-B3 and the two glue kernels during the timed calls."""
     from strutopy_tpu_torch.models.em import local_estep_stats
     from strutopy_tpu_torch.ops import stages
     from strutopy_tpu_torch.utils.precision import float32_matmul

@@ -35,6 +35,14 @@ end, without the final result line):
      call by call) beside its plan, its bound, the finalize's entry-major
      phi, atomic and deterministic ``index_add_``; plan and kernel must
      be no slower than deterministic ``index_add_``;
+     2d. the stage path's two glue kernels (direction, accept) against
+     their plain versions bit for bit (gTp within 4 ulps of its scale) at
+     the bench chunk part-way along its trajectory and on planted inputs
+     (done, NaN, not-descending, converged, no-step and all-done
+     documents) at K=6, 100 and 400; a recorded stage-path loop launching
+     each once a chunk step (B1-B3 and the two, no other op a step but
+     the one read), the fused paths neither; their device and host times
+     beside the PyTorch glue's;
   3. the CUDA fit against the CPU fit of the same small corpus from the
      same numpy beta (3 EM iterations, float32 Hessian);
   4. the fit at full width: the bench.py corpus recipe (K=100,
@@ -175,9 +183,9 @@ end, without the final result line):
      on the host's CPU, measured unless cached for this CPU): return code
      0, standard output exactly one JSON line with bench.py's four keys,
      value and vs_baseline finite and positive, vs_baseline the value over
-     the baseline printed on standard error, B1-B3 launched in the timed
-     calls, the baseline cache written with the configuration and the
-     CPU's name.  The headline is not compared with phase 4 or 14: its
+     the baseline printed on standard error, B1-B3 and the glue kernels
+     launched in the timed calls, the baseline cache written with the
+     configuration and the CPU's name.  The headline is not compared with phase 4 or 14: its
      beta is torch's draw, and phase 14 times one chunk.
 
 The last three lines of standard output are the card line, one JSON
@@ -212,13 +220,16 @@ REPLACES = {
     "gather": "strutopy_tpu/ops/pallas_stages.py:504",
     # the port's own kernel: its JAX twin is an ordered XLA scatter, no pallas_call
     "scatter": "strutopy_tpu/ops/estep.py:695",
+    # the port's own kernels: their JAX twin is the Newton body's XLA glue
+    "direction": "strutopy_tpu/ops/estep.py:426",
+    "accept": "strutopy_tpu/ops/estep.py:443",
 }
 # the bf16-beta_doc modes of B1, B3 and B4 (newton_bf16_beta), each an
 # entry of its own, replacing the same TPU kernel given a bf16 beta_doc
 BETA_MODES = {"fgh_bf16_beta": "fgh", "ls_bf16_beta": "ls", "iter_bf16_beta": "iter"}
 REPLACES.update({mode: REPLACES[base] for mode, base in BETA_MODES.items()})
 SOURCES = {k: "strutopy_tpu_torch/csrc/"
-           + ("stages.cu" if BETA_MODES.get(k, k) in ("fgh", "cg", "ls")
+           + ("stages.cu" if BETA_MODES.get(k, k) in ("fgh", "cg", "ls", "direction", "accept")
               else "scatter.cu" if k == "scatter" else "newton.cu")
            for k in REPLACES}
 FIT_KERNELS = ("fgh", "cg", "ls", "scatter")  # what every fit on the stage path launches
@@ -1183,13 +1194,232 @@ def phase_fused(torch, stages, fails, words, counts, beta_true):
         reps=3, graph=False)
     print(f"  time of the loop on the same chunk: stage kernels (estep._batched_newton) "
           f"{stage_ms:.4f} ms, newton {newton_ms:.4f} ms (timed in turns)")
-    # the same bodies: B5's documents against the stage path's loop (their
-    # step glue sums gᵀp in another order, so equality is expected, not held)
+    # the same bodies and the same step glue (newton_doc.cuh): B5's
+    # documents against the stage path's loop, equality expected, not held
     eta_s, n_s, _done = _batched_newton(bd, c, mu, mu, siginv, NewtonConfig())
     eta5, n5 = stages.newton_loop(bd, c, mu, mu, siginv, ts, LOOP_ITERS, GRAD_TOL, 6, True)
     same = int(((eta5 == eta_s).all(1) & (n5 == n_s)).sum())
     print(f"  newton vs the stage path's loop: eta and the Newton count bit-equal on {same} of "
           f"{B} documents")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the step's glue kernels
+# ---------------------------------------------------------------------------
+
+GLUE = ("direction", "accept")  # the stage path's glue kernels, one launch each a chunk step
+GLUE_WIDTHS = ((6, 1), (400, 16))  # (K, T) beside the bench chunk's (K_BENCH, N_STEPS)
+GLUE_ULPS = 4  # gTp: |kernel - plain| <= GLUE_ULPS · eps · Σ|g_i p_i| (another summation order)
+GLUE_OTHER_OPS = 8  # kernels a Newton loop may launch besides the five a step (its set-up)
+
+
+def glue_cases(torch, B, K, T, seed, device="cuda"):
+    """Inputs of the step's glue for B >= 8 documents at K with T step
+    sizes: (g, x, eta, f, ts, done), with each case the glue branches on
+    planted: every 7th document done, document 1 a NaN in g, every 5th
+    from 2 a direction x that does not descend (x = g), document 3
+    converged (max|g| = GRAD_TOL / 2).  :func:`glue_sweep` makes the sweep
+    values."""
+    gen = torch.Generator().manual_seed(seed)
+    Km1 = K - 1
+    g = torch.randn(B, Km1, generator=gen)
+    x = -g * (0.5 + torch.rand(B, Km1, generator=gen)) + 0.3 * torch.randn(B, Km1, generator=gen)
+    x[2::5] = g[2::5]
+    g[1, Km1 // 2] = float("nan")
+    g[3] *= 0.5 * GRAD_TOL / g[3].abs().max()
+    eta = torch.randn(B, Km1, generator=gen)
+    f = torch.randn(B, generator=gen)
+    ts = torch.exp2(-torch.arange(T, dtype=torch.float32))
+    done = torch.zeros(B, dtype=torch.bool)
+    done[::7] = True
+    return tuple(t.to(device) for t in (g, x, eta, f, ts, done))
+
+
+def glue_sweep(torch, f, gTp, ts, seed):
+    """Sweep values about each step size's Armijo line: fs = f + 1e-4 · t ·
+    gTp · w with w uniform on (-1, 3), so a step size passes where w >= 1
+    (for gTp < 0) and the largest that passes varies; document 4 passes
+    none (fs = inf)."""
+    gen = torch.Generator().manual_seed(seed)
+    w = (4 * torch.rand(f.shape[0], ts.shape[0], generator=gen) - 1).to(f.device)
+    fs = f[:, None] + 1e-4 * ts[None, :] * gTp[:, None] * w
+    fs[4] = float("inf")
+    return fs
+
+
+def same_bits(torch, a, b):
+    """Equal bit for bit (NaN payloads and the sign of 0 included)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def glue_verdict(torch, stages, g, x, eta, f, ts, done, seed, planted):
+    """Both glue kernels against their plain versions on the same inputs,
+    the sweep from :func:`glue_sweep` on plain's gTp, n_iters from 0..4,
+    then the accept kernel on an all-done chunk: ({check: bool}, gTp's
+    largest error in units of its bound, the launch deltas, {kernel: max
+    |kernel - plain|}).  conv, p, every flag, eta, n_iters and all_done
+    must be plain's bit for bit; gTp within GLUE_ULPS of its scale; with
+    ``planted``, :func:`glue_cases`' documents take their branches."""
+    n0 = dict(stages.LAUNCHES)
+    p, gTp, conv = stages.newton_direction(g, x, GRAD_TOL)
+    pw, gw, cw = stages.newton_direction_plain(g, x, GRAD_TOL)
+    fs = glue_sweep(torch, f, gw, ts, seed)
+    it = torch.arange(g.shape[0], dtype=torch.int32, device=g.device) % 5
+    it_p = it.clone()
+    got = stages.newton_accept(eta, pw, fs, f, gw, ts, done, cw, it)
+    want = stages.newton_accept_plain(eta, pw, fs, f, gw, ts, done, cw, it_p)
+    alld = stages.newton_accept(eta, pw, fs, f, gw, ts, torch.ones_like(done), cw)
+    launched = {k: stages.LAUNCHES[k] - n0[k] for k in GLUE}
+    torch.cuda.synchronize()
+    scale = (g * pw).abs().sum(1)
+    fin = torch.isfinite(gw)
+    err = ((gTp - gw).abs() / (GLUE_ULPS * torch.finfo(torch.float32).eps * scale))[fin]
+    worst = float(err.max()) if err.numel() else 0.0
+    checks = {
+        "conv": same_bits(torch, conv, cw), "p": same_bits(torch, p, pw),
+        "gTp": worst <= 1.0 and bool(torch.isnan(gTp[~fin]).all()),
+        "eta": same_bits(torch, got[0], want[0]),
+        "flags": all(same_bits(torch, a, b) for a, b in zip(got[1:], want[1:])),
+        "n_iters": same_bits(torch, it, it_p),
+        "no step": bool(got[1][4]) and not bool(got[3][4]),
+        "all done": bool(alld[4]) and same_bits(torch, alld[0], eta) and not bool(alld[2].any()),
+    }
+    if planted:
+        checks["planted"] = (bool(cw[3]) and not bool(cw[1]) and not bool(fin[1])
+                             and bool(torch.equal(pw[2::5], -g[2::5])))
+    errs = {"direction": float((gTp - gw)[fin].abs().max()),
+            "accept": float((got[0] - want[0]).abs().max())}
+    return checks, worst, launched, errs
+
+
+def glue_host_us(torch, fn, n=200):
+    """Host microseconds a call of ``fn``, ``n`` calls with no sync between."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * sec / n
+
+
+def loop_device_ops(torch, fn):
+    """The CUDA kernels and device-to-host copies of ``fn()`` (a Newton
+    loop) from a torch.profiler trace: ({kernel name: count}, copies)."""
+    import tempfile
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    copies = sum(1 for e in events if e.get("cat") == "gpu_memcpy")
+    return kernels, copies
+
+
+def phase_glue(torch, stages, fails, words, counts, beta_true):
+    """Phase 2d: the stage path's two glue kernels (``newton_direction``
+    between B2 and B3, ``newton_accept`` after B3) against their plain
+    versions, bit for bit but gTp (within GLUE_ULPS), at the bench chunk
+    from a point part-way along its trajectory, then on planted inputs
+    (a done document, a NaN in g, a direction that does not descend, a
+    converged document, one with no passing step size, an all-done chunk)
+    at the bench chunk's K and T and at GLUE_WIDTHS; one launch each a
+    call.  Then a recorded stage-path Newton loop: each glue kernel
+    launched once a chunk step, and not at all on the fused paths; the
+    device ops of a stage-path loop by name; and the kernels' device and
+    host times beside the PyTorch glue's."""
+    from strutopy_tpu_torch.corpus.bow import PaddedCorpus
+    from strutopy_tpu_torch.ops.estep import NewtonConfig, _batched_newton, _newton_loop
+    from strutopy_tpu_torch.utils import trace
+
+    inputs_loop = dgp_inputs(torch, PaddedCorpus(words, counts, counts.sum(1) > 0, V_BENCH),
+                             beta_true)
+    bd, c, mu, siginv = inputs_loop
+    B, K, L = bd.shape
+    ts = step_sizes(torch, mu.device)
+    eta, done = midway(torch, stages, inputs_loop, True)
+    f, g, H = stages.fgh(eta, bd, c, mu, siginv, bf16=True)
+    x = stages.cg(H, g, 6, bf16=True)
+    print(f"phase 2d: the step's glue kernels vs plain, B={B} K={K} T={N_STEPS}")
+    results = {k: {"max_abs_err": 0.0, "library_ms": None} for k in GLUE}
+    cases = [("bench chunk, midway", (g, x, eta, f, ts, done), False)]
+    cases += [(f"planted K={k} T={t}", glue_cases(torch, B, k, t, seed=20 + k), True)
+              for k, t in ((K, N_STEPS),) + GLUE_WIDTHS]
+    for label, args, planted in cases:
+        checks, worst, launched, errs = glue_verdict(torch, stages, *args, seed=7,
+                                                     planted=planted)
+        fails.check(all(checks.values()) and launched == {"direction": 1, "accept": 2},
+                    f"{label}: {checks}, gTp's worst error / bound {worst:.3f}; launches "
+                    f"{launched}")
+        for k in GLUE:
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"], errs[k])
+
+    # the step on the card: a recorded stage-path loop, and the fused paths
+    counters = {}
+    for path, run in (("stage", lambda: _batched_newton(bd, c, mu, mu, siginv, NewtonConfig())),
+                      ("iter", lambda: _batched_newton(bd, c, mu, mu, siginv,
+                                                       NewtonConfig(pallas_iter=True))),
+                      ("newton", lambda: _newton_loop(bd, c, mu, mu, siginv, NewtonConfig()))):
+        with trace.recording(), trace.span("phase 2d") as rec:
+            run()
+        rec.resolve()
+        counters[path] = {k: rec.counters.get(k) for k in
+                          ("newton.chunk_steps", "launch.fgh", "launch.direction",
+                           "launch.accept", "launch.iter", "launch.newton")}
+    steps = counters["stage"]["newton.chunk_steps"]
+    fails.check(steps > 0 and all(counters["stage"][f"launch.{k}"] == steps
+                                  for k in ("fgh",) + GLUE)
+                and all(counters[p][f"launch.{k}"] == 0 for p in ("iter", "newton")
+                        for k in GLUE),
+                f"recorded loops: launch.direction and launch.accept equal newton.chunk_steps "
+                f"on the stage path, 0 on the fused paths: {counters}")
+    kernels, copies = loop_device_ops(
+        torch, lambda: _batched_newton(bd, c, mu, mu, siginv, NewtonConfig()))
+    names = ("fgh_kernel", "cg_kernel", "step_direction_kernel", "ls_kernel",
+             "step_accept_kernel")
+    mine = {n: sum(v for k, v in kernels.items() if n in k) for n in names}
+    steps = mine["fgh_kernel"]
+    other = {k: v for k, v in kernels.items() if not any(n in k for n in names)}
+    fails.check(steps > 0 and all(v == steps for v in mine.values())
+                and sum(other.values()) <= GLUE_OTHER_OPS and copies <= steps + 1,
+                f"a stage-path loop of {steps} steps launches each of B1, B2, the direction, "
+                f"B3 and the accept kernel once a step {mine}, {sum(other.values())} other "
+                f"kernels in all (at most {GLUE_OTHER_OPS}: {other}) and {copies} "
+                f"device-to-host copies (at most one a step and one before)")
+
+    # times: the device's (CUDA graphs) and the host's, beside the PyTorch glue
+    pw, gw, cw = stages.newton_direction_plain(g, x, GRAD_TOL)
+    fs = stages.linesearch(eta, pw, ts, bd, c, mu, siginv)
+    it = torch.zeros(B, dtype=torch.int32, device=g.device)
+    dir_k = lambda: stages.newton_direction(g, x, GRAD_TOL)  # noqa: E731
+    dir_p = lambda: stages.newton_direction_plain(g, x, GRAD_TOL)  # noqa: E731
+    acc_k = lambda: stages.newton_accept(eta, pw, fs, f, gw, ts, done, cw, it)  # noqa: E731
+    acc_p = lambda: stages.newton_accept_plain(eta, pw, fs, f, gw, ts, done, cw,  # noqa: E731
+                                               it.clone())
+    for name, kfn, pfn, io in (
+            ("direction", dir_k, dir_p, nbytes(g, x, pw, gw, cw)),
+            ("accept", acc_k, acc_p, nbytes(eta, pw, fs, f, gw, ts, done, cw, it, it)
+             + nbytes(eta, done, done, done) + 1)):
+        ms, pms = time_pair(torch, kfn, pfn)
+        results[name].update(ms=ms, plain_ms=pms)
+        results[name]["bound_ms"], results[name]["bound_by"] = roofline(io, {})
+        print(f"  {name}: host {glue_host_us(torch, kfn):.1f} us a call, the PyTorch glue's "
+              f"{glue_host_us(torch, pfn):.1f} [{CARD}]")
+    print_times(results, "median of 3 rounds of a CUDA graph of 20 calls")
     return results
 
 
@@ -1219,7 +1449,7 @@ FUSED_PATHS = {  # Newton path -> STMConfig changes that select it
     "newton": {"use_pallas": True, "newton_pass1_iters": 0},
 }
 # each Newton path's kernels, and the phi scatter every E-step's finalize launches
-PATH_KERNELS = {"stage": FIT_KERNELS, "iter": ("iter", "scatter"), "newton": ("newton", "scatter")}
+PATH_KERNELS = {"stage": FIT_KERNELS + GLUE, "iter": ("iter", "scatter"), "newton": ("newton", "scatter")}
 
 
 def reset(stages):
@@ -1264,12 +1494,15 @@ def phase_fused_fit(torch, fails, stages, docs, X, cfg, card):
             print(f"phase 4b: {path} EM {it} from the stage path's state: bound {b[-1]:.6f}, "
                   f"{sec:.4f} s, {model.N / sec:.1f} docs/s [{card}]")
         launches = {k: stages.LAUNCHES[k] for k in PATH_KERNELS[path]}
+        glue = {k: stages.LAUNCHES[k] for k in GLUE}
         b = np.asarray(b)
         rel = np.abs(b - ref_b) / np.abs(ref_b)
         fails.check(bool(np.isfinite(b).all()) and float(rel.max()) <= FIT_RTOL
-                    and all(v > 0 for v in launches.values()),
+                    and all(v > 0 for v in launches.values())
+                    and not any(glue.values()),
                     f"{path} fit: 2 bounds finite, max rel diff to the stage path from the "
-                    f"same state {rel.max():.3e} (tol {FIT_RTOL:.0e}); launches {launches}")
+                    f"same state {rel.max():.3e} (tol {FIT_RTOL:.0e}); launches {launches}, "
+                    f"glue kernels none {glue}")
 
 
 def recorded_fit(torch, model):
@@ -3586,9 +3819,9 @@ def check_bench(fails, rc, out, err, cache, cpu):
     code; its standard output exactly one line, JSON with bench.py's four
     keys and no others, a finite positive value and ratio; the ratio the
     value over the baseline on its standard error to within the rounding
-    of both; B1-B3 launched in the timed calls; ``cache`` (the baseline
-    cache's JSON after the run, or None) holding the configuration, the
-    host CPU's name ``cpu`` and that baseline.  Returns the headline."""
+    of both; B1-B3 and the glue kernels launched in the timed calls;
+    ``cache`` (the baseline cache's JSON after the run, or None) holding
+    the configuration, the host CPU's name ``cpu`` and that baseline.  Returns the headline."""
     fails.check(rc == 0, f"phase 15: bench exits with 0 (rc {rc})")
     lines = out.splitlines()
     fails.check(len(lines) == 1, f"phase 15: standard output is one line ({len(lines)})")
@@ -3614,7 +3847,7 @@ def check_bench(fails, rc, out, err, cache, cpu):
                 f"within the rounding")
     launches = fig["launches"] or {}
     fails.check(all(launches.get(k, 0) > 0 for k in bench_torch.NEWTON_KERNELS),
-                f"phase 15: B1-B3 launched in the timed calls {launches}")
+                f"phase 15: B1-B3 and the glue kernels launched in the timed calls {launches}")
     cache = cache or {}
     want = [bench_torch.K, bench_torch.V, bench_torch.N_WORDS]
     fails.check(cache.get("config") == want and cache.get("cpu") == cpu
@@ -3699,6 +3932,7 @@ def main() -> int:
     phase_determinism(torch, stages, fails, inputs, aux)
     kernels.update(phase_scatter(torch, stages, fails, inputs, words, counts))
     kernels.update(phase_fused(torch, stages, fails, words, counts, beta_true))
+    kernels.update(phase_glue(torch, stages, fails, words, counts, beta_true))
     phase_widths(torch, stages, fails)
     phase_fused_widths(torch, stages, fails)
     phase_small_fit(torch, fails)
@@ -3724,6 +3958,9 @@ def main() -> int:
                 f"{len(model.last_bounds)} EM iterations, every bound finite")
     for k in FIT_KERNELS:
         fails.check(launches[k] > 0, f"main path launched {k} {launches[k]} times")
+    fails.check(all(launches[k] == launches["fgh"] for k in GLUE),
+                f"main path launched each glue kernel once a B1 launch: "
+                f"{ {k: launches[k] for k in ('fgh',) + GLUE} }")
     theta, beta = model.theta, model.beta
     bench_bounds = np.asarray(model.last_bounds)
     fails.check(theta.shape == (N_BENCH, K_BENCH) and beta.shape == (K_BENCH, V_BENCH)

@@ -16,10 +16,12 @@
 // per-document bodies of newton_doc.cuh that the stage kernels B1, B2 and
 // B3 run (fgh_body, cg_body, ls_body), so a fused step computes f, g, H,
 // the direction and the sweep bit for bit as the stage path does.  The
-// step choice and the update follow the PyTorch glue of
-// strutopy_tpu_torch/ops/stages.py::_newton_step operation for operation,
-// with __fmul_rn/__fadd_rn so that nvcc does not contract them into FMAs
-// that PyTorch's elementwise kernels do not use.
+// convergence test, the direction's fallback and the step choice are
+// newton_doc.cuh's step glue, which the stage path's glue kernels
+// (stages.cu) run too; the update follows newton_accept_plain of
+// strutopy_tpu_torch/ops/stages.py operation for operation, with
+// __fmul_rn/__fadd_rn so that nvcc does not contract them into FMAs that
+// PyTorch's elementwise kernels do not use.
 //
 // What bounds them on the H100, and what the design does about it:
 //   * newton: a loop is bound by its longest chain: a chunk costs about
@@ -211,14 +213,7 @@ __device__ __forceinline__ int2 newton_step(const NewtonPlan& pl, float* smem, c
   }
   __syncthreads();
 
-  // convergence: max|g| <= grad_tol (a NaN in g is not converged, as in
-  // torch.amax, which propagates it)
-  float gm = 0.f;
-  for (int i = tid; i < Km1; i += kThreads) {
-    const float a = fabsf(g[i]);
-    gm = isnan(a) ? INFINITY : fmaxf(gm, a);
-  }
-  if (block_max(gm, red) <= grad_tol) return make_int2(1, 0);
+  if (grad_converged(g, Km1, grad_tol, red)) return make_int2(1, 0);
 
   constexpr int NP = NewtonShape<W, STAGES, RESIDENT>::kNP;
   if (pl.h_where == kHGlobal)
@@ -227,35 +222,15 @@ __device__ __forceinline__ int2 newton_step(const NewtonPlan& pl, float* smem, c
     cg_body<NP>(HShared<BF16>{smem + pl.h, hout.ld}, diag, g, p, Km1, cg_iters, smem + pl.cg);
   __syncthreads();
 
-  // a direction that does not descend falls back to -g
-  float part = 0.f;
-  for (int i = tid; i < Km1; i += kThreads) part += g[i] * p[i];
-  float gTp = block_sum(part, red);
-  if (gTp >= 0.f) {
-    part = 0.f;
-    for (int i = tid; i < Km1; i += kThreads) {
-      const float gi = g[i];
-      p[i] = -gi;
-      part += gi * gi;
-    }
-    gTp = -block_sum(part, red);  // also publishes p
-  }
+  // a direction that does not descend falls back to -g (in place)
+  const float gTp = descent_direction(g, p, p, Km1, red);
 
   ls_body<W, STAGES, RESIDENT, TB>(sig, sig_shared, ts, T, eta, p, mu, beta_d, cnt_d, fs, 0, K, L,
                                vec16, smem);
   __syncthreads();
 
-  // the first (largest) step size that passes the Armijo test
-  const float f0 = *f;
-  float t = 0.f;
-  bool any_ok = false;
-  for (int k = 0; k < T; ++k) {
-    const float rhs = __fadd_rn(f0, __fmul_rn(__fmul_rn(1e-4f, ts[k]), gTp));
-    if (fs[k] <= rhs) {
-      any_ok = true;
-      t = fmaxf(t, ts[k]);
-    }
-  }
+  bool any_ok;
+  const float t = armijo_step(fs, ts, T, *f, gTp, &any_ok);
   if (any_ok) {
     for (int i = tid; i < Km1; i += kThreads) eta[i] = __fadd_rn(eta[i], __fmul_rn(t, p[i]));
   }

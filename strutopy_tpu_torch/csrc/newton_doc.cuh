@@ -13,6 +13,9 @@
 //             memory (or, at large K, in device memory)
 //   ls_body   the Armijo sweep f(eta + t p) for T step sizes (B3), the
 //             same slab stream
+//   grad_converged, descent_direction, armijo_step
+//             the step's glue around them (B4, B5, and the stage path's
+//             two glue kernels in stages.cu)
 //
 // Every body takes its per-document inputs and outputs as generic
 // pointers (device or shared memory alike) and its scratch in the block's
@@ -1070,6 +1073,70 @@ __device__ __forceinline__ void ls_body(
     }
     fs[d * T + tid] = 0.5f * qsum - ll + Nd * lse[tid];
   }
+}
+
+// ---------------------------------------------------------------------------
+// the step glue: convergence, the direction's fallback, the step choice
+// ---------------------------------------------------------------------------
+//
+// What ops/stages.py::newton_direction_plain and newton_accept_plain do for
+// one document, shared by the fused step (newton.cu) and the stage path's
+// glue kernels (stages.cu), so both take the same float32 operations in the
+// same order.  max|g| and the step are exact; the two dot products sum in
+// the block's fixed order (a thread's strided terms, then warp_sum /
+// block_sum), not torch's.
+
+// max|g| <= grad_tol, the same in every thread (a NaN in g is not
+// converged, as in torch.amax, which propagates it).
+__device__ __forceinline__ bool grad_converged(const float* g, int Km1, float grad_tol,
+                                               float* red) {
+  float gm = 0.f;
+  for (int i = threadIdx.x; i < Km1; i += kThreads) {
+    const float a = fabsf(g[i]);
+    gm = isnan(a) ? INFINITY : fmaxf(gm, a);
+  }
+  return block_max(gm, red) <= grad_tol;
+}
+
+// The search direction from CG's x: p = -g with gᵀp = -gᵀg where gᵀx >= 0
+// (x does not descend), else p = x (a NaN gᵀx keeps x, as the plain version
+// does).  Returns gᵀp in every thread.  p may be x itself (the fused step's
+// shared copy); in the fallback the closing block_sum's barriers publish p.
+__device__ __forceinline__ float descent_direction(const float* g, const float* x, float* p,
+                                                   int Km1, float* red) {
+  float part = 0.f;
+  for (int i = threadIdx.x; i < Km1; i += kThreads) part += g[i] * x[i];
+  float gTp = block_sum(part, red);
+  if (gTp >= 0.f) {
+    part = 0.f;
+    for (int i = threadIdx.x; i < Km1; i += kThreads) {
+      const float gi = g[i];
+      p[i] = -gi;
+      part += gi * gi;
+    }
+    gTp = -block_sum(part, red);
+  } else if (p != x) {
+    for (int i = threadIdx.x; i < Km1; i += kThreads) p[i] = x[i];
+  }
+  return gTp;
+}
+
+// The first (largest) of the T step sizes whose sweep value passes the
+// Armijo test fs <= f + 1e-4·t·gTp, rounded as PyTorch rounds it (no FMA
+// contraction), 0 where none passes; *any_ok: whether one passes.
+__device__ __forceinline__ float armijo_step(const float* fs, const float* ts, int T, float f0,
+                                             float gTp, bool* any_ok) {
+  float t = 0.f;
+  bool ok = false;
+  for (int k = 0; k < T; ++k) {
+    const float rhs = __fadd_rn(f0, __fmul_rn(__fmul_rn(1e-4f, ts[k]), gTp));
+    if (fs[k] <= rhs) {
+      ok = true;
+      t = fmaxf(t, ts[k]);
+    }
+  }
+  *any_ok = ok;
+  return t;
 }
 
 // ---------------------------------------------------------------------------

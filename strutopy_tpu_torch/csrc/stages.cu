@@ -8,6 +8,14 @@
 //   stm_ls   the parallel Armijo sweep f(eta + t p) for T step sizes
 //            (replaces strutopy_tpu/ops/pallas_stages.py::_ls_kernel)
 //
+// and the step's glue around them, which the JAX package leaves to XLA:
+//
+//   stm_newton_direction  between B2 and B3: the convergence test and
+//            the direction's fallback to -g
+//   stm_newton_accept     after B3: the step choice, the eta update, the
+//            done/advance flags, the Newton counts and the chunk's
+//            "all done" flag
+//
 // Every entry point has a plain C interface (loaded with ctypes): it
 // launches on the stream it is given, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() so the caller sees a
@@ -29,8 +37,9 @@
 // on B or on the document's place in the chunk.
 //
 // Each kernel is a thin wrapper around its per-document body in
-// newton_doc.cuh (fgh_body, cg_body, ls_body), the bodies the fused
-// kernel of newton.cu (B4, B5) runs too.
+// newton_doc.cuh (fgh_body, cg_body, ls_body; the glue: grad_converged,
+// descent_direction, armijo_step), the bodies the fused kernel of
+// newton.cu (B4, B5) runs too.
 //
 // A bf16 beta_doc's slabs are half the bytes of float32 ones, and B3 gives
 // them a plan of its own (kBetaLs below, chosen by timing the candidates).
@@ -150,6 +159,69 @@ cg_kernel(const float* __restrict__ H, const float* __restrict__ g,
     cg_body<NP>(HShared<BF16>{Hs, ld}, diag, gs, x_out + d * Km1, Km1, iters, scratch);
   else
     cg_body<NP>(HGlobal<BF16>{H_d, Km1}, diag, gs, x_out + d * Km1, Km1, iters, scratch);
+}
+
+// The direction's glue, between B2 and B3: one block per document.
+// conv[d] = max|g| <= grad_tol; p and gTp from CG's x, -g where x does not
+// descend (newton_doc.cuh::descent_direction).
+__global__ void __launch_bounds__(kThreads)
+step_direction_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                      float* __restrict__ p, float* __restrict__ gTp_out,
+                      uint8_t* __restrict__ conv_out, int Km1, float grad_tol) {
+  __shared__ float red[kWarps];
+  const size_t d = blockIdx.x;
+  const float* g_d = g + d * Km1;
+  const bool conv = grad_converged(g_d, Km1, grad_tol, red);
+  const float gTp = descent_direction(g_d, x + d * Km1, p + d * Km1, Km1, red);
+  if (threadIdx.x == 0) {
+    gTp_out[d] = gTp;
+    conv_out[d] = conv;
+  }
+}
+
+// The step's glue after B3: block d < B takes document d's Armijo step
+// (newton_doc.cuh::armijo_step) and writes its eta, done, advance and
+// any_ok flags, and adds advance to n_iters[d] (when given); block B
+// computes every document's new done flag again, in the same way, and
+// writes their AND to *all_done (__syncthreads_and: an order-free
+// boolean reduction, no atomics and no second launch).
+__global__ void __launch_bounds__(kThreads)
+step_accept_kernel(const float* __restrict__ eta, const float* __restrict__ p,
+                   const float* __restrict__ fs, const float* __restrict__ f,
+                   const float* __restrict__ gTp, const float* __restrict__ ts,
+                   const uint8_t* __restrict__ done, const uint8_t* __restrict__ conv,
+                   float* __restrict__ eta_out, uint8_t* __restrict__ done_out,
+                   uint8_t* __restrict__ adv_out, uint8_t* __restrict__ any_ok_out,
+                   int* __restrict__ n_iters, uint8_t* __restrict__ all_done, int B, int Km1,
+                   int T) {
+  __shared__ float ts_s[kMaxT];
+  if ((int)threadIdx.x < T) ts_s[threadIdx.x] = ts[threadIdx.x];
+  __syncthreads();
+  bool any_ok;
+  if ((int)blockIdx.x == B) {
+    bool all = true;
+    for (int d = threadIdx.x; d < B; d += kThreads) {
+      armijo_step(fs + (size_t)d * T, ts_s, T, f[d], gTp[d], &any_ok);
+      all = all && (done[d] || conv[d] || !any_ok);
+    }
+    all = __syncthreads_and(all);
+    if (threadIdx.x == 0) *all_done = all;
+    return;
+  }
+  const size_t d = blockIdx.x;
+  const float t = armijo_step(fs + d * T, ts_s, T, f[d], gTp[d], &any_ok);
+  const bool advance = !done[d] && !conv[d];
+  const bool step = advance && any_ok;
+  for (int i = threadIdx.x; i < Km1; i += kThreads) {
+    const float e = eta[d * Km1 + i];
+    eta_out[d * Km1 + i] = step ? __fadd_rn(e, __fmul_rn(t, p[d * Km1 + i])) : e;
+  }
+  if (threadIdx.x == 0) {
+    done_out[d] = done[d] || conv[d] || !any_ok;
+    adv_out[d] = advance;
+    any_ok_out[d] = any_ok;
+    if (n_iters != nullptr) n_iters[d] += advance;
+  }
 }
 
 // A stage kernel's plan: W-slot slabs `stages` deep, how many blocks an SM
@@ -363,6 +435,31 @@ int stm_ls(const void* siginv, const void* ts, const void* eta, const void* p,
                 : launch_ls<float>(plan, B, stream, siginv, ts, eta, p, mu, beta_doc, counts,
                                    fs, K, L, T);
   return (int)err;
+}
+
+// The direction's glue: p, gTp, conv from g and CG's x (B, Km1).
+int stm_newton_direction(const void* g, const void* x, void* p, void* gTp, void* conv, int B,
+                         int Km1, float grad_tol, void* stream) {
+  if (B == 0) return 0;
+  if (Km1 < 1) return (int)cudaErrorInvalidValue;
+  step_direction_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)x, (float*)p, (float*)gTp, (uint8_t*)conv, Km1, grad_tol);
+  return (int)cudaGetLastError();
+}
+
+// The step's glue after the sweep: B + 1 blocks, so *all_done is written
+// for B = 0 too.  n_iters may be null.
+int stm_newton_accept(const void* eta, const void* p, const void* fs, const void* f,
+                      const void* gTp, const void* ts, const void* done, const void* conv,
+                      void* eta_out, void* done_out, void* adv_out, void* any_ok, void* n_iters,
+                      void* all_done, int B, int Km1, int T, void* stream) {
+  if (T < 1 || T > kMaxT || Km1 < 1) return (int)cudaErrorInvalidValue;
+  step_accept_kernel<<<B + 1, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)eta, (const float*)p, (const float*)fs, (const float*)f, (const float*)gTp,
+      (const float*)ts, (const uint8_t*)done, (const uint8_t*)conv, (float*)eta_out,
+      (uint8_t*)done_out, (uint8_t*)adv_out, (uint8_t*)any_ok, (int*)n_iters,
+      (uint8_t*)all_done, B, Km1, T);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

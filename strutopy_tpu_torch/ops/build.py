@@ -49,6 +49,8 @@ _SIGNATURES = {
     "stm_newton": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "stm_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
     "stm_scatter_phi": [_P] * 4 + [_I] * 3 + [_P],
+    "stm_newton_direction": [_P] * 5 + [_I] * 2 + [_F, _P],
+    "stm_newton_accept": [_P] * 14 + [_I] * 3 + [_P],
 }
 
 

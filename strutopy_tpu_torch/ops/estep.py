@@ -11,7 +11,8 @@ by a batched damped Newton solve, on one of three paths, all CUDA
 kernels of ``ops/stages.py``:
 
   * the default: each iteration runs the three stage kernels (f/g/H, the
-    CG direction, the Armijo sweep) with the step glue in PyTorch;
+    CG direction, the Armijo sweep) and two glue kernels (the direction's
+    fallback; the step choice, the flags and the chunk's "all done");
   * ``NewtonConfig.pallas_iter``: each iteration is one fused kernel;
   * ``run_estep(use_pallas=True)``: the whole loop is one kernel per
     chunk (single pass only);
@@ -61,7 +62,7 @@ class NewtonConfig(NamedTuple):
     # document is done (done documents are frozen either way)
     fixed_iters: bool = False
     # one fused kernel per Newton iteration (stages.newton_iter) in place
-    # of the three stage kernels and their PyTorch glue
+    # of the three stage kernels and their two glue kernels
     pallas_iter: bool = False
     # < 1 tempers the likelihood of the eta SEARCH objective; the
     # finalize always evaluates the true model (see the JAX twin)
@@ -119,27 +120,36 @@ def _batched_newton(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig,
     with ``done0`` carrying the earlier call's flags.
 
     The loop stops once every document is done, which costs a host sync
-    per iteration (the JAX ``while_loop`` condition).  While recording
+    per iteration (the JAX ``while_loop`` condition): a read of the flag
+    the stage path's step computes on the device (``stages.stage_step``,
+    which also advances n_iters there), or of ``torch.all(done)`` before
+    the first step and on the fused path.  While recording
     (``utils/trace.py``) it counts its steps and the documents' advances;
     inside ``trace.recording()`` the stage path's steps count stalls, the
     fused iteration's none.
     """
     B, K, _ = beta_doc.shape
     counts = _search_counts(counts, cfg)
-    step = stages.newton_iter if cfg.pallas_iter else stages.stage_iter
     cg_iters = min(cfg.cg_iters, K - 1)
     ts = _step_sizes(cfg, eta0)
     eta = eta0
     done = (torch.zeros(B, dtype=torch.bool, device=eta0.device)
             if done0 is None else done0)
     n_iters = torch.zeros(B, dtype=torch.int32, device=eta0.device)
+    all_done = None  # the step's "every document done" flag, on the device
     steps = 0
     for _ in range(cfg.max_iters):
-        if not cfg.fixed_iters and trace.read("newton.done", bool, torch.all(done)):
+        if not cfg.fixed_iters and trace.read(
+                "newton.done", bool, torch.all(done) if all_done is None else all_done):
             break
-        eta, done, advance = step(eta, beta_doc, counts, mu, siginv, ts, done,
-                                  cfg.grad_tol, cg_iters, cfg.bf16_hessian)
-        n_iters = n_iters + advance.to(torch.int32)
+        if cfg.pallas_iter:
+            eta, done, advance = stages.newton_iter(eta, beta_doc, counts, mu, siginv, ts, done,
+                                                    cfg.grad_tol, cg_iters, cfg.bf16_hessian)
+            n_iters = n_iters + advance.to(torch.int32)
+        else:
+            eta, done, _advance, all_done = stages.stage_step(
+                eta, beta_doc, counts, mu, siginv, ts, done, n_iters, cfg.grad_tol, cg_iters,
+                cfg.bf16_hessian)
         steps += 1
     if trace.active():
         trace.count("newton.chunk_steps", steps)

@@ -5,20 +5,24 @@ Each function has a plain PyTorch version and a CUDA kernel
 (``csrc/stages.cu``, ``csrc/newton.cu``, ``csrc/scatter.cu``), with the
 same signature:
 
-  ===========  ===========================  ==================================
-  function     plain version                kernel wrapper (launch counter)
-  ===========  ===========================  ==================================
-  f, g, H      :func:`fgh_plain`            :func:`fgh` (``LAUNCHES["fgh"]``)
-  CG           :func:`cg_plain`             :func:`cg` (``LAUNCHES["cg"]``)
-  Armijo       :func:`linesearch_plain`     :func:`linesearch` (``"ls"``)
-  iteration    :func:`newton_iter_plain`    :func:`newton_iter` (``"iter"``)
-  Newton loop  :func:`newton_loop_plain`    :func:`newton_loop` (``"newton"``)
-  row gather   :func:`gather_rows_plain`    :func:`gather_rows` (``"gather"``)
-  phi scatter  :func:`scatter_phi_plain`    :func:`scatter_phi` (``"scatter"``)
-  ===========  ===========================  ==================================
+  ===========  ==============================  ==========================================
+  function     plain version                   kernel wrapper (launch counter)
+  ===========  ==============================  ==========================================
+  f, g, H      :func:`fgh_plain`               :func:`fgh` (``LAUNCHES["fgh"]``)
+  CG           :func:`cg_plain`                :func:`cg` (``LAUNCHES["cg"]``)
+  Armijo       :func:`linesearch_plain`        :func:`linesearch` (``"ls"``)
+  direction    :func:`newton_direction_plain`  :func:`newton_direction` (``"direction"``)
+  step choice  :func:`newton_accept_plain`     :func:`newton_accept` (``"accept"``)
+  iteration    :func:`newton_iter_plain`       :func:`newton_iter` (``"iter"``)
+  Newton loop  :func:`newton_loop_plain`       :func:`newton_loop` (``"newton"``)
+  row gather   :func:`gather_rows_plain`       :func:`gather_rows` (``"gather"``)
+  phi scatter  :func:`scatter_phi_plain`       :func:`scatter_phi` (``"scatter"``)
+  ===========  ==============================  ==========================================
 
-:func:`stage_iter` is the default Newton iteration: the step glue of
-:func:`newton_iter_plain` around the three stage kernels.
+:func:`stage_step` is the default Newton iteration: the three stage
+kernels and, between and after them, the two glue kernels that do what
+:func:`newton_iter_plain` does around its stages (the direction's
+fallback, the step choice, the flags and the chunk's "all done").
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.  There is no fallback from one to the
@@ -50,7 +54,8 @@ from strutopy_tpu_torch.ops import build
 from strutopy_tpu_torch.utils import trace
 
 LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0, "scatter": 0,
-            "fgh_bf16_beta": 0, "ls_bf16_beta": 0, "iter_bf16_beta": 0}
+            "fgh_bf16_beta": 0, "ls_bf16_beta": 0, "iter_bf16_beta": 0, "direction": 0,
+            "accept": 0}
 BETA_DTYPES = (torch.float32, torch.bfloat16)  # the beta_doc fgh, ls and iter take
 
 
@@ -186,38 +191,66 @@ def fgh_plain(eta, beta_doc, counts, mu, siginv, bf16: bool):
     return f, g, H
 
 
-def _newton_step(fgh_fn, cg_fn, ls_fn, eta, beta_doc, counts, mu, siginv, ts, done,
-                 grad_tol: float, cg_iters: int, bf16: bool):
-    """One damped-Newton iteration of a chunk on the given stage functions
-    (the body of ``strutopy_tpu/ops/estep.py::_batched_newton``).
-
-    Returns (eta, done, advance): done documents keep their eta; a
-    document advances unless it was done or has converged (max|g| <=
-    grad_tol), and is done after a step when no step size passes the
-    Armijo test.  Inside ``trace.recording()``, a document that advances
-    with no step size passing counts in ``newton.stalled``.
-    """
-    f, g, H = fgh_fn(eta, beta_doc, counts, mu, siginv, bf16=bf16)
+def newton_direction_plain(g, x, grad_tol: float):
+    """Plain version of :func:`newton_direction`: (p, gTp, conv).  conv is
+    max|g| <= grad_tol (a NaN in g is not converged); p is CG's x where it
+    descends (gᵀx < 0), else -g, with gTp = gᵀp."""
     conv = torch.amax(torch.abs(g), dim=1) <= grad_tol
-    p = cg_fn(H, g, cg_iters, bf16=bf16)
-    gTp = torch.sum(g * p, dim=1)
+    gTp = torch.sum(g * x, dim=1)
     bad = gTp >= 0
-    p = torch.where(bad[:, None], -g, p)
+    p = torch.where(bad[:, None], -g, x)
     gTp = torch.where(bad, -torch.sum(g * g, dim=1), gTp)
+    return p, gTp, conv
 
-    # parallel Armijo sweep: the first (largest) acceptable step
-    fs = ls_fn(eta, p, ts, beta_doc, counts, mu, siginv)
+
+def newton_accept_plain(eta, p, fs, f, gTp, ts, done, conv, n_iters=None):
+    """Plain version of :func:`newton_accept`: (eta, done, advance, any_ok,
+    all_done).  The parallel Armijo sweep's first (largest) passing step
+    size moves each document that advances (not done, not converged);
+    done takes conv and the documents where no step size passes; n_iters,
+    when given, adds advance in place; all_done is torch.all(done)."""
     ok = fs <= f[:, None] + 1e-4 * ts[None, :] * gTp[:, None]
     any_ok = torch.any(ok, dim=1)
     t = torch.amax(torch.where(ok, ts[None, :], 0.0), dim=1)
-
     advance = ~done & ~conv
-    if trace.full():
-        trace.count("newton.stalled", advance, any_ok, op=torch.gt)
     step = advance & any_ok
     eta = torch.where(step[:, None], eta + t[:, None] * p, eta)
     done = done | conv | ~any_ok
-    return eta, done, advance
+    if n_iters is not None:
+        n_iters += advance.to(torch.int32)
+    return eta, done, advance, any_ok, torch.all(done)
+
+
+def _step(fgh_fn, cg_fn, ls_fn, direction_fn, accept_fn, eta, beta_doc, counts, mu, siginv, ts,
+          done, n_iters, grad_tol: float, cg_iters: int, bf16: bool):
+    """One damped-Newton iteration of a chunk on the given stage and glue
+    functions (the body of ``strutopy_tpu/ops/estep.py::_batched_newton``):
+    (eta, done, advance, all_done), n_iters (or None) advanced in place.
+
+    Done documents keep their eta; a document advances unless it was done
+    or has converged (max|g| <= grad_tol), and is done after a step when
+    no step size passes the Armijo test.  Inside ``trace.recording()``, a
+    document that advances with no step size passing counts in
+    ``newton.stalled``.
+    """
+    f, g, H = fgh_fn(eta, beta_doc, counts, mu, siginv, bf16=bf16)
+    x = cg_fn(H, g, cg_iters, bf16=bf16)
+    p, gTp, conv = direction_fn(g, x, grad_tol)
+    # parallel Armijo sweep: the first (largest) acceptable step
+    fs = ls_fn(eta, p, ts, beta_doc, counts, mu, siginv)
+    eta, done, advance, any_ok, all_done = accept_fn(eta, p, fs, f, gTp, ts, done, conv,
+                                                     n_iters)
+    if trace.full():
+        trace.count("newton.stalled", advance, any_ok, op=torch.gt)
+    return eta, done, advance, all_done
+
+
+def _newton_step(fgh_fn, cg_fn, ls_fn, eta, beta_doc, counts, mu, siginv, ts, done,
+                 grad_tol: float, cg_iters: int, bf16: bool):
+    """:func:`_step` on the given stage functions with the plain glue:
+    (eta, done, advance)."""
+    return _step(fgh_fn, cg_fn, ls_fn, newton_direction_plain, newton_accept_plain, eta,
+                 beta_doc, counts, mu, siginv, ts, done, None, grad_tol, cg_iters, bf16)[:3]
 
 
 def newton_iter_plain(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
@@ -228,13 +261,25 @@ def newton_iter_plain(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: flo
                         siginv, ts, done, grad_tol, cg_iters, bf16)
 
 
+def stage_step(eta, beta_doc, counts, mu, siginv, ts, done, n_iters, grad_tol: float,
+               cg_iters: int, bf16: bool = True):
+    """One Newton iteration on the stage kernels (:func:`fgh`, :func:`cg`,
+    :func:`linesearch`) and the two glue kernels (:func:`newton_direction`,
+    :func:`newton_accept`): five launches, no host sync; the default path.
+    Returns (eta, done, advance, all_done), all_done a 0-dim bool tensor on
+    the device; ``n_iters`` (int32 (B,), or None) adds advance in place.
+    On CPU tensors it is :func:`newton_iter_plain` with those two extras."""
+    return _step(fgh, cg, linesearch, newton_direction, newton_accept, eta, beta_doc, counts,
+                 mu, siginv, ts, done, n_iters, grad_tol, cg_iters, bf16)
+
+
 def stage_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
                cg_iters: int, bf16: bool = True):
-    """One Newton iteration on the three stage kernels (:func:`fgh`,
-    :func:`cg`, :func:`linesearch`) with the step glue in PyTorch: the
-    default path.  On CPU tensors it is :func:`newton_iter_plain`."""
-    return _newton_step(fgh, cg, linesearch, eta, beta_doc, counts, mu, siginv, ts, done,
-                        grad_tol, cg_iters, bf16)
+    """:func:`stage_step` without the Newton counts: (eta, done, advance),
+    as :func:`newton_iter` returns them.  On CPU tensors it is
+    :func:`newton_iter_plain`."""
+    return stage_step(eta, beta_doc, counts, mu, siginv, ts, done, None, grad_tol, cg_iters,
+                      bf16)[:3]
 
 
 def newton_loop_plain(beta_doc, counts, mu, eta0, siginv, ts, max_iters: int,
@@ -450,6 +495,79 @@ def linesearch(eta, p, ts, beta_doc, counts, mu, siginv):
     build.check(rc, "stm_ls")
     LAUNCHES[counter] += 1
     return fs
+
+
+def newton_direction(g, x, grad_tol: float):
+    """The step's glue between :func:`cg` and :func:`linesearch`: (p (B,
+    K-1), gTp (B,), conv (B,) bool), as :func:`newton_direction_plain`.
+
+    The JAX package leaves this to XLA, which fuses it.  On the H100 it is
+    bound by its launch (it reads g and x once, 0.2 MB at B=256, K=100).
+    Design (``csrc/stages.cu::step_direction_kernel``): one block per
+    document, the max and the two dot products as the fused step
+    (``newton.cu``) reduces them (``newton_doc.cuh``: ``grad_converged``,
+    ``descent_direction``), so conv and p are torch's exactly and gTp
+    differs from torch's only in its summation order.  Any K-1.
+    """
+    if _use_plain("direction", g, x):
+        return newton_direction_plain(g, x, grad_tol)
+    B, Km1 = g.shape
+    _expect("direction", x=(x, (B, Km1)))
+    p = torch.empty_like(g)
+    gTp = torch.empty(B, dtype=torch.float32, device=g.device)
+    conv = torch.empty(B, dtype=torch.bool, device=g.device)
+    lib = build.load()
+    with torch.cuda.device(g.device):
+        rc = lib.stm_newton_direction(g.data_ptr(), x.data_ptr(), p.data_ptr(), gTp.data_ptr(),
+                                      conv.data_ptr(), B, Km1, float(grad_tol), _stream(g))
+    build.check(rc, "stm_newton_direction")
+    LAUNCHES["direction"] += 1
+    return p, gTp, conv
+
+
+def newton_accept(eta, p, fs, f, gTp, ts, done, conv, n_iters=None):
+    """The step's glue after :func:`linesearch`: (eta, done, advance,
+    any_ok, all_done) with n_iters (int32 (B,), or None) advanced in
+    place, as :func:`newton_accept_plain`; all_done is a 0-dim bool tensor,
+    every document's new done flag ANDed on the device, for the Newton
+    loop's one host read a step.
+
+    The JAX package leaves the step choice to XLA and tests its loop's
+    condition inside ``lax.while_loop``.  On the H100 it is bound by its
+    launch (eta, p and the sweep read once, eta written: 0.3 MB at B=256,
+    K=100).  Design (``csrc/stages.cu::step_accept_kernel``): one block
+    per document takes the Armijo step as the fused step does
+    (``newton_doc.cuh::armijo_step``, rounded as PyTorch rounds it) and
+    updates eta with the same roundings, so every output equals the plain
+    version's for the same inputs; one more block tests every document's
+    new done flag and ANDs them with ``__syncthreads_and``, so the flag
+    takes no atomics, no second launch and no order.  1 to 16 step sizes.
+    """
+    extra = () if n_iters is None else (n_iters,)
+    if _use_plain("accept", eta, p, fs, f, gTp, ts, done, conv, *extra,
+                  dtypes=[torch.float32] * 6 + [torch.bool] * 2 + [torch.int32]):
+        return newton_accept_plain(eta, p, fs, f, gTp, ts, done, conv, n_iters)
+    B, Km1 = eta.shape
+    T = ts.shape[0]
+    _expect("accept", p=(p, (B, Km1)), fs=(fs, (B, T)), f=(f, (B,)), gTp=(gTp, (B,)),
+            ts=(ts, (T,)), done=(done, (B,)), conv=(conv, (B,)),
+            **({} if n_iters is None else {"n_iters": (n_iters, (B,))}))
+    if not 1 <= T <= 16:
+        raise ValueError(f"accept: the kernel takes 1 to 16 step sizes, got {T}")
+    eta_out = torch.empty_like(eta)
+    done_out = torch.empty_like(done)
+    advance = torch.empty_like(done)
+    any_ok = torch.empty_like(done)
+    all_done = torch.empty((), dtype=torch.bool, device=eta.device)
+    lib = build.load()
+    with torch.cuda.device(eta.device):
+        rc = lib.stm_newton_accept(*(_ptr(t) for t in (eta, p, fs, f, gTp, ts, done, conv,
+                                                       eta_out, done_out, advance, any_ok,
+                                                       n_iters, all_done)),
+                                   B, Km1, T, _stream(eta))
+    build.check(rc, "stm_newton_accept")
+    LAUNCHES["accept"] += 1
+    return eta_out, done_out, advance, any_ok, all_done
 
 
 _PLAN_FIELDS = ("bytes", "W", "stages", "blocks_per_sm", "groups", "H", "siginv_in_smem",

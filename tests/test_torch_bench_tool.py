@@ -243,7 +243,7 @@ def test_bench_torch_imports_no_jax(tmp_path):
 # chip_smoke.py phase 15's checks
 # ---------------------------------------------------------------------------
 
-CARD_LAUNCHES = {"fgh": 80, "cg": 80, "ls": 80}
+CARD_LAUNCHES = {"fgh": 80, "cg": 80, "ls": 80, "direction": 80, "accept": 80}
 
 
 @pytest.fixture(scope="module")

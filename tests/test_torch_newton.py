@@ -12,6 +12,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import chip_smoke as cs
 from strutopy_tpu.models.config import STMConfig as JaxConfig
 from strutopy_tpu.ops import estep as jax_estep
 from strutopy_tpu.ops.linalg import precompute_sigma as jax_precompute_sigma
@@ -32,7 +33,7 @@ def _torch_on_one_thread():
         yield
 
 
-NEW = ("iter", "newton", "gather")
+NEW = ("iter", "newton", "gather", "direction", "accept")
 
 
 def _chunk(seed=0, B=16, K=9, L=128, V=400):
@@ -86,6 +87,71 @@ def test_newton_iter_matches_pallas_iter(bf16):
     done = x["done"]
     assert torch.equal(got[0][done], torch.tensor(x["eta"][done]))
     assert not got[2][done].any()
+
+
+def _inline_glue(g, x, f, fs, ts, eta, done, grad_tol):
+    """The step glue as ``stages._newton_step`` ran it inline around the
+    stage functions before it had wrappers, op for op: (p, gTp, conv,
+    eta, done, advance, any_ok)."""
+    conv = torch.amax(torch.abs(g), dim=1) <= grad_tol
+    p = x
+    gTp = torch.sum(g * p, dim=1)
+    bad = gTp >= 0
+    p = torch.where(bad[:, None], -g, p)
+    gTp = torch.where(bad, -torch.sum(g * g, dim=1), gTp)
+    ok = fs <= f[:, None] + 1e-4 * ts[None, :] * gTp[:, None]
+    any_ok = torch.any(ok, dim=1)
+    t = torch.amax(torch.where(ok, ts[None, :], 0.0), dim=1)
+    advance = ~done & ~conv
+    step = advance & any_ok
+    eta = torch.where(step[:, None], eta + t[:, None] * p, eta)
+    done = done | conv | ~any_ok
+    return p, gTp, conv, eta, done, advance, any_ok
+
+
+@pytest.mark.parametrize("K, T, all_done", [(9, 12, False), (5, 1, False), (9, 12, True)])
+def test_glue_wrappers_on_cpu_tensors_are_the_inline_glue(K, T, all_done):
+    """newton_direction and newton_accept on CPU tensors equal the inline
+    glue bit for bit, on chip_smoke.py's planted inputs: done documents, a
+    NaN in g, directions that do not descend, a converged document, one
+    with no passing step size; and on an all-done chunk.  n_iters takes
+    advance in place; all_done is every document's new done flag."""
+    g, x, eta, f, ts, done = cs.glue_cases(torch, 24, K, T, seed=K, device="cpu")
+    if all_done:
+        done = torch.ones_like(done)
+    # the sweep's values about the Armijo line of the direction's gTp
+    gTp0 = _inline_glue(g, x, f, torch.zeros(24, T), ts, eta, done, 1e-5)[1]
+    fs = cs.glue_sweep(torch, f, gTp0, ts, seed=1)
+    want = _inline_glue(g, x, f, fs, ts, eta, done, 1e-5)
+    n0 = {k: stages.LAUNCHES[k] for k in ("direction", "accept")}
+    p, gTp, conv = stages.newton_direction(g, x, 1e-5)
+    n_iters = torch.arange(24, dtype=torch.int32) % 3
+    start = n_iters.clone()
+    got = stages.newton_accept(eta, p, fs, f, gTp, ts, done, conv, n_iters)
+    for u, v in zip((p, gTp, conv) + got[:4], want):
+        assert cs.same_bits(torch, u, v)
+    assert torch.equal(n_iters, start + want[5].to(torch.int32))
+    assert got[4].shape == () and bool(got[4]) == bool(want[4].all())
+    assert {k: stages.LAUNCHES[k] for k in n0} == n0
+    # each planted case took its branch
+    assert bool(conv[3]) and not bool(conv[1]) and torch.isnan(gTp[1])
+    assert torch.equal(p[2::5], -g[2::5]) and bool(got[1][4]) and not bool(got[3][4])
+    if all_done:
+        assert bool(got[4]) and torch.equal(got[0], eta) and not bool(got[2].any())
+    else:
+        assert bool(got[2].any()) and not bool(got[4])
+
+
+def test_stage_step_is_stage_iter_with_the_counts_on_cpu_tensors():
+    """stage_step: stage_iter's (eta, done, advance), advance added to
+    n_iters in place, and torch.all(done)."""
+    a = _args(_chunk(seed=2), "torch")
+    n_iters = torch.ones(a[0].shape[0], dtype=torch.int32)
+    eta, done, adv, all_done = stages.stage_step(*a, n_iters, 1e-5, 6, True)
+    for u, v in zip((eta, done, adv), stages.stage_iter(*a, 1e-5, 6, True)):
+        assert torch.equal(u, v)
+    assert torch.equal(n_iters, 1 + adv.to(torch.int32))
+    assert all_done.shape == () and bool(all_done) == bool(done.all())
 
 
 def test_stage_iter_is_the_plain_step_on_cpu_tensors():
@@ -302,6 +368,10 @@ def test_cpu_wrappers_leave_the_new_counters_at_zero():
     eta, bd, c, mu, siginv, ts, _done = x
     stages.newton_loop(bd, c, mu, eta, siginv, ts, 3, 1e-5, 4, True)
     stages.gather_rows(torch.rand(20, 5), torch.zeros(2, 3, dtype=torch.int32))
+    g, x, eta, f, ts, done = cs.glue_cases(torch, 8, 5, 4, seed=0, device="cpu")
+    p, gTp, conv = stages.newton_direction(g, x, 1e-5)
+    stages.newton_accept(eta, p, cs.glue_sweep(torch, f, gTp, ts, seed=0), f, gTp, ts, done, conv,
+                         torch.zeros(8, dtype=torch.int32))
     assert {k: stages.LAUNCHES[k] for k in NEW} == before
 
 
@@ -348,3 +418,17 @@ def test_cuda_gather_kernel_matches_plain():
     n0 = stages.LAUNCHES["gather"]
     assert torch.equal(stages.gather_rows(beta_T, words), stages.gather_rows_plain(beta_T, words))
     assert stages.LAUNCHES["gather"] == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, T", [(100, 12), (6, 1), (400, 16)])
+def test_cuda_glue_kernels_match_plain(K, T):
+    """The stage path's glue kernels against their plain versions on
+    chip_smoke.py's planted inputs at the bench chunk (B=256) and at K=6
+    and K=400: conv, p, every flag, eta, n_iters and all_done bit for bit,
+    gTp within 4 ulps of Σ|g_i p_i|; one launch a call."""
+    _cuda()
+    checks, worst, launched, _errs = cs.glue_verdict(
+        torch, stages, *cs.glue_cases(torch, 256, K, T, seed=K), seed=7, planted=True)
+    assert all(checks.values()), checks
+    assert worst <= 1.0 and launched == {"direction": 1, "accept": 2}
