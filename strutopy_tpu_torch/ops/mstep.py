@@ -334,6 +334,13 @@ def _poisson_newton_batch(Y, m, Xd, offset, alpha, n, iters, W0,
         never materialized;
       * solves: batched Cholesky (H is SPD by construction: + alpha·I);
       * line search: 6 halving steps evaluated for every word at once.
+    Where no step's objective is below F (for a frequent word |F| is
+    ~1e4, and its float32 rounding hides the decrease of a step while
+    max|g| is still far above ``tol``), the full Newton step's decrease
+    F(W + D) - F(W) is computed from the current point instead, without
+    subtracting two objectives, and the step is taken where that decrease
+    is below minus twice the rounding bound of its own sum.  A word that
+    a step of either kind does not improve is done.
     The loop ends when every word is done (one host read an iteration) or
     after ``iters`` steps.  A done word never moves, so the result does
     not depend on which other words share its chunk.  Warm-started solves
@@ -342,9 +349,14 @@ def _poisson_newton_batch(Y, m, Xd, offset, alpha, n, iters, W0,
 
     Y (R, Vc); m (Vc,); Xd (R, P); offset (R,); W0 (P, Vc).
     Returns (W (P, Vc), number of Newton iterations run, an int).
+
+    While recording (``utils/trace.py``) it counts ``kappa.word_steps``
+    (the words not done at each step) and ``kappa.floor_exits`` (words
+    that leave with max|g| >= ``tol`` because no step improved them).
     """
     R, P = Xd.shape
     dtype, dev = Xd.dtype, Xd.device
+    eps = torch.finfo(dtype).eps
     eyeP = alpha * torch.eye(P, dtype=dtype, device=dev)
     base = m[None, :] + offset[:, None]  # (R, Vc)
     ts = torch.tensor([1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125], dtype=dtype, device=dev)
@@ -381,18 +393,35 @@ def _poisson_newton_batch(Y, m, Xd, offset, alpha, n, iters, W0,
         t_best = ts[best]
         improved = f_new < F
         gnorm = torch.amax(torch.abs(G), dim=0)  # (Vc,)
+        # the full step's decrease from the current point, and the bound
+        # of its sum's rounding, for the words whose objectives F's
+        # rounding hides it from; U is its own product, not the t = 1
+        # candidate's linear predictor less Z, whose difference would lose
+        # a small step's digits to cancellation
+        U = Xd @ D
+        a, b = lam * torch.expm1(U), Y * U
+        wd, dd = torch.sum(W * D, dim=0), 0.5 * torch.sum(D * D, dim=0)
+        dF = torch.sum(a - b, dim=0) / n + alpha * (wd + dd)
+        err = eps * (torch.sum(torch.abs(a) + torch.abs(b), dim=0) / n
+                     + alpha * (torch.abs(wd) + dd))
+        rescued = ~improved & ~done & (gnorm >= tol) & (dF < -2.0 * err)
+        moved = improved | rescued
+        if trace.active():
+            trace.count("kappa.word_steps", ~done)
+            trace.count("kappa.floor_exits", ~done & ~moved & (gnorm >= tol))
         step = improved & ~done
-        W = torch.where(step[None, :], W + t_best[None, :] * D, W)
-        F = torch.where(step, f_new, F)
-        # a word is done when its gradient meets tol, or when no halving
-        # step improves it (the float32 floor of a convex objective).
+        W = torch.where(step[None, :], W + t_best[None, :] * D,
+                        torch.where(rescued[None, :], W + D, W))
+        F = torch.where(step, f_new, torch.where(rescued, Fs[0], F))
+        # a word is done when its gradient meets tol, or when no step
+        # improves it (the float32 floor of a convex objective).
         # ftol_rel is read as the JAX package reads it: against the
         # objective AFTER the step is taken, so a word that moved has
         # rel_impr = 0 and any ftol_rel > 0 freezes it after that one
         # step (ROADMAP.md Queue C); 0 leaves the exit to the two tests
         # above
         rel_impr = (F - f_new) / torch.clamp_min(torch.abs(F), 1e-30)
-        done = done | (gnorm < tol) | ~improved | (rel_impr < ftol_rel)
+        done = done | (gnorm < tol) | ~moved | (rel_impr < ftol_rel)
         n_it += 1
     return W, n_it
 
@@ -446,6 +475,11 @@ def update_beta_content(
     word frequency, so rare words exit together.  The permutation only
     relabels independent solves.
 
+    While recording (``utils/trace.py``) the solves are the span
+    ``mstep.kappa`` (its attributes ``chunks`` and ``words``; a CUDA event
+    at each end on a card), and each chunk adds its Newton steps to
+    ``kappa.chunk_steps`` and its width times them to ``kappa.slot_steps``.
+
     Vocabulary sharding: the per-word solves are independent, so each
     rank fits the words of its block (``beta_ss``, ``wcounts`` and
     ``kappa0`` are then that block's); what crosses blocks is three
@@ -480,12 +514,15 @@ def update_beta_content(
 
     Vc = _kappa_vchunk(V, P)
     Ws = []
-    for lo in range(0, V, Vc):
-        W, _n_it = _poisson_newton_batch(
-            counts[:, lo:lo + Vc], m[lo:lo + Vc], Xd, offset, alpha, n, iters,
-            kappa0[:, lo:lo + Vc], tol=tol, ftol_rel=ftol_rel)
-        Ws.append(W)
-    kappa = torch.cat(Ws, dim=1)[:, inv_order]
+    with trace.span("mstep.kappa", dev, {"chunks": -(-V // Vc), "words": V}):
+        for lo in range(0, V, Vc):
+            W, n_it = _poisson_newton_batch(
+                counts[:, lo:lo + Vc], m[lo:lo + Vc], Xd, offset, alpha, n, iters,
+                kappa0[:, lo:lo + Vc], tol=tol, ftol_rel=ftol_rel)
+            Ws.append(W)
+            trace.count("kappa.chunk_steps", n_it)
+            trace.count("kappa.slot_steps", n_it * W.shape[1])
+        kappa = torch.cat(Ws, dim=1)[:, inv_order]
 
     linpred = m_user[None, :V] + Xd @ kappa  # ((A*K), V)
     if vocab_psum is None:
