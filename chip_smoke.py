@@ -43,6 +43,18 @@ end, without the final result line):
      each once a chunk step (B1-B3 and the two, no other op a step but
      the one read), the fused paths neither; their device and host times
      beside the PyTorch glue's;
+     2e. (once phase 4 has a fitted state) the finalize's factor
+     (factor: the PD-repair ladder, L and nu = (L Lᵀ)⁻¹ in one launch)
+     against its plain version (the cholesky_ex ladder, its host read and
+     cholesky_inverse) on one chunk's Hessians from phase 4's state (K=100,
+     P=99) and on a chunk shaped like the content cell's (K=20, P=19) at
+     its Newton optimum: rungs equal, L and nu within float32 rounding,
+     nu's error against float64 at most twice plain's, two calls and the
+     factor-only mode bit-equal; a planted batch taking rungs 1-4 and the
+     all-fail NaN at both widths; the kernel's time (a CUDA graph of 20
+     calls, at most FACTOR_MS_MAX at P=99) beside its bound, plain's and
+     the library pair's (cholesky_ex, cholesky_inverse) call by call, the
+     wrapper's host time a call and the rungs;
   3. the CUDA fit against the CPU fit of the same small corpus from the
      same numpy beta (3 EM iterations, float32 Hessian);
   4. the fit at full width: the bench.py corpus recipe (K=100,
@@ -223,6 +235,8 @@ REPLACES = {
     # the port's own kernels: their JAX twin is the Newton body's XLA glue
     "direction": "strutopy_tpu/ops/estep.py:426",
     "accept": "strutopy_tpu/ops/estep.py:443",
+    # the port's own kernel: its JAX twin is the finalize's factor and cho_inverse
+    "factor": "strutopy_tpu/ops/estep.py:590",
 }
 # the bf16-beta_doc modes of B1, B3 and B4 (newton_bf16_beta), each an
 # entry of its own, replacing the same TPU kernel given a bf16 beta_doc
@@ -230,7 +244,8 @@ BETA_MODES = {"fgh_bf16_beta": "fgh", "ls_bf16_beta": "ls", "iter_bf16_beta": "i
 REPLACES.update({mode: REPLACES[base] for mode, base in BETA_MODES.items()})
 SOURCES = {k: "strutopy_tpu_torch/csrc/"
            + ("stages.cu" if BETA_MODES.get(k, k) in ("fgh", "cg", "ls", "direction", "accept")
-              else "scatter.cu" if k == "scatter" else "newton.cu")
+              else "scatter.cu" if k == "scatter" else "factor.cu" if k == "factor"
+              else "newton.cu")
            for k in REPLACES}
 FIT_KERNELS = ("fgh", "cg", "ls", "scatter")  # what every fit on the stage path launches
 # Kernel against plain on the card, element by element:
@@ -1423,6 +1438,147 @@ def phase_glue(torch, stages, fails, words, counts, beta_true):
     return results
 
 
+FACTOR_MS_MAX = 0.25  # ms a chunk at B=256, P=99 (the kernel's target)
+FACTOR_L_RTOL = 1e-4  # L: |kernel - plain| <= this x the document's max|L|
+FACTOR_NU_RTOL = 2e-3  # nu: likewise, x max|nu| (cond(H) x float32 rounding)
+FACTOR_NU_VS_PLAIN = 2.0  # nu's error against float64, at most this x plain's
+# 3x3 leading blocks taking rungs 1-4, each clearly on its side of every
+# threshold: PD; indefinite but diagonally repairable; singular after the
+# repair (a pivot of exactly 0; rung 3's 1e-5 gives one of ~2e-5); the same
+# at scale 1e6, where 1e-5 is below float32 resolution and only rung 4's
+# 1e-3 x 1e6 factors it; then an all-NaN matrix, which fails all four
+FACTOR_BLOCKS = (
+    [[2.1, 0.1, 0.1], [0.1, 2.1, 0.1], [0.1, 0.1, 2.1]],
+    [[1.0, 2.0, 0.0], [2.0, 1.0, 0.5], [0.0, 0.5, 3.0]],
+    [[1.0, 1.0, 0.0], [1.0, 1.0, 0.0], [0.0, 0.0, 1.0]],
+    [[1e6, 1e6, 0.0], [1e6, 1e6, 0.0], [0.0, 0.0, 1e6]],
+)
+FACTOR_PLANTED_RUNGS = [1, 2, 3, 4, 4]
+
+
+def factor_planted(torch, P, device="cuda"):
+    """(5, P, P): each FACTOR_BLOCKS block on an identity, then all NaN."""
+    H = np.tile(np.eye(P, dtype=np.float32), (5, 1, 1))
+    for b, blk in enumerate(FACTOR_BLOCKS):
+        H[b, :3, :3] = blk
+    H[4] = np.nan
+    return torch.tensor(H, device=device)
+
+
+def chunk_hessians(torch, stages, docs, beta, mu, eta, sigma, device="cuda"):
+    """The finalize's float32 Hessians of one chunk of ``docs`` at ``eta``
+    (host arrays), as ``_finalize_chunk`` forms them."""
+    from strutopy_tpu_torch.corpus.bow import pad_corpus
+    from strutopy_tpu_torch.ops.estep import _gather_beta
+    from strutopy_tpu_torch.ops.linalg import precompute_sigma
+
+    corpus = pad_corpus(docs, V=beta.shape[-1])
+    dev = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=device).to(dt)  # noqa: E731
+    bd = _gather_beta(dev(beta), dev(corpus.words, torch.int32))
+    c = dev(corpus.counts)
+    siginv = precompute_sigma(dev(sigma))[0]
+    return stages.f_g_H_batched(dev(eta), bd, c, dev(mu), siginv, c.sum(1), bf16=False)[2]
+
+
+def content_shaped_hessians(torch, stages, B=256, K=20, V=12_139, words=158, seed=31,
+                            device="cuda"):
+    """A chunk shaped like poliblog_content_fit's (P=19, ~158 tokens a
+    document) from the bench recipe at K=20, its Hessians at the stage
+    path's Newton optimum from mu = 0 (sigma = I)."""
+    from strutopy_tpu_torch.corpus.bow import pad_corpus
+    from strutopy_tpu_torch.ops.estep import NewtonConfig, _batched_newton
+
+    docs, _X, beta = make_corpus(K, V, B, words, seed=seed, return_beta=True)
+    bd, c, mu, siginv = dgp_inputs(torch, pad_corpus(docs, V=V), beta, device)
+    eta = _batched_newton(bd, c, mu, mu, siginv, NewtonConfig())[0]
+    return stages.f_g_H_batched(eta, bd, c, mu, siginv, c.sum(1), bf16=False)[2]
+
+
+def factor_verdict(torch, stages, H):
+    """The kernel on H against the plain version: ({check: bool}, {number})."""
+    n0 = stages.LAUNCHES["factor"]
+    L, nu, rung = stages.chol_pd_inverse(H)
+    L2, nu2, rung2 = stages.chol_pd_inverse(H)
+    Lf, nuf, rungf = stages.chol_pd_inverse(H, inverse=False)
+    launched = stages.LAUNCHES["factor"] - n0
+    Lp, nup, rungp = stages.chol_pd_inverse_plain(H)
+    torch.cuda.synchronize()
+    out, checks = {}, {"rungs": same_bits(torch, rung, rungp), "launches": launched == 3}
+    for name, got, want, rtol in (("L", L, Lp, FACTOR_L_RTOL), ("nu", nu, nup, FACTOR_NU_RTOL)):
+        nan = torch.isnan(want)
+        checks[f"{name} NaN where plain's"] = bool(torch.equal(torch.isnan(got), nan))
+        scale = torch.where(nan, 0.0, want).abs().amax(dim=(1, 2), keepdim=True)
+        err = torch.where(nan, 0.0, (got - want).abs())
+        out[f"{name} err / rtol"] = float((err / (rtol * scale).clamp_min(1e-30)).max())
+        out[f"{name} max abs err"] = float(err.max())
+        checks[f"{name} within rtol"] = out[f"{name} err / rtol"] <= 1.0
+    checks["L lower"] = bool(torch.equal(torch.nan_to_num(L), torch.nan_to_num(L).tril()))
+    checks["nu symmetric"] = same_bits(torch, nu, nu.transpose(1, 2).contiguous())
+    checks["twice bit-equal"] = all(same_bits(torch, a.contiguous(), b.contiguous())
+                                    for a, b in ((L, L2), (nu, nu2), (rung, rung2)))
+    checks["factor only"] = (nuf is None and same_bits(torch, Lf.contiguous(), L.contiguous())
+                             and same_bits(torch, rungf, rung))
+    fin = (rung == 1) & (rungp == 1)  # nu is H's inverse, not a repaired matrix's
+    if bool(fin.any()):
+        want64 = torch.linalg.inv(H[fin].double())
+        rel = lambda x: float(torch.linalg.norm(x[fin].double() - want64)  # noqa: E731
+                              / torch.linalg.norm(want64))
+        out["nu err vs f64"], out["plain nu err vs f64"] = rel(nu), rel(nup)
+        checks["nu err <= 2x plain's"] = (out["nu err vs f64"]
+                                          <= FACTOR_NU_VS_PLAIN * out["plain nu err vs f64"])
+    out["rungs"] = torch.bincount(rung.long(), minlength=5)[1:].tolist()
+    return checks, out
+
+
+def phase_factor(torch, stages, fails, st):
+    """Phase 2e (run once phase 4 has a fitted state ``st``, its
+    oracle_inputs): the finalize's factor kernel against its plain version
+    on the fit's chunk (P=99) and a content-shaped chunk (P=19), a planted
+    batch at both widths, then its times beside its bound, plain's and the
+    library pair's, and the wrapper's host time."""
+    chunks = {"k100 fit chunk (phase 4's state)": chunk_hessians(
+                  torch, stages, st["docs"], st["beta"], st["mu"], st["eta"], st["sigma"]),
+              "content-shaped chunk (K=20)": content_shaped_hessians(torch, stages)}
+    result = {"max_abs_err": 0.0}
+    for label, H in chunks.items():
+        B, P, _ = H.shape
+        print(f"phase 2e: the finalize's factor vs plain, {label}: B={B} P={P}, plan "
+              f"{stages.factor_plan(P)}")
+        rungs = None
+        for case, Hc in (("chunk", H), ("planted", factor_planted(torch, P))):
+            checks, out = factor_verdict(torch, stages, Hc)
+            rungs = rungs or out["rungs"]
+            if case == "planted":
+                checks["planted rungs"] = out["rungs"] == [
+                    FACTOR_PLANTED_RUNGS.count(r) for r in (1, 2, 3, 4)]
+            fails.check(all(checks.values()), f"{label}, {case}: {checks}; {out}")
+            if case == "chunk":
+                result["max_abs_err"] = max(result["max_abs_err"], out["L max abs err"],
+                                            out["nu max abs err"])
+        kfn = lambda: stages.chol_pd_inverse(H)  # noqa: E731
+        pfn = lambda: stages.chol_pd_inverse_plain(H)  # noqa: E731
+
+        def lfn():
+            L, _info = torch.linalg.cholesky_ex(H)
+            return torch.cholesky_inverse(L)
+
+        ms = time_pair(torch, kfn, None)[0]
+        plain_ms, library_ms = time_pair(torch, pfn, lfn, graph=False)
+        bound_ms, bound_by = roofline(3 * nbytes(H) + B, {"f32": B * P ** 3})
+        host_us = glue_host_us(torch, kfn)
+        print(f"  factor at P={P}: kernel {ms:.4f} ms (CUDA graph of 20 calls), bound "
+              f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}; plain (the ladder, "
+              f"its read, cholesky_inverse) {plain_ms:.4f} ms, library pair (cholesky_ex, "
+              f"cholesky_inverse) {library_ms:.4f} ms, call by call; wrapper host "
+              f"{host_us:.1f} us a call; the chunk's rungs 1-4 {rungs} [{CARD}]")
+        if P == K_BENCH - 1:
+            fails.check(ms <= FACTOR_MS_MAX, f"factor at B={B}, P={P}: {ms:.4f} ms a chunk "
+                        f"(at most {FACTOR_MS_MAX})")
+            result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+    return {"factor": result}
+
+
 def phase_fused_widths(torch, stages, fails, B=256):
     """Phase 2b: B4 and B5 at K=200 and K=400, their large-K branches
     (tile groups in turn, H in a shared region of its own at K=200 and in
@@ -1449,7 +1605,9 @@ FUSED_PATHS = {  # Newton path -> STMConfig changes that select it
     "newton": {"use_pallas": True, "newton_pass1_iters": 0},
 }
 # each Newton path's kernels, and the phi scatter every E-step's finalize launches
-PATH_KERNELS = {"stage": FIT_KERNELS + GLUE, "iter": ("iter", "scatter"), "newton": ("newton", "scatter")}
+# every path finalizes through the factor kernel
+PATH_KERNELS = {"stage": FIT_KERNELS + GLUE + ("factor",), "iter": ("iter", "scatter", "factor"),
+                "newton": ("newton", "scatter", "factor")}
 
 
 def reset(stages):
@@ -3969,6 +4127,7 @@ def main() -> int:
                 and np.allclose(beta.sum(1), 1, atol=1e-4),
                 "theta (N, K) and beta (K, V) finite, rows on the simplex")
     oracle_state = oracle_inputs(model, docs)
+    kernels.update(phase_factor(torch, stages, fails, oracle_state))
     phase_fused_fit(torch, fails, stages, docs, X, cfg, card)
     phase_twins(torch, fails, docs, X, cfg, card)
 

@@ -1,5 +1,5 @@
 """Build and load the CUDA kernels (``csrc/stages.cu``, ``csrc/newton.cu``,
-``csrc/scatter.cu``).
+``csrc/scatter.cu``, ``csrc/factor.cu``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface and loaded with ``ctypes``.  The build
@@ -26,7 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "stages.cu", CSRC / "newton.cu", CSRC / "scatter.cu")
+SOURCES = (CSRC / "stages.cu", CSRC / "newton.cu", CSRC / "scatter.cu", CSRC / "factor.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,6 +51,8 @@ _SIGNATURES = {
     "stm_scatter_phi": [_P] * 4 + [_I] * 3 + [_P],
     "stm_newton_direction": [_P] * 5 + [_I] * 2 + [_F, _P],
     "stm_newton_accept": [_P] * 14 + [_I] * 3 + [_P],
+    "stm_factor_plan": [_I, _P],
+    "stm_chol_pd_inverse": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
 }
 
 

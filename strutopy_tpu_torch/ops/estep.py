@@ -17,8 +17,9 @@ kernels of ``ops/stages.py``:
   * ``run_estep(use_pallas=True)``: the whole loop is one kernel per
     chunk (single pass only);
 
-then finalize at the converged eta: float32 Hessian, PD-repair Cholesky,
-``nu = H⁻¹``, the per-document ELBO and the token-topic statistics phi,
+then finalize at the converged eta: float32 Hessian, PD-repair Cholesky
+and ``nu = H⁻¹`` (``stages.chol_pd_inverse``, one kernel a chunk on the
+card), the per-document ELBO and the token-topic statistics phi,
 accumulated as
 
     sigma_ss += nu        beta_ss[(a_d,) :, w_d] += phi_d      bound += bound_d
@@ -47,7 +48,6 @@ import torch
 
 from strutopy_tpu_torch.models.config import refuse_tpu_only
 from strutopy_tpu_torch.ops import stages
-from strutopy_tpu_torch.ops.linalg import cholesky_checked, make_pd
 from strutopy_tpu_torch.parallel.mesh import MeshAxis, all_sum
 from strutopy_tpu_torch.utils import trace
 
@@ -183,35 +183,12 @@ def _newton_loop(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig):
 
 
 def _chol_pd_batched(H, jitter: float = 1e-5, rel_jitter: float = 1e-3):
-    """Batched PD-repair Cholesky ladder -> (L, rung (B,) int8).
-
-    Rungs: 1 the raw factor, 2 the make_pd repair, 3 the repair plus a
-    fixed ``jitter``, 4 the repair plus ``rel_jitter`` x max|H| (the
-    JAX package's scale-aware terminal rung).  A rung is taken when its
-    factorization reports ``info == 0`` with a finite factor, which is
-    the JAX ladder's ``isfinite`` test: ``cholesky_ex`` may leave finite
-    garbage behind a failure.  A document that fails all four rungs gets
-    a NaN factor, as in JAX.  The repair rungs run only when some
-    document fails rung 1 (one host sync, the JAX ``lax.cond``; counted
-    while recording, with the chunks that ran them).
-    """
-    B, P, _ = H.shape
-    L1, ok1 = cholesky_checked(H)
-    rung = torch.ones(B, dtype=torch.int8, device=H.device)
-    if trace.read("finalize.rung", bool, torch.all(ok1)):
-        trace.count("finalize.repair_chunks", 0)
-        return L1, rung
-    trace.count("finalize.repair_chunks", 1)
-    eye = torch.eye(P, dtype=H.dtype, device=H.device)[None]
-    H2 = make_pd(H)
-    L2, ok2 = cholesky_checked(H2)
-    L3, ok3 = cholesky_checked(H2 + jitter * eye)
-    j4 = rel_jitter * torch.amax(torch.abs(H2), dim=(1, 2))
-    L4, ok4 = cholesky_checked(H2 + j4[:, None, None] * eye)
-    L4 = torch.where(ok4[:, None, None], L4, float("nan"))
-    fixed = torch.where(ok2[:, None, None], L2, torch.where(ok3[:, None, None], L3, L4))
-    L = torch.where(ok1[:, None, None], L1, fixed)
-    rung = torch.where(ok1, 1, torch.where(ok2, 2, torch.where(ok3, 3, 4))).to(torch.int8)
+    """Batched PD-repair Cholesky ladder -> (L, rung (B,) int8): the factor
+    alone of :func:`~strutopy_tpu_torch.ops.stages.chol_pd_inverse`, the
+    kernel on CUDA tensors (no host read), the plain ladder
+    (:func:`~strutopy_tpu_torch.ops.stages.chol_pd_plain`) on CPU tensors."""
+    L, _nu, rung = stages.chol_pd_inverse(H, inverse=False, jitter=jitter,
+                                          rel_jitter=rel_jitter)
     return L, rung
 
 
@@ -238,8 +215,7 @@ def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd,
         eta, beta_doc, counts, mu, siginv, Nd, bf16=False)
     full = trace.full()
     with trace.span("finalize.factor", H.device if full else None):
-        L, rung = _chol_pd_batched(H)
-        nu = trace.read("finalize.cholesky_inverse", torch.cholesky_inverse, L)
+        L, nu, rung = stages.chol_pd_inverse(H)
     if full:
         trace.count("finalize.rungs", rung, doc_w, op=_by_rung)
         if grad_tol is not None:

@@ -1,9 +1,9 @@
-"""The damped-Newton iteration of the E-step, the beta row gather and the
-ordered phi scatter.
+"""The damped-Newton iteration of the E-step, the beta row gather, the
+ordered phi scatter and the finalize's factor.
 
 Each function has a plain PyTorch version and a CUDA kernel
-(``csrc/stages.cu``, ``csrc/newton.cu``, ``csrc/scatter.cu``), with the
-same signature:
+(``csrc/stages.cu``, ``csrc/newton.cu``, ``csrc/scatter.cu``,
+``csrc/factor.cu``), with the same signature:
 
   ===========  ==============================  ==========================================
   function     plain version                   kernel wrapper (launch counter)
@@ -17,6 +17,7 @@ same signature:
   Newton loop  :func:`newton_loop_plain`       :func:`newton_loop` (``"newton"``)
   row gather   :func:`gather_rows_plain`       :func:`gather_rows` (``"gather"``)
   phi scatter  :func:`scatter_phi_plain`       :func:`scatter_phi` (``"scatter"``)
+  factor, nu   :func:`chol_pd_inverse_plain`   :func:`chol_pd_inverse` (``"factor"``)
   ===========  ==============================  ==========================================
 
 :func:`stage_step` is the default Newton iteration: the three stage
@@ -46,16 +47,18 @@ quantities.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from strutopy_tpu_torch.ops import build
+from strutopy_tpu_torch.ops.linalg import cholesky_checked, make_pd
 from strutopy_tpu_torch.utils import trace
 
 LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0, "scatter": 0,
             "fgh_bf16_beta": 0, "ls_bf16_beta": 0, "iter_bf16_beta": 0, "direction": 0,
-            "accept": 0}
+            "accept": 0, "factor": 0}
 BETA_DTYPES = (torch.float32, torch.bfloat16)  # the beta_doc fgh, ls and iter take
 
 
@@ -349,6 +352,54 @@ def scatter_phi_plain(beta_ss, phi, plan: ScatterPlan, V: int):
         acc[keys] += phi[perm[start[keys] + d]]
     cols[hit // V, :, hit % V] = acc[hit]
     return beta_ss
+
+
+def chol_pd_plain(H, jitter: float = 1e-5, rel_jitter: float = 1e-3):
+    """Batched PD-repair Cholesky ladder -> (L, rung (B,) int8).
+
+    Rungs: 1 the raw factor, 2 the make_pd repair, 3 the repair plus a
+    fixed ``jitter``, 4 the repair plus ``rel_jitter`` x max|H| (the
+    JAX package's scale-aware terminal rung).  A rung is taken when its
+    factorization reports ``info == 0`` with a finite factor, which is
+    the JAX ladder's ``isfinite`` test: ``cholesky_ex`` may leave finite
+    garbage behind a failure.  A document that fails all four rungs gets
+    a NaN factor, as in JAX.  The repair rungs run only when some
+    document fails rung 1 (one host sync, the JAX ``lax.cond``; counted
+    while recording, with the chunks that ran them).
+    """
+    B, P, _ = H.shape
+    L1, ok1 = cholesky_checked(H)
+    rung = torch.ones(B, dtype=torch.int8, device=H.device)
+    if trace.read("finalize.rung", bool, torch.all(ok1)):
+        trace.count("finalize.repair_chunks", 0)
+        return L1, rung
+    trace.count("finalize.repair_chunks", 1)
+    eye = torch.eye(P, dtype=H.dtype, device=H.device)[None]
+    H2 = make_pd(H)
+    L2, ok2 = cholesky_checked(H2)
+    L3, ok3 = cholesky_checked(H2 + jitter * eye)
+    j4 = rel_jitter * torch.amax(torch.abs(H2), dim=(1, 2))
+    L4, ok4 = cholesky_checked(H2 + j4[:, None, None] * eye)
+    L4 = torch.where(ok4[:, None, None], L4, float("nan"))
+    fixed = torch.where(ok2[:, None, None], L2, torch.where(ok3[:, None, None], L3, L4))
+    L = torch.where(ok1[:, None, None], L1, fixed)
+    rung = torch.where(ok1, 1, torch.where(ok2, 2, torch.where(ok3, 3, 4))).to(torch.int8)
+    return L, rung
+
+
+def chol_pd_inverse_plain(H, inverse: bool = True, jitter: float = 1e-5,
+                          rel_jitter: float = 1e-3):
+    """Plain version of :func:`chol_pd_inverse`: :func:`chol_pd_plain`, then
+    ``torch.cholesky_inverse`` (a host sync on the card: its info array is
+    read back).  nu is None unless ``inverse``."""
+    L, rung = chol_pd_plain(H, jitter, rel_jitter)
+    nu = trace.read("finalize.cholesky_inverse", torch.cholesky_inverse, L) if inverse else None
+    return L, nu, rung
+
+
+def _repaired(top_rung):
+    """The chunks whose highest rung is above 1 (``finalize.repair_chunks``)."""
+    return top_rung > 1
 
 
 # ---------------------------------------------------------------------------
@@ -751,3 +802,72 @@ def scatter_phi(beta_ss, phi, plan: ScatterPlan, V: int):
     build.check(rc, "stm_scatter_phi")
     LAUNCHES["scatter"] += 1
     return beta_ss
+
+
+_FACTOR_PLAN_FIELDS = ("threads", "bytes", "in_smem")
+
+
+@functools.lru_cache(maxsize=None)
+def factor_plan(P: int, device_index: int = 0):
+    """The plan of :func:`chol_pd_inverse` at P on a card: threads a block,
+    shared-memory bytes a block, and whether the two packed triangles sit in
+    shared memory (else in a global scratch the wrapper allocates); None
+    outside P = 1..512."""
+    out = (ctypes.c_int * len(_FACTOR_PLAN_FIELDS))()
+    with torch.cuda.device(device_index):
+        if build.load().stm_factor_plan(int(P), out) != 0:
+            return None
+    plan = dict(zip(_FACTOR_PLAN_FIELDS, out))
+    plan["in_smem"] = bool(plan["in_smem"])
+    return plan
+
+
+def chol_pd_inverse(H, inverse: bool = True, jitter: float = 1e-5, rel_jitter: float = 1e-3):
+    """The finalize's factor of a chunk's Hessians H (B, P, P): (L, nu, rung)
+    with L the PD-repair ladder's Cholesky factor (:func:`chol_pd_plain`:
+    lower, zeros above, NaN where all four rungs fail), nu = (L Lᵀ)⁻¹ (None
+    unless ``inverse``) and rung (B,) int8, as :func:`chol_pd_inverse_plain`.
+    While recording in full, a chunk with a rung above 1 counts in
+    ``finalize.repair_chunks``, on the device.
+
+    Replaces no TPU kernel: the JAX twin is the finalize's factor in
+    ``strutopy_tpu/ops/estep.py::_finalize_chunk`` (``_chol_pd_batched``,
+    then ``cho_inverse``), which XLA lowers; on the card it takes the place
+    of ``cholesky_ex`` rung by rung and ``cholesky_inverse``, two host syncs
+    a chunk.  Bound by latency: at B=256, P=99 it moves ~30 MB and does ~P³/2
+    multiply-adds a document, but each document's P pivots form a chain.
+    Design (``csrc/factor.cu``): one block a document holds two packed lower
+    triangles in shared memory, the rung's matrix and the running sums (39.6
+    KB at P=99: the whole chunk resident in one wave); every step reads its
+    pivot after a barrier, so a failed rung reloads H and retries on the
+    device with no host read; one right-looking pass factors and inverts in
+    place (a rank-1 update a step, each sum started from 0), then one thread
+    sums each entry of nu = L⁻ᵀL⁻¹ in ascending order and writes it to both
+    triangles, so nu is symmetric and every output is a function of H alone.
+    L comes back as the transposed view of the kernel's coalesced Lᵀ, the
+    column-major layout ``cholesky_ex`` returns.  Above P ~240 the triangles
+    live in a global scratch (:func:`factor_plan`); P is at most 512.
+    """
+    if _use_plain("factor", H):
+        return chol_pd_inverse_plain(H, inverse, jitter, rel_jitter)
+    if H.ndim != 3 or H.shape[1] != H.shape[2]:
+        raise ValueError(f"factor: H must be (B, P, P), got {tuple(H.shape)}")
+    B, P, _ = H.shape
+    plan = factor_plan(P, H.device.index)
+    if plan is None:
+        raise ValueError(f"factor: the kernel takes P from 1 to 512, got {P}")
+    Lt = torch.empty_like(H)
+    nu = torch.empty_like(H) if inverse else None
+    rung = torch.empty(B, dtype=torch.int8, device=H.device)
+    scratch = (None if plan["in_smem"]
+               else torch.empty(B, P * (P + 1), dtype=torch.float32, device=H.device))
+    lib = build.load()
+    with torch.cuda.device(H.device):
+        rc = lib.stm_chol_pd_inverse(*(_ptr(t) for t in (H, Lt, nu, rung, scratch)), B, P,
+                                     int(bool(inverse)), float(jitter), float(rel_jitter),
+                                     _stream(H))
+    build.check(rc, "stm_chol_pd_inverse")
+    LAUNCHES["factor"] += 1
+    if trace.full() and B:
+        trace.count("finalize.repair_chunks", torch.amax(rung).reshape(1), op=_repaired)
+    return Lt.transpose(1, 2), nu, rung
