@@ -2457,7 +2457,7 @@ def sim_chunk_check(torch, stages, fails, model, card, chunk=512, n_draws=8):
     """B1 where ``simulate_theta`` calls it: the fitted model's first chunk
     of 512 documents in float32 mode, against its plain version and beside
     its bound; and where the rest of that chunk's time goes."""
-    from strutopy_tpu_torch.ops.estep import _chol_pd_batched, _gather_beta
+    from strutopy_tpu_torch.ops.estep import _gather_beta
 
     c_np = model._corpus
     K, L = model.K, c_np.words.shape[1]
@@ -2491,7 +2491,7 @@ def sim_chunk_check(torch, stages, fails, model, card, chunk=512, n_draws=8):
     bound_ms, by = roofline(nbytes(eta, bd, c, mu, siginv) + 4 * B * (1 + Km1 + Km1 * Km1),
                             {"f32": B * hessian_ops(K, L) + 6 * B * K * L})
     H = got[2]
-    (Lc, _), t_chol = timed(torch, lambda: _chol_pd_batched(H))
+    (Lc, _nu, _), t_chol = timed(torch, lambda: stages.chol_pd_inverse(H, inverse=False))
     z = torch.randn(B, Km1, n_draws, device="cuda")
     _, t_solve = timed(torch, lambda: torch.linalg.solve_triangular(Lc.mT, z, upper=True))
     print(f"  one chunk of simulate_theta: B1 float32 mode {ms:.4f} ms (plain {pms:.4f} ms, "
@@ -2505,7 +2505,7 @@ def sim_factors(torch, stages, model, n, device, chunk=512):
     """The Cholesky factors (n, K-1, K-1) that ``simulate_theta`` draws the
     first n documents' eta from: the float32 Hessian of the plain version
     of B1, repaired as simulate_theta repairs it, on ``device``."""
-    from strutopy_tpu_torch.ops.estep import _chol_pd_batched, _gather_beta
+    from strutopy_tpu_torch.ops.estep import _gather_beta
 
     c_np = model._corpus
     siginv = torch.as_tensor(np.linalg.inv(np.asarray(model.sigma, np.float64)),
@@ -2524,7 +2524,7 @@ def sim_factors(torch, stages, model, n, device, chunk=512):
                           put(model.betaindex, torch.int32))
         H = stages.fgh_plain(put(model.eta, torch.float32), bd, put(c_np.counts, torch.float32),
                              put(model.mu, torch.float32), siginv, bf16=False)[2]
-        out.append(_chol_pd_batched(H)[0])
+        out.append(stages.chol_pd_inverse(H, inverse=False)[0])
     return torch.cat(out)
 
 
@@ -3140,7 +3140,8 @@ def check_iter_beta(torch, stages, fails, inputs_loop, label):
                                                                       bf16)
         args = (eta, bd_b, c, mu, siginv, parts["ts"], parts["done"], GRAD_TOL,
                 parts["cg_iters"], bf16)
-        got, stage = stages.newton_iter(*args), stages.stage_iter(*args)
+        got = stages.newton_iter(*args)
+        stage = stages.stage_step(*args[:7], None, *args[7:])[:3]
         torch.cuda.synchronize()
         worst, n_margin, flags_ok, kept, finite = judge_iter(torch, stages, inputs_r, parts, got,
                                                              lean_other=True)

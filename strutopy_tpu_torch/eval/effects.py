@@ -357,12 +357,12 @@ def _draw_chunk(beta_full, siginv, words, counts, eta_c, mu_c, asp_c, z,
     softmax (S, B, K).  H comes from ``stages.fgh`` in its float32 mode:
     the hand kernel on CUDA tensors, its plain version on CPU tensors."""
     from strutopy_tpu_torch.ops import stages
-    from strutopy_tpu_torch.ops.estep import _chol_pd_batched, _gather_beta
+    from strutopy_tpu_torch.ops.estep import _gather_beta
 
     K = beta_full.shape[-2]
     beta_doc = _gather_beta(beta_full, words, asp_c)
     _f, _g, H = stages.fgh(eta_c, beta_doc, counts, mu_c, siginv, bf16=False)
-    L, _rung = _chol_pd_batched(H)
+    L, _nu, _rung = stages.chol_pd_inverse(H, inverse=False)
     # x = L^{-T} z  =>  cov(x) = L^{-T} L^{-1} = (L L^T)^{-1} = nu;
     # one batched solve with the S draws as right-hand-side columns
     x = torch.linalg.solve_triangular(L.mT, z.permute(1, 2, 0), upper=True)  # (B, K-1, S)

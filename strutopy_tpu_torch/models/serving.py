@@ -54,10 +54,6 @@ def _require_beta_index(beta, beta_index) -> None:
         )
 
 
-def _n_docs(documents) -> int:
-    return documents.N if isinstance(documents, PaddedCorpus) else len(documents)
-
-
 @true_float32
 def infer_theta(beta, sigma, mu_user: np.ndarray, documents, cfg: STMConfig,
                 aspects_user=None, full_convergence: bool = True, mesh=None, *,

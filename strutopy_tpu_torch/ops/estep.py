@@ -182,16 +182,6 @@ def _newton_loop(beta_doc, counts, mu, eta0, siginv, cfg: NewtonConfig):
 # ---------------------------------------------------------------------------
 
 
-def _chol_pd_batched(H, jitter: float = 1e-5, rel_jitter: float = 1e-3):
-    """Batched PD-repair Cholesky ladder -> (L, rung (B,) int8): the factor
-    alone of :func:`~strutopy_tpu_torch.ops.stages.chol_pd_inverse`, the
-    kernel on CUDA tensors (no host read), the plain ladder
-    (:func:`~strutopy_tpu_torch.ops.stages.chol_pd_plain`) on CPU tensors."""
-    L, _nu, rung = stages.chol_pd_inverse(H, inverse=False, jitter=jitter,
-                                          rel_jitter=rel_jitter)
-    return L, rung
-
-
 def _by_rung(rung, doc_w):
     """(B, 4): the weighted documents by the rung of their factor."""
     rungs = torch.arange(1, 5, dtype=rung.dtype, device=rung.device)

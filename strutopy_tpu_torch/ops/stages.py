@@ -27,8 +27,9 @@ fallback, the step choice, the flags and the chunk's "all done").
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.  There is no fallback from one to the
-other.  Each launch adds one to its counter, so a run can show that its
-main path went through the kernels.
+other.  Every wrapper launches through :func:`_launch`, on the stream
+current at the call; each launch adds one to its counter, so a run can
+show that its main path went through the kernels.
 
 :func:`fgh`, :func:`linesearch` and :func:`newton_iter` take beta_doc as
 float32 or bfloat16 (the Newton search under ``STMConfig.newton_bf16_beta``;
@@ -46,6 +47,7 @@ quantities.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple, Optional
@@ -248,20 +250,14 @@ def _step(fgh_fn, cg_fn, ls_fn, direction_fn, accept_fn, eta, beta_doc, counts, 
     return eta, done, advance, all_done
 
 
-def _newton_step(fgh_fn, cg_fn, ls_fn, eta, beta_doc, counts, mu, siginv, ts, done,
-                 grad_tol: float, cg_iters: int, bf16: bool):
-    """:func:`_step` on the given stage functions with the plain glue:
-    (eta, done, advance)."""
-    return _step(fgh_fn, cg_fn, ls_fn, newton_direction_plain, newton_accept_plain, eta,
-                 beta_doc, counts, mu, siginv, ts, done, None, grad_tol, cg_iters, bf16)[:3]
-
-
 def newton_iter_plain(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
                       cg_iters: int, bf16: bool = True):
-    """Plain version of :func:`newton_iter`: the step on the plain stages."""
+    """Plain version of :func:`newton_iter`: the step on the plain stages
+    and the plain glue, (eta, done, advance)."""
     beta_doc = _beta_f32(beta_doc)
-    return _newton_step(fgh_plain, cg_plain, linesearch_plain, eta, beta_doc, counts, mu,
-                        siginv, ts, done, grad_tol, cg_iters, bf16)
+    return _step(fgh_plain, cg_plain, linesearch_plain, newton_direction_plain,
+                 newton_accept_plain, eta, beta_doc, counts, mu, siginv, ts, done, None,
+                 grad_tol, cg_iters, bf16)[:3]
 
 
 def stage_step(eta, beta_doc, counts, mu, siginv, ts, done, n_iters, grad_tol: float,
@@ -274,15 +270,6 @@ def stage_step(eta, beta_doc, counts, mu, siginv, ts, done, n_iters, grad_tol: f
     On CPU tensors it is :func:`newton_iter_plain` with those two extras."""
     return _step(fgh, cg, linesearch, newton_direction, newton_accept, eta, beta_doc, counts,
                  mu, siginv, ts, done, n_iters, grad_tol, cg_iters, bf16)
-
-
-def stage_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
-               cg_iters: int, bf16: bool = True):
-    """:func:`stage_step` without the Newton counts: (eta, done, advance),
-    as :func:`newton_iter` returns them.  On CPU tensors it is
-    :func:`newton_iter_plain`."""
-    return stage_step(eta, beta_doc, counts, mu, siginv, ts, done, None, grad_tol, cg_iters,
-                      bf16)[:3]
 
 
 def newton_loop_plain(beta_doc, counts, mu, eta0, siginv, ts, max_iters: int,
@@ -440,8 +427,32 @@ def _expect(name: str, **shapes) -> None:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _check_steps(name: str, T: int) -> None:
+    if not 1 <= T <= 16:
+        raise ValueError(f"{name}: the kernel takes 1 to 16 step sizes, got {T}")
+
+
+def _on(index: int):
+    """The guard that makes CUDA device ``index`` current for a call; none
+    where it already is."""
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def _launch(entry: str, counter: str, device: torch.device, *args) -> None:
+    """Launch the C entry point ``stm_<entry>`` on ``device``, on the stream
+    current there at the time of the call, and count it in
+    ``LAUNCHES[counter]``.  A tensor argument is passed as its data pointer
+    and None as 0 (a buffer the kernel does not take), any other as it is;
+    the stream is appended.  Raises on a non-zero return."""
+    fn = getattr(build.load(), f"stm_{entry}")
+    argv = [0 if a is None else a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with _on(device.index):
+        rc = fn(*argv, torch._C._cuda_getCurrentRawStream(device.index))
+    build.check(rc, f"stm_{entry}")
+    LAUNCHES[counter] += 1
 
 
 def fgh(eta, beta_doc, counts, mu, siginv, bf16: bool = True):
@@ -474,12 +485,8 @@ def fgh(eta, beta_doc, counts, mu, siginv, bf16: bool = True):
     f = torch.empty(B, dtype=torch.float32, device=eta.device)
     g = torch.empty(B, K - 1, dtype=torch.float32, device=eta.device)
     H = torch.empty(B, K - 1, K - 1, dtype=torch.float32, device=eta.device)
-    lib = build.load()
-    with torch.cuda.device(eta.device):
-        rc = lib.stm_fgh(*(t.data_ptr() for t in (siginv, eta, mu, beta_doc, counts, f, g, H)),
-                         B, K, L, int(bool(bf16)), beta_bf16, _stream(eta))
-    build.check(rc, "stm_fgh")
-    LAUNCHES[counter] += 1
+    _launch("fgh", counter, eta.device, siginv, eta, mu, beta_doc, counts, f, g, H, B, K, L,
+            int(bool(bf16)), beta_bf16)
     return f, g, H
 
 
@@ -504,12 +511,7 @@ def cg(H, g, iters: int, bf16: bool = True):
     B, Km1 = g.shape
     _expect("cg", H=(H, (B, Km1, Km1)))
     x = torch.empty(B, Km1, dtype=torch.float32, device=g.device)
-    lib = build.load()
-    with torch.cuda.device(g.device):
-        rc = lib.stm_cg(H.data_ptr(), g.data_ptr(), x.data_ptr(), B, Km1, int(iters),
-                        int(bool(bf16)), _stream(g))
-    build.check(rc, "stm_cg")
-    LAUNCHES["cg"] += 1
+    _launch("cg", "cg", g.device, H, g, x, B, Km1, int(iters), int(bool(bf16)))
     return x
 
 
@@ -536,15 +538,10 @@ def linesearch(eta, p, ts, beta_doc, counts, mu, siginv):
     T = ts.shape[0]
     _expect("ls", eta=(eta, (B, K - 1)), p=(p, (B, K - 1)), mu=(mu, (B, K - 1)),
             counts=(counts, (B, L)), siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)))
-    if not 1 <= T <= 16:
-        raise ValueError(f"ls: the kernel takes 1 to 16 step sizes, got {T}")
+    _check_steps("ls", T)
     fs = torch.empty(B, T, dtype=torch.float32, device=eta.device)
-    lib = build.load()
-    with torch.cuda.device(eta.device):
-        rc = lib.stm_ls(*(t.data_ptr() for t in (siginv, ts, eta, p, mu, beta_doc, counts, fs)),
-                        B, K, L, T, beta_bf16, _stream(eta))
-    build.check(rc, "stm_ls")
-    LAUNCHES[counter] += 1
+    _launch("ls", counter, eta.device, siginv, ts, eta, p, mu, beta_doc, counts, fs, B, K, L, T,
+            beta_bf16)
     return fs
 
 
@@ -567,12 +564,8 @@ def newton_direction(g, x, grad_tol: float):
     p = torch.empty_like(g)
     gTp = torch.empty(B, dtype=torch.float32, device=g.device)
     conv = torch.empty(B, dtype=torch.bool, device=g.device)
-    lib = build.load()
-    with torch.cuda.device(g.device):
-        rc = lib.stm_newton_direction(g.data_ptr(), x.data_ptr(), p.data_ptr(), gTp.data_ptr(),
-                                      conv.data_ptr(), B, Km1, float(grad_tol), _stream(g))
-    build.check(rc, "stm_newton_direction")
-    LAUNCHES["direction"] += 1
+    _launch("newton_direction", "direction", g.device, g, x, p, gTp, conv, B, Km1,
+            float(grad_tol))
     return p, gTp, conv
 
 
@@ -603,21 +596,14 @@ def newton_accept(eta, p, fs, f, gTp, ts, done, conv, n_iters=None):
     _expect("accept", p=(p, (B, Km1)), fs=(fs, (B, T)), f=(f, (B,)), gTp=(gTp, (B,)),
             ts=(ts, (T,)), done=(done, (B,)), conv=(conv, (B,)),
             **({} if n_iters is None else {"n_iters": (n_iters, (B,))}))
-    if not 1 <= T <= 16:
-        raise ValueError(f"accept: the kernel takes 1 to 16 step sizes, got {T}")
+    _check_steps("accept", T)
     eta_out = torch.empty_like(eta)
     done_out = torch.empty_like(done)
     advance = torch.empty_like(done)
     any_ok = torch.empty_like(done)
     all_done = torch.empty((), dtype=torch.bool, device=eta.device)
-    lib = build.load()
-    with torch.cuda.device(eta.device):
-        rc = lib.stm_newton_accept(*(_ptr(t) for t in (eta, p, fs, f, gTp, ts, done, conv,
-                                                       eta_out, done_out, advance, any_ok,
-                                                       n_iters, all_done)),
-                                   B, Km1, T, _stream(eta))
-    build.check(rc, "stm_newton_accept")
-    LAUNCHES["accept"] += 1
+    _launch("newton_accept", "accept", eta.device, eta, p, fs, f, gTp, ts, done, conv, eta_out,
+            done_out, advance, any_ok, n_iters, all_done, B, Km1, T)
     return eta_out, done_out, advance, any_ok, all_done
 
 
@@ -656,10 +642,6 @@ def _h_scratch(B: int, K: int, L: int, bf16: bool, loop: bool, device,
     return torch.empty(B, K - 1, K - 1, dtype=torch.float32, device=device)
 
 
-def _ptr(t) -> int:
-    return 0 if t is None else t.data_ptr()
-
-
 def newton_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
                 cg_iters: int, bf16: bool = True):
     """One fused damped-Newton iteration: (eta, done, advance).
@@ -682,20 +664,14 @@ def newton_iter(eta, beta_doc, counts, mu, siginv, ts, done, grad_tol: float,
     T = ts.shape[0]
     _expect("iter", eta=(eta, (B, K - 1)), mu=(mu, (B, K - 1)), counts=(counts, (B, L)),
             siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)), done=(done, (B,)))
-    if not 1 <= T <= 16:
-        raise ValueError(f"iter: the kernel takes 1 to 16 step sizes, got {T}")
+    _check_steps("iter", T)
     scratch = _h_scratch(B, K, L, bf16, False, eta.device, bool(beta_bf16))
-    lib = build.load()
     eta_out = torch.empty_like(eta)
     done_out = torch.empty_like(done)
     adv_out = torch.empty_like(done)
-    with torch.cuda.device(eta.device):
-        rc = lib.stm_iter(*(_ptr(t) for t in (siginv, ts, eta, mu, done, beta_doc, counts,
-                                              scratch, eta_out, done_out, adv_out)),
-                          B, K, L, T, float(grad_tol), int(cg_iters), int(bool(bf16)),
-                          beta_bf16, _stream(eta))
-    build.check(rc, "stm_iter")
-    LAUNCHES[counter] += 1
+    _launch("iter", counter, eta.device, siginv, ts, eta, mu, done, beta_doc, counts, scratch,
+            eta_out, done_out, adv_out, B, K, L, T, float(grad_tol), int(cg_iters),
+            int(bool(bf16)), beta_bf16)
     return eta_out, done_out, adv_out
 
 
@@ -726,19 +702,13 @@ def newton_loop(beta_doc, counts, mu, eta0, siginv, ts, max_iters: int, grad_tol
     T = ts.shape[0]
     _expect("newton", eta0=(eta0, (B, K - 1)), mu=(mu, (B, K - 1)), counts=(counts, (B, L)),
             siginv=(siginv, (K - 1, K - 1)), ts=(ts, (T,)))
-    if not 1 <= T <= 16:
-        raise ValueError(f"newton: the kernel takes 1 to 16 step sizes, got {T}")
+    _check_steps("newton", T)
     scratch = _h_scratch(B, K, L, bf16, max_iters > 1, eta0.device)
-    lib = build.load()
     eta = torch.empty_like(eta0)
     n_iters = torch.empty(B, dtype=torch.int32, device=eta0.device)
-    with torch.cuda.device(eta0.device):
-        rc = lib.stm_newton(*(_ptr(t) for t in (siginv, ts, beta_doc, counts, mu, eta0,
-                                                scratch, eta, n_iters)),
-                            B, K, L, T, int(max_iters), float(grad_tol), int(cg_iters),
-                            int(bool(bf16)), _stream(eta0))
-    build.check(rc, "stm_newton")
-    LAUNCHES["newton"] += 1
+    _launch("newton", "newton", eta0.device, siginv, ts, beta_doc, counts, mu, eta0, scratch, eta,
+            n_iters, B, K, L, T, int(max_iters), float(grad_tol), int(cg_iters),
+            int(bool(bf16)))
     return eta, n_iters
 
 
@@ -758,12 +728,7 @@ def gather_rows(beta_T, words):
     V, K = beta_T.shape
     B, L = words.shape
     out = torch.empty(B, L, K, dtype=torch.float32, device=beta_T.device)
-    lib = build.load()
-    with torch.cuda.device(beta_T.device):
-        rc = lib.stm_gather_rows(beta_T.data_ptr(), words.data_ptr(), out.data_ptr(), B * L,
-                                 V, K, _stream(beta_T))
-    build.check(rc, "stm_gather_rows")
-    LAUNCHES["gather"] += 1
+    _launch("gather_rows", "gather", beta_T.device, beta_T, words, out, B * L, V, K)
     return out
 
 
@@ -795,12 +760,8 @@ def scatter_phi(beta_ss, phi, plan: ScatterPlan, V: int):
     if phi.ndim != 2 or beta_ss.numel() != n_keys * K or n_keys % V != 0:
         raise ValueError(f"scatter: beta_ss {tuple(beta_ss.shape)} does not hold {n_keys} keys "
                          f"of {K} topics, {V} an aspect block, for phi {tuple(phi.shape)}")
-    lib = build.load()
-    with torch.cuda.device(phi.device):
-        rc = lib.stm_scatter_phi(phi.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
-                                 beta_ss.data_ptr(), n_keys, K, V, _stream(phi))
-    build.check(rc, "stm_scatter_phi")
-    LAUNCHES["scatter"] += 1
+    _launch("scatter_phi", "scatter", phi.device, phi, plan.perm, plan.offsets, beta_ss, n_keys, K,
+            V)
     return beta_ss
 
 
@@ -814,7 +775,7 @@ def factor_plan(P: int, device_index: int = 0):
     shared memory (else in a global scratch the wrapper allocates); None
     outside P = 1..512."""
     out = (ctypes.c_int * len(_FACTOR_PLAN_FIELDS))()
-    with torch.cuda.device(device_index):
+    with _on(device_index):
         if build.load().stm_factor_plan(int(P), out) != 0:
             return None
     plan = dict(zip(_FACTOR_PLAN_FIELDS, out))
@@ -861,13 +822,8 @@ def chol_pd_inverse(H, inverse: bool = True, jitter: float = 1e-5, rel_jitter: f
     rung = torch.empty(B, dtype=torch.int8, device=H.device)
     scratch = (None if plan["in_smem"]
                else torch.empty(B, P * (P + 1), dtype=torch.float32, device=H.device))
-    lib = build.load()
-    with torch.cuda.device(H.device):
-        rc = lib.stm_chol_pd_inverse(*(_ptr(t) for t in (H, Lt, nu, rung, scratch)), B, P,
-                                     int(bool(inverse)), float(jitter), float(rel_jitter),
-                                     _stream(H))
-    build.check(rc, "stm_chol_pd_inverse")
-    LAUNCHES["factor"] += 1
+    _launch("chol_pd_inverse", "factor", H.device, H, Lt, nu, rung, scratch, B, P,
+            int(bool(inverse)), float(jitter), float(rel_jitter))
     if trace.full() and B:
         trace.count("finalize.repair_chunks", torch.amax(rung).reshape(1), op=_repaired)
     return Lt.transpose(1, 2), nu, rung

@@ -54,7 +54,8 @@ def _same(a, b):
 @pytest.mark.parametrize("case", ["spd", "planted", "one"])
 def test_cpu_route_is_the_ladder_and_cholesky_inverse(case):
     """On CPU tensors chol_pd_inverse is the ladder then torch.cholesky_inverse,
-    bit for bit; _chol_pd_batched is its factor; nothing is launched."""
+    bit for bit; the factor-only mode is its factor, twice the same; nothing
+    is launched."""
     rng = np.random.default_rng(0)
     H = torch.tensor({"spd": lambda: _spd(rng, 16, 12), "planted": lambda: _planted(7),
                       "one": lambda: _spd(rng, 3, 1)}[case]())
@@ -65,7 +66,7 @@ def test_cpu_route_is_the_ladder_and_cholesky_inverse(case):
     assert _same(nu, torch.cholesky_inverse(L_want))
     L2, nu2, rung2 = stages.chol_pd_inverse(H, inverse=False)
     assert nu2 is None and _same(L2, L_want) and _same(rung2, rung_want)
-    L3, rung3 = estep._chol_pd_batched(H)
+    L3, _nu3, rung3 = stages.chol_pd_inverse(H, inverse=False)
     assert _same(L3, L_want) and _same(rung3, rung_want)
     assert stages.LAUNCHES == n0
     if case == "planted":
@@ -230,7 +231,7 @@ def test_cuda_factor_only_mode(card):
     assert nu is None and _same(rung, rungp)
     assert torch.equal(torch.isnan(L), torch.isnan(Lp))
     assert _same(L, stages.chol_pd_inverse(H)[0])  # the same factor as with nu
-    L2, rung2 = estep._chol_pd_batched(H)
+    L2, _nu2, rung2 = stages.chol_pd_inverse(H, inverse=False)  # a second launch: the same bits
     assert _same(L2, L) and _same(rung2, rung)
 
 

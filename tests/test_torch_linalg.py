@@ -1,5 +1,5 @@
 """The port's linear algebra and finalize (strutopy_tpu_torch/ops/linalg.py,
-ops/estep.py::_chol_pd_batched / _finalize_chunk) against the JAX
+ops/stages.py::chol_pd_inverse, ops/estep.py::_finalize_chunk) against the JAX
 package on the same numpy inputs."""
 
 import os
@@ -83,7 +83,7 @@ def _ladder_batch():
 
 def test_ladder_takes_the_jax_rung_for_each_matrix():
     H = _ladder_batch()
-    L, rung = estep._chol_pd_batched(torch.tensor(H))
+    L, _nu, rung = stages.chol_pd_inverse(torch.tensor(H), inverse=False)
     np.testing.assert_array_equal(_jax_rungs(H), [1, 2, 3, 4])
     np.testing.assert_array_equal(rung.numpy(), _jax_rungs(H))
     want = np.asarray(jax_estep._chol_pd_batched(jnp.asarray(H)))
@@ -99,7 +99,7 @@ def test_ladder_on_the_barely_pd_fixture(repair):
     H = np.load(FIXTURE)["Hs"].astype(np.float32)
     if repair:
         H = np.asarray(jax_estep._make_pd_batched(jnp.asarray(H)))
-    L, rung = estep._chol_pd_batched(torch.tensor(H))
+    L, _nu, rung = stages.chol_pd_inverse(torch.tensor(H), inverse=False)
     np.testing.assert_array_equal(rung.numpy(), _jax_rungs(H))
     assert torch.isfinite(L).all()
     want = np.asarray(jax_estep._chol_pd_batched(jnp.asarray(H)))

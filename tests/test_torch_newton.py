@@ -90,9 +90,9 @@ def test_newton_iter_matches_pallas_iter(bf16):
 
 
 def _inline_glue(g, x, f, fs, ts, eta, done, grad_tol):
-    """The step glue as ``stages._newton_step`` ran it inline around the
-    stage functions before it had wrappers, op for op: (p, gTp, conv,
-    eta, done, advance, any_ok)."""
+    """The step glue inline around the stage functions, op for op, as the
+    reference of the glue wrappers: (p, gTp, conv, eta, done, advance,
+    any_ok)."""
     conv = torch.amax(torch.abs(g), dim=1) <= grad_tol
     p = x
     gTp = torch.sum(g * p, dim=1)
@@ -143,12 +143,12 @@ def test_glue_wrappers_on_cpu_tensors_are_the_inline_glue(K, T, all_done):
 
 
 def test_stage_step_is_stage_iter_with_the_counts_on_cpu_tensors():
-    """stage_step: stage_iter's (eta, done, advance), advance added to
-    n_iters in place, and torch.all(done)."""
+    """stage_step with n_iters: the (eta, done, advance) it returns without
+    them, advance added to n_iters in place, and torch.all(done)."""
     a = _args(_chunk(seed=2), "torch")
     n_iters = torch.ones(a[0].shape[0], dtype=torch.int32)
     eta, done, adv, all_done = stages.stage_step(*a, n_iters, 1e-5, 6, True)
-    for u, v in zip((eta, done, adv), stages.stage_iter(*a, 1e-5, 6, True)):
+    for u, v in zip((eta, done, adv), stages.stage_step(*a, None, 1e-5, 6, True)[:3]):
         assert torch.equal(u, v)
     assert torch.equal(n_iters, 1 + adv.to(torch.int32))
     assert all_done.shape == () and bool(all_done) == bool(done.all())
@@ -158,7 +158,7 @@ def test_stage_iter_is_the_plain_step_on_cpu_tensors():
     """The default path's step (stage kernels + glue) and the fused
     iteration's plain version are one function: equal bit for bit."""
     a = _args(_chunk(seed=2), "torch")
-    for u, v in zip(stages.stage_iter(*a, 1e-5, 6, True),
+    for u, v in zip(stages.stage_step(*a, None, 1e-5, 6, True)[:3],
                     stages.newton_iter_plain(*a, 1e-5, 6, True)):
         assert torch.equal(u, v)
 

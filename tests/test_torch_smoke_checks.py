@@ -337,9 +337,10 @@ def _iter_rounds_p_in_cg(inputs, parts, bf16):
         return torch.tensor(np.asarray(x))
 
     eta, bd, c, mu, siginv = inputs
-    return stages._newton_step(stages.fgh_plain, cg_xla, stages.linesearch_plain, eta, bd, c,
-                               mu, siginv, parts["ts"], parts["done"], cs.GRAD_TOL,
-                               parts["cg_iters"], bf16)
+    return stages._step(stages.fgh_plain, cg_xla, stages.linesearch_plain,
+                        stages.newton_direction_plain, stages.newton_accept_plain, eta, bd, c,
+                        mu, siginv, parts["ts"], parts["done"], None, cs.GRAD_TOL,
+                        parts["cg_iters"], bf16)[:3]
 
 
 @pytest.mark.parametrize("mutant, bf16", [

@@ -6,6 +6,8 @@ wrappers run their plain PyTorch versions; the CUDA kernels themselves
 are compared with those plain versions on the card (the ``cuda`` test
 below, and chip_smoke.py)."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from strutopy_tpu.ops.pallas_stages import (
     pallas_fgh_impl,
     pallas_linesearch_impl,
 )
+import chip_smoke as cs
 from strutopy_tpu_torch.ops import build, stages
 
 
@@ -146,6 +149,106 @@ def test_cpu_wrappers_take_a_bf16_beta_doc_and_count_no_launch():
     assert stages.LAUNCHES == before
     with pytest.raises(ValueError, match="float32"):
         stages.newton_loop(bd, x["counts"], x["mu"], x["mu"], x["siginv"], ts, 4, 1e-5, 4)
+
+
+def _wrapper_case(name):
+    """(wrapper, plain twin, a function making fresh inputs) of one kernel
+    wrapper, on a small CPU chunk; fresh, since accept's n_iters and the
+    scatter's beta_ss are updated in place."""
+    x = _torch(_chunk(seed=7, B=8, K=6, L=16))
+    eta, bd, c, mu, siginv = x["eta"], x["beta_doc"], x["counts"], x["mu"], x["siginv"]
+    ts = torch.exp2(-torch.arange(12, dtype=torch.float32))
+    done = torch.arange(8) % 3 == 0
+    f, g, H = stages.fgh_plain(eta, bd, c, mu, siginv, bf16=True)
+    x_cg = stages.cg_plain(H, g, 4, bf16=True)
+    p, gTp, conv = stages.newton_direction_plain(g, x_cg, 1e-5)
+    fs = stages.linesearch_plain(eta, p, ts, bd, c, mu, siginv)
+    gen = torch.Generator().manual_seed(7)
+    words = torch.randint(0, 20, (8, 16), generator=gen, dtype=torch.int32)
+    beta_T, phi = torch.rand(20, 6, generator=gen), torch.rand(8 * 16, 6, generator=gen)
+    plan = stages.scatter_plan(words, c > 0, 20)
+    return {
+        "fgh": (stages.fgh, stages.fgh_plain, lambda: (eta, bd, c, mu, siginv, True)),
+        "cg": (stages.cg, stages.cg_plain, lambda: (H, g, 4, True)),
+        "linesearch": (stages.linesearch, stages.linesearch_plain,
+                       lambda: (eta, p, ts, bd, c, mu, siginv)),
+        "newton_direction": (stages.newton_direction, stages.newton_direction_plain,
+                             lambda: (g, x_cg, 1e-5)),
+        "newton_accept": (stages.newton_accept, stages.newton_accept_plain,
+                          lambda: (eta, p, fs, f, gTp, ts, done, conv,
+                                   torch.arange(8, dtype=torch.int32))),
+        "newton_iter": (stages.newton_iter, stages.newton_iter_plain,
+                        lambda: (eta, bd, c, mu, siginv, ts, done, 1e-5, 4, True)),
+        "newton_loop": (stages.newton_loop, stages.newton_loop_plain,
+                        lambda: (bd, c, mu, eta, siginv, ts, 5, 1e-5, 4, True)),
+        "gather_rows": (stages.gather_rows, stages.gather_rows_plain,
+                        lambda: (beta_T, words)),
+        "scatter_phi": (stages.scatter_phi, stages.scatter_phi_plain,
+                        lambda: (torch.ones(6, 20), phi, plan, 20)),
+        "chol_pd_inverse": (stages.chol_pd_inverse, stages.chol_pd_inverse_plain,
+                            lambda: (H, True)),
+    }[name]
+
+
+WRAPPERS = ("fgh", "cg", "linesearch", "newton_direction", "newton_accept", "newton_iter",
+            "newton_loop", "gather_rows", "scatter_phi", "chol_pd_inverse")
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_cpu_wrapper_is_its_plain_twin_bit_for_bit(name):
+    """Every kernel wrapper given CPU tensors returns its plain version's
+    outputs bit for bit, in-place updates included, and launches nothing."""
+    wrapper, plain, inputs = _wrapper_case(name)
+    before = dict(stages.LAUNCHES)
+    got_in, want_in = inputs(), inputs()
+    got, want = wrapper(*got_in), plain(*want_in)
+    assert stages.LAUNCHES == before
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for u, v in zip(got + got_in, want + want_in):
+        if isinstance(u, torch.Tensor):
+            assert cs.same_bits(torch, u, v), name
+        else:
+            assert u == v, name
+
+
+@pytest.mark.parametrize("current", [True, False])
+def test_launch_passes_pointers_and_the_stream_then_checks_and_counts(monkeypatch, current):
+    """The launch protocol on a stand-in library: a tensor goes as its data
+    pointer, None as 0, a number as it is, and the device's current stream
+    comes last; the device guard is entered only where the device is not
+    current; a launch counts once, and a non-zero return raises and counts
+    nothing."""
+    calls, guards, rc = [], [], [0]
+
+    class Lib:
+        def stm_cg(self, *argv):
+            calls.append(argv)
+            return rc[0]
+
+        def stm_error_string(self, code):
+            return b"planted"
+
+    @contextlib.contextmanager
+    def guard(index):
+        guards.append(index)
+        yield
+
+    monkeypatch.setattr(build, "load", Lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0 if current else 1)
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index,
+                        raising=False)
+    monkeypatch.setitem(stages.LAUNCHES, "cg", 0)
+    H = torch.zeros(2, 3, 3)
+    stages._launch("cg", "cg", torch.device("cuda", 0), H, None, 5, 1.5)
+    assert calls == [(H.data_ptr(), 0, 5, 1.5, 1000)]
+    assert guards == ([] if current else [0]) and stages.LAUNCHES["cg"] == 1
+    rc[0] = 7
+    with pytest.raises(RuntimeError, match=r"stm_cg: CUDA error 7 \(planted\)"):
+        stages._launch("cg", "cg", torch.device("cuda", 0), H, None, 5, 1.5)
+    assert len(calls) == 2 and stages.LAUNCHES["cg"] == 1
 
 
 def test_wrappers_reject_devices_without_a_kernel():

@@ -199,7 +199,7 @@ def test_finalize_rungs_and_a_planted_non_pd_hessian(monkeypatch, plant):
     assert rungs[0] == B - 1 - int(plant)
     if plant:
         _f, _g, H, *_ = planted(eta, bd, counts, mu, siginv, counts.sum(dim=1), bf16=False)
-        assert int(estep._chol_pd_batched(H)[1][2]) >= 2
+        assert int(stages.chol_pd_inverse(H, inverse=False)[2][2]) >= 2
     _f, g, *_ = real(eta, bd, counts, mu, siginv, counts.sum(dim=1), bf16=False)
     want = int(((g.abs().amax(dim=1) > 1e-5) & (doc_w > 0)).sum())
     assert rec.counters["finalize.unconverged"] == want > 0
