@@ -55,6 +55,14 @@ end, without the final result line):
      calls, at most FACTOR_MS_MAX at P=99) beside its bound, plain's and
      the library pair's (cholesky_ex, cholesky_inverse) call by call, the
      wrapper's host time a call and the rungs;
+     2f. (likewise) the finalize's route (Z: g, H, theta, phi and the
+     bound's terms in one kernel; F; the epilogue: three launches a
+     chunk) against the plain finalize on the same two chunks: every
+     output within FINALIZE_RTOL of its float32 terms' magnitudes (nu
+     and the det term as 2e holds the factor), one launch of each a
+     call, two calls bit-equal; Z and the route timed (CUDA graphs of 20
+     calls) beside Z's bound and plain version and the composition Z
+     replaced, and the host time a call of both;
   3. the CUDA fit against the CPU fit of the same small corpus from the
      same numpy beta (3 EM iterations, float32 Hessian);
   4. the fit at full width: the bench.py corpus recipe (K=100,
@@ -237,13 +245,16 @@ REPLACES = {
     "accept": "strutopy_tpu/ops/estep.py:443",
     # the port's own kernel: its JAX twin is the finalize's factor and cho_inverse
     "factor": "strutopy_tpu/ops/estep.py:590",
+    # the port's own kernel: its JAX twin is the finalize's XLA math around the factor
+    "finalize": "strutopy_tpu/ops/estep.py:573",
 }
 # the bf16-beta_doc modes of B1, B3 and B4 (newton_bf16_beta), each an
 # entry of its own, replacing the same TPU kernel given a bf16 beta_doc
 BETA_MODES = {"fgh_bf16_beta": "fgh", "ls_bf16_beta": "ls", "iter_bf16_beta": "iter"}
 REPLACES.update({mode: REPLACES[base] for mode, base in BETA_MODES.items()})
 SOURCES = {k: "strutopy_tpu_torch/csrc/"
-           + ("stages.cu" if BETA_MODES.get(k, k) in ("fgh", "cg", "ls", "direction", "accept")
+           + ("stages.cu" if BETA_MODES.get(k, k) in ("fgh", "cg", "ls", "direction", "accept",
+                                                      "finalize")
               else "scatter.cu" if k == "scatter" else "factor.cu" if k == "factor"
               else "newton.cu")
            for k in REPLACES}
@@ -1465,9 +1476,10 @@ def factor_planted(torch, P, device="cuda"):
     return torch.tensor(H, device=device)
 
 
-def chunk_hessians(torch, stages, docs, beta, mu, eta, sigma, device="cuda"):
-    """The finalize's float32 Hessians of one chunk of ``docs`` at ``eta``
-    (host arrays), as ``_finalize_chunk`` forms them."""
+def chunk_finalize_args(torch, docs, beta, mu, eta, sigma, device="cuda"):
+    """``_finalize_chunk``'s arguments for one chunk of ``docs`` at ``eta``
+    (host arrays), as the E-step forms them: (eta, beta_doc, counts, mu,
+    doc_w (ones), siginv, sigmaentropy, Nd)."""
     from strutopy_tpu_torch.corpus.bow import pad_corpus
     from strutopy_tpu_torch.ops.estep import _gather_beta
     from strutopy_tpu_torch.ops.linalg import precompute_sigma
@@ -1476,22 +1488,37 @@ def chunk_hessians(torch, stages, docs, beta, mu, eta, sigma, device="cuda"):
     dev = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=device).to(dt)  # noqa: E731
     bd = _gather_beta(dev(beta), dev(corpus.words, torch.int32))
     c = dev(corpus.counts)
-    siginv = precompute_sigma(dev(sigma))[0]
-    return stages.f_g_H_batched(dev(eta), bd, c, dev(mu), siginv, c.sum(1), bf16=False)[2]
+    siginv, sigmaentropy = precompute_sigma(dev(sigma))
+    return (dev(eta), bd, c, dev(mu), torch.ones(c.shape[0], device=device), siginv,
+            sigmaentropy, c.sum(1))
 
 
-def content_shaped_hessians(torch, stages, B=256, K=20, V=12_139, words=158, seed=31,
-                            device="cuda"):
-    """A chunk shaped like poliblog_content_fit's (P=19, ~158 tokens a
-    document) from the bench recipe at K=20, its Hessians at the stage
-    path's Newton optimum from mu = 0 (sigma = I)."""
+def chunk_hessians(torch, stages, docs, beta, mu, eta, sigma, device="cuda"):
+    """The finalize's float32 Hessians of one chunk of ``docs`` at ``eta``
+    (host arrays), as ``_finalize_chunk``'s plain version forms them."""
+    eta, bd, c, mu, _w, siginv, _se, Nd = chunk_finalize_args(torch, docs, beta, mu, eta, sigma,
+                                                              device)
+    return stages.f_g_H_batched(eta, bd, c, mu, siginv, Nd, bf16=False)[2]
+
+
+def content_shaped_args(torch, B=256, K=20, V=12_139, words=158, seed=31, device="cuda"):
+    """``_finalize_chunk``'s arguments for a chunk shaped like
+    poliblog_content_fit's (K=20, ~158 tokens a document) from the bench
+    recipe, at the stage path's Newton optimum from mu = 0 (sigma = I)."""
     from strutopy_tpu_torch.corpus.bow import pad_corpus
     from strutopy_tpu_torch.ops.estep import NewtonConfig, _batched_newton
 
     docs, _X, beta = make_corpus(K, V, B, words, seed=seed, return_beta=True)
     bd, c, mu, siginv = dgp_inputs(torch, pad_corpus(docs, V=V), beta, device)
     eta = _batched_newton(bd, c, mu, mu, siginv, NewtonConfig())[0]
-    return stages.f_g_H_batched(eta, bd, c, mu, siginv, c.sum(1), bf16=False)[2]
+    return (eta, bd, c, mu, torch.ones(B, device=device), siginv,
+            torch.zeros((), device=device), c.sum(1))
+
+
+def content_shaped_hessians(torch, stages, **kw):
+    """The finalize's Hessians of :func:`content_shaped_args`' chunk (P=19)."""
+    eta, bd, c, mu, _w, siginv, _se, Nd = content_shaped_args(torch, **kw)
+    return stages.f_g_H_batched(eta, bd, c, mu, siginv, Nd, bf16=False)[2]
 
 
 def factor_verdict(torch, stages, H):
@@ -1579,6 +1606,192 @@ def phase_factor(torch, stages, fails, st):
     return {"factor": result}
 
 
+FINALIZE_RTOL = 1e-5  # Z: x each element's sum of |float32 terms| (PERF.md section 6)
+FINALIZE_KEYS = ("finalize", "factor", "finalize_bound")  # _finalize_chunk's launches a call
+
+
+def finalize_inputs(torch, B, K, L, seed, A=0, device="cuda"):
+    """``_finalize_chunk``'s arguments (eta, beta_doc, counts, mu, doc_w,
+    siginv, sigmaentropy, Nd) for a random chunk: beta_doc gathered
+    (``_gather_beta``) from random_beta's (K, V) beta or, with ``A``, an
+    (A, K, V) one and the documents' aspects; L distinct words a document,
+    counts 1-4 with a quarter of the slots 0; the last document a padding
+    row (no counts, weight 0) and every fifth weight 0; siginv and
+    sigmaentropy from a random SPD sigma."""
+    from strutopy_tpu_torch.ops.estep import _gather_beta
+    from strutopy_tpu_torch.ops.linalg import precompute_sigma
+
+    rng = np.random.default_rng(seed)
+    V = max(4 * L, 200)
+    beta = np.stack([random_beta(K, V, seed + a) for a in range(max(A, 1))])
+    words = np.stack([rng.choice(V, L, replace=False) for _ in range(B)]).astype(np.int32)
+    counts = rng.integers(1, 5, (B, L)) * (rng.random((B, L)) > 0.25)
+    counts[-1] = 0
+    doc_w = np.ones(B)
+    doc_w[::5] = 0.0
+    doc_w[-1] = 0.0
+    mu = rng.normal(0, 0.5, (B, K - 1))
+    eta = mu + rng.normal(0, 0.3, (B, K - 1))
+    R = rng.normal(0, 1, (K - 1, 2 * K))
+    sigma = R @ R.T / (2 * K) + 0.5 * np.eye(K - 1)
+    T = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), device=device).to(dt)  # noqa: E731
+    if A:
+        bd = _gather_beta(T(beta), T(words, torch.int32), T(rng.integers(0, A, B), torch.int32))
+    else:
+        bd = _gather_beta(T(beta[0]), T(words, torch.int32))
+    c = T(counts)
+    siginv, sigmaentropy = precompute_sigma(T(sigma))
+    return T(eta), bd, c, T(mu), T(doc_w), siginv, sigmaentropy, c.sum(1)
+
+
+def finalize_plain(torch, stages, args):
+    """The plain finalize on ``args``' device, ``_finalize_chunk``'s CPU
+    route: the plain terms, the cholesky_ex ladder and cholesky_inverse,
+    the plain bound.  ({theta, nu, bound, phi}, Z's {g, H, loglik, quad},
+    nu before its weight, L)."""
+    eta, bd, c, mu, w, siginv, se, Nd = args
+    g, H, theta, phi, terms = stages.finalize_terms_plain(eta, bd, c, mu, w, siginv, Nd)
+    L, nu1, _rung = stages.chol_pd_inverse_plain(H)
+    nu, bound = stages.finalize_bound_plain(L, nu1, terms, se, w)
+    return ({"theta": theta, "nu": nu, "bound": bound, "phi": phi},
+            {"g": g, "H": H, "loglik": terms[:, 0], "quad": terms[:, 1]}, nu1, L)
+
+
+def composed_finalize(torch, stages, args):
+    """The finalize as the port composed it before Z, on the card: the
+    plain terms (f_g_H_batched and ~30 ops), F, the plain bound."""
+    eta, bd, c, mu, w, siginv, se, Nd = args
+    g, H, theta, phi, terms = stages.finalize_terms_plain(eta, bd, c, mu, w, siginv, Nd)
+    L, nu, _rung = stages.chol_pd_inverse(H)
+    return stages.finalize_bound_plain(L, nu, terms, se, w)
+
+
+def finalize_bounds(torch, stages, args, want, nu1, L):
+    """Each output's allowance, element by element: FINALIZE_RTOL times the
+    sum of the magnitudes of its float32 terms (theta and phi themselves,
+    their sums of positive terms; g and H gh_scales'; loglik Σ_l c_l|log t_l
+    + m|; quad ½|d|ᵀ|Σ⁻¹||d|); nu as phase 2e holds the factor (FACTOR_NU_RTOL
+    x the document's max|nu|) plus H's allowance carried through the inverse
+    (|nu| H_sc |nu|); the bound its terms' (loglik's, quad's, sigmaentropy's,
+    each |log L_ii|, and H's carried into the det term, ½ Σ_ij |nu_ij|
+    H_sc_ij) plus the factor's (FACTOR_L_RTOL x max|L| / L_ii a pivot); the
+    weighted outputs times |doc_w|."""
+    eta, bd, c, mu, w, siginv, se, Nd = args
+    d = lambda x: x.double()  # noqa: E731
+    g_sc, H_sc, _u = gh_scales(torch, stages, eta, bd, c, mu, siginv)
+    theta = d(want["theta"])
+    full = d(stages.pad_eta(eta))
+    m = torch.amax(full, dim=1, keepdim=True)
+    e = torch.exp(full - m)
+    t_l = torch.clamp_min(torch.bmm((theta * e)[:, None, :], d(bd))[:, 0], 1e-35)
+    ll_sc = torch.sum(torch.where(c > 0, d(c) * (torch.log(t_l) + m).abs(), 0.0), dim=1)
+    diff = d(eta - mu).abs()
+    quad_sc = 0.5 * torch.sum(diff * (diff @ d(siginv).abs()), dim=1)
+    nu1, Hs, Ld = d(nu1).abs(), d(H_sc), d(torch.diagonal(L, dim1=1, dim2=2))
+    carry_nu = torch.bmm(torch.bmm(nu1, Hs), nu1)
+    carry_det = 0.5 * torch.sum(nu1 * Hs, dim=(1, 2))
+    l_max = d(L).abs().amax(dim=(1, 2))
+    factor_det = FACTOR_L_RTOL * l_max * torch.sum(1.0 / Ld, dim=1)
+    aw = d(w).abs()
+    return {
+        "theta": FINALIZE_RTOL * theta.abs(), "phi": FINALIZE_RTOL * d(want["phi"]).abs(),
+        "g": FINALIZE_RTOL * d(g_sc), "H": FINALIZE_RTOL * Hs,
+        "loglik": FINALIZE_RTOL * ll_sc, "quad": FINALIZE_RTOL * quad_sc,
+        "nu": aw[:, None, None] * (FACTOR_NU_RTOL * nu1.amax(dim=(1, 2), keepdim=True)
+                                   + FINALIZE_RTOL * carry_nu),
+        "bound": aw * (FINALIZE_RTOL * (ll_sc + quad_sc + d(se).abs()
+                                        + torch.log(Ld).abs().sum(dim=1) + carry_det)
+                       + factor_det)}
+
+
+def finalize_verdict(torch, stages, estep, args):
+    """``_finalize_chunk`` (on the card: Z, F, the epilogue) and Z alone
+    against the plain finalize on ``args``: ({check: bool}, {number}).
+    Each output within its allowance (:func:`finalize_bounds`) and NaN
+    where plain's; one call launching each of FINALIZE_KEYS once; two
+    calls bit-equal; phi entry-major."""
+    eta, bd, c, mu, w, siginv, se, Nd = args
+    n0 = {k: stages.LAUNCHES[k] for k in FINALIZE_KEYS}
+    got = dict(zip(("theta", "nu", "bound", "phi"), estep._finalize_chunk(*args)))
+    launched = {k: stages.LAUNCHES[k] - n0[k] for k in FINALIZE_KEYS}
+    again = estep._finalize_chunk(*args)
+    g, H, _theta, _phi, terms = stages.finalize_terms(eta, bd, c, mu, w, siginv, Nd)
+    got.update(g=g, H=H, loglik=terms[:, 0], quad=terms[:, 1])
+    want, z_want, nu1, L = finalize_plain(torch, stages, args)
+    want.update(z_want)
+    allow = finalize_bounds(torch, stages, args, want, nu1, L)
+    checks = {"launches": launched == {k: 1 for k in FINALIZE_KEYS},
+              "twice bit-equal": all(same_bits(torch, got[k], a)
+                                     for k, a in zip(("theta", "nu", "bound", "phi"), again)),
+              "phi entry-major": got["phi"].stride() == want["phi"].stride()}
+    out = {"max_abs_err": 0.0}
+    for name, bound in allow.items():
+        nan = torch.isnan(want[name])
+        err = torch.where(nan, 0.0, (got[name].double() - want[name].double()).abs())
+        worst = float((err / bound.clamp_min(1e-30)).max())
+        checks[f"{name} NaN where plain's"] = bool(torch.equal(torch.isnan(got[name]), nan))
+        checks[f"{name} within its allowance"] = worst <= 1.0
+        out[f"{name} err / allowance"] = round(worst, 4)
+        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+    return checks, out
+
+
+def phase_finalize(torch, stages, fails, st):
+    """Phase 2f (run once phase 4 has a fitted state ``st``, its
+    oracle_inputs): the finalize's route on the card (``_finalize_chunk``:
+    Z, F, the epilogue) against the plain finalize on the fit's chunk (K=100)
+    and a content-shaped chunk (K=20) (:func:`finalize_verdict`), then Z
+    alone and the whole route timed (CUDA graphs of 20 calls) beside Z's
+    bound, Z's plain version and the composition Z replaced (the plain
+    terms, F, the plain bound), and the host time a call of the route and
+    of that composition.  First, Z's plan at every K of B1's default mode
+    (bf16 operand, float32 beta_doc), the E-step's Newton limit, and the
+    verdict at the largest such K (Z without its phi stage)."""
+    from strutopy_tpu_torch.ops import build, estep
+
+    lib = build.load()
+    k_max = max(K for K in range(2, 1025) if lib.stm_fgh_smem(K, 1, 0) > 0)
+    missing = [K for K in range(2, k_max + 1) if stages.finalize_plan(K) is None]
+    fails.check(not missing, f"Z has no plan at K={missing[:5]} (B1's default mode runs "
+                             f"up to K={k_max})")
+    args = finalize_inputs(torch, 4, k_max, 64, seed=k_max)
+    checks, out = finalize_verdict(torch, stages, estep, args)
+    print(f"phase 2f: the finalize vs plain at B1's largest default K={k_max} (B=4, L=64), "
+          f"Z's plan {stages.finalize_plan(k_max)}: {out}")
+    fails.check(all(checks.values()), f"K={k_max}: {checks}; {out}")
+
+    chunks = {"k100 fit chunk (phase 4's state)": chunk_finalize_args(
+                  torch, st["docs"], st["beta"], st["mu"], st["eta"], st["sigma"]),
+              "content-shaped chunk (K=20)": content_shaped_args(torch)}
+    result = {"max_abs_err": 0.0, "library_ms": None}
+    for label, args in chunks.items():
+        eta, bd, c, mu, w, siginv, se, Nd = args
+        B, K, L = bd.shape
+        print(f"phase 2f: the finalize (Z, F, epilogue) vs plain, {label}: B={B} K={K} L={L}, "
+              f"Z's plan {stages.finalize_plan(K)}")
+        checks, out = finalize_verdict(torch, stages, estep, args)
+        fails.check(all(checks.values()), f"{label}: {checks}; {out}")
+        result["max_abs_err"] = max(result["max_abs_err"], out["max_abs_err"])
+        zfn = lambda: stages.finalize_terms(eta, bd, c, mu, w, siginv, Nd)  # noqa: E731
+        zpfn = lambda: stages.finalize_terms_plain(eta, bd, c, mu, w, siginv, Nd)  # noqa: E731
+        rfn = lambda: estep._finalize_chunk(*args)  # noqa: E731
+        cfn = lambda: composed_finalize(torch, stages, args)  # noqa: E731
+        z_ms, zp_ms = time_pair(torch, zfn, zpfn)
+        route_ms, composed_ms = time_pair(torch, rfn, cfn)
+        out_bytes = 4 * B * ((K - 1) + (K - 1) ** 2 + K + L * K + 2)
+        bound_ms, bound_by = roofline(nbytes(eta, bd, c, mu, w, siginv, Nd) + out_bytes,
+                                      {"f32": B * (hessian_ops(K, L) + 8 * K * L)})
+        host_route, host_composed = glue_host_us(torch, rfn), glue_host_us(torch, cfn)
+        print(f"  Z at K={K}, L={L}: {z_ms:.4f} ms (CUDA graph of 20 calls), bound "
+              f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / z_ms:.3f}; plain "
+              f"{zp_ms:.4f} ms; the route (Z, F, epilogue) {route_ms:.4f} ms against the "
+              f"composition it replaced (plain terms, F, plain bound) {composed_ms:.4f} ms; "
+              f"host {host_route:.1f} against {host_composed:.1f} us a call [{CARD}]")
+        if K == K_BENCH:
+            result.update(ms=z_ms, plain_ms=zp_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return {"finalize": result}
+
+
 def phase_fused_widths(torch, stages, fails, B=256):
     """Phase 2b: B4 and B5 at K=200 and K=400, their large-K branches
     (tile groups in turn, H in a shared region of its own at K=200 and in
@@ -1605,9 +1818,10 @@ FUSED_PATHS = {  # Newton path -> STMConfig changes that select it
     "newton": {"use_pallas": True, "newton_pass1_iters": 0},
 }
 # each Newton path's kernels, and the phi scatter every E-step's finalize launches
-# every path finalizes through the factor kernel
-PATH_KERNELS = {"stage": FIT_KERNELS + GLUE + ("factor",), "iter": ("iter", "scatter", "factor"),
-                "newton": ("newton", "scatter", "factor")}
+# every path finalizes through Z, the factor kernel and the epilogue
+PATH_KERNELS = {"stage": FIT_KERNELS + GLUE + FINALIZE_KEYS,
+                "iter": ("iter", "scatter") + FINALIZE_KEYS,
+                "newton": ("newton", "scatter") + FINALIZE_KEYS}
 
 
 def reset(stages):
@@ -4120,6 +4334,10 @@ def main() -> int:
     fails.check(all(launches[k] == launches["fgh"] for k in GLUE),
                 f"main path launched each glue kernel once a B1 launch: "
                 f"{ {k: launches[k] for k in ('fgh',) + GLUE} }")
+    fails.check(launches["finalize"] > 0
+                and all(launches[k] == launches["finalize"] for k in FINALIZE_KEYS),
+                f"main path finalized through Z, F and the epilogue, once each a chunk: "
+                f"{ {k: launches[k] for k in FINALIZE_KEYS} }")
     theta, beta = model.theta, model.beta
     bench_bounds = np.asarray(model.last_bounds)
     fails.check(theta.shape == (N_BENCH, K_BENCH) and beta.shape == (K_BENCH, V_BENCH)
@@ -4129,6 +4347,7 @@ def main() -> int:
                 "theta (N, K) and beta (K, V) finite, rows on the simplex")
     oracle_state = oracle_inputs(model, docs)
     kernels.update(phase_factor(torch, stages, fails, oracle_state))
+    kernels.update(phase_finalize(torch, stages, fails, oracle_state))
     phase_fused_fit(torch, fails, stages, docs, X, cfg, card)
     phase_twins(torch, fails, docs, X, cfg, card)
 

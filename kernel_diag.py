@@ -23,10 +23,11 @@ kernels at B = 132, 264 and 528.
 ``compare`` builds the CUDA sources of the checkout at DIR (under
 ``build/diag/``) and times its ``stm_fgh``, ``stm_cg``, ``stm_ls``,
 ``stm_iter`` and ``stm_newton`` (B1-B5; B1, B3 and B4 with a float32 and
-with a bf16 beta_doc) against this checkout's, in turns (theirs, ours,
-ours, theirs, ...), on the same chunk (B4 and B5 on the recipe's
-documents), and says whether each one's outputs equal theirs bit for
-bit; their C interfaces must be this checkout's.
+with a bf16 beta_doc, B1, B4 and B5 with the float32 Hessian too)
+against this checkout's, in turns (theirs, ours, ours, theirs, ...), on
+the same chunk (B4 and B5 on the recipe's documents), and says whether
+each one's outputs equal theirs bit for bit; their C interfaces must be
+this checkout's.
 
 ``plans`` builds the library twice, once with B5's streaming plans only
 and once with its resident plan only (beta_doc held in shared memory for
@@ -200,12 +201,12 @@ def bench_chunk(torch, B=256):
     def ptrs(*ts):
         return (t.data_ptr() for t in ts)
 
-    def fgh(beta_bf16):
+    def fgh(beta_bf16, bf16=1):
         def call(lib):
             f, g = torch.empty(B, device="cuda"), torch.empty(B, K - 1, device="cuda")
             H = torch.empty(B, K - 1, K - 1, device="cuda")
             return (lambda: lib.stm_fgh(*ptrs(siginv, eta, mu, beta[beta_bf16], c, f, g, H), B,
-                                        K, L, 1, beta_bf16, stream())), (f, g, H)
+                                        K, L, bf16, beta_bf16, stream())), (f, g, H)
         return call
 
     def cg(iters):
@@ -223,29 +224,34 @@ def bench_chunk(torch, B=256):
                                        stream())), (fs,)
         return call
 
-    def it(beta_bf16):
+    def it(beta_bf16, bf16=1):
         def call(lib):
             e, d, a = torch.empty_like(lmu), torch.empty_like(done), torch.empty_like(done)
             return (lambda: lib.stm_iter(*ptrs(lsig, lts, lmu, lmu, done, lbeta[beta_bf16], lc),
                                          None, *ptrs(e, d, a), B, K, L, cs.N_STEPS,
-                                         cs.GRAD_TOL, 6, 1, beta_bf16, stream())), (e, d, a)
+                                         cs.GRAD_TOL, 6, bf16, beta_bf16, stream())), (e, d, a)
         return call
 
-    def newton(lib):
-        e = torch.empty_like(lmu)
-        n = torch.empty(B, dtype=torch.int32, device="cuda")
-        return (lambda: lib.stm_newton(*ptrs(lsig, lts, lbd, lc, lmu, lmu), None, *ptrs(e, n),
-                                       B, K, L, cs.N_STEPS, cs.LOOP_ITERS, cs.GRAD_TOL, 6, 1,
-                                       stream())), (e, n)
+    def newton(bf16=1):
+        def call(lib):
+            e = torch.empty_like(lmu)
+            n = torch.empty(B, dtype=torch.int32, device="cuda")
+            return (lambda: lib.stm_newton(*ptrs(lsig, lts, lbd, lc, lmu, lmu), None,
+                                           *ptrs(e, n), B, K, L, cs.N_STEPS, cs.LOOP_ITERS,
+                                           cs.GRAD_TOL, 6, bf16, stream())), (e, n)
+        return call
 
     calls = {
         "fgh": fgh(0), "fgh bf16 beta": fgh(1),
+        # the float32 product (bf16 off): simulate_theta's B1 and every
+        # Newton path under newton_bf16_hessian=False
+        "fgh float32": fgh(0, bf16=0),
         "cg": cg(aux["iters"]),
         # H and g in and the set-up, no step: what the steps add is the rest
         "cg, 0 steps": cg(0),
         "ls": ls(0), "ls bf16 beta": ls(1),
-        "iter": it(0), "iter bf16 beta": it(1),
-        "newton": newton,
+        "iter": it(0), "iter bf16 beta": it(1), "iter float32": it(0, bf16=0),
+        "newton": newton(), "newton float32": newton(bf16=0),
     }
     return (B, K, L, T), calls
 
@@ -364,15 +370,16 @@ def compare(torch, root):
     other = build_other(build, root)
     ours = build.load()
     (B, K, L, T), calls = bench_chunk(torch)
-    print(f"compare: B={B} K={K} L={L} T={T}, bf16 on, 6 CG steps; iter and newton on the "
-          f"recipe's documents from eta = mu; ms a call, median [least-most] of 4 rounds of a "
-          f"CUDA graph of 50 calls (newton 5), in turns with {root}'s [{cs.card_line()}]")
+    print(f"compare: B={B} K={K} L={L} T={T}, bf16 on unless named float32, 6 CG steps; iter "
+          f"and newton on the recipe's documents from eta = mu; ms a call, median "
+          f"[least-most] of 4 rounds of a CUDA graph of 50 calls (newton 5), in turns with "
+          f"{root}'s [{cs.card_line()}]")
     for name, call in calls.items():
         (fn, out), (fn_o, out_o) = call(ours), call(other)
         assert fn() == 0 and fn_o() == 0, name
         torch.cuda.synchronize()
         same = all(bool(torch.equal(a, b)) for a, b in zip(out, out_o))
-        a, b = time_turns(torch, fn, fn_o, reps=5 if name == "newton" else 50)
+        a, b = time_turns(torch, fn, fn_o, reps=5 if name.startswith("newton") else 50)
         print(f"  {name}: this checkout {spread(a)} ms, {root} {spread(b)} ms; outputs "
               f"bit-equal {same}")
 

@@ -8,7 +8,9 @@
 // in the same order.
 //
 //   fgh_body  f, g, H of a document (B1): beta_doc streamed once in slabs
-//             through a cp.async ring, B·Bᵀ on the tensor cores
+//             through a cp.async ring, B·Bᵀ on the tensor cores; with
+//             FINAL, the E-step finalize's g, H, theta, phi and bound terms
+//             in float32 from the same stream (Z)
 //   cg_body   Jacobi-preconditioned Steihaug CG (B2) from H in shared
 //             memory (or, at large K, in device memory)
 //   ls_body   the Armijo sweep f(eta + t p) for T step sizes (B3), the
@@ -249,6 +251,17 @@ __device__ __forceinline__ void ldmatrix_b2(uint32_t* b, const __nv_bfloat16* op
 // keeps the operand in float32 and forms the same tiles with float32
 // FMAs on the CUDA cores.
 //
+// Z (FINAL: the float32 mode with the finalize's outputs, FinOut below)
+// adds per slab the mixture t_l = Σ_k θ_k e_k β_kl beside s_l (the same
+// loads, the same order), its log-likelihood terms, and phi for all K
+// topics, staged in shared memory and written out as the slab's contiguous
+// run of (B, L, K) memory while the product runs.  It sums q a slab at a
+// time (a warp sum a topic, added in slab order) and so holds no per-lane
+// partials: the ~32·K floats this frees keep Z's largest K above B1's
+// default mode's (bf16 operand), the E-step's Newton limit.  Per document it reads
+// beta_doc once and writes phi and H: ~89 MB at B=256, K=100, L=384, so
+// it is bound by bytes (~27 µs) ahead of its float32 product (~15 µs).
+//
 // bf16 slabs (kPaired): a warp takes its tiles in pairs side by side in
 // one row tile (each row tile holds an even number of tiles), with one A
 // and one B load for the two products; each tile's sums are the unpaired
@@ -261,20 +274,30 @@ __host__ __device__ constexpr int op_stride_f(int W) { return W + 1; }
 constexpr int kTilesPerWarp = 8;
 constexpr int kTilesPerGroup = kTilesPerWarp * kWarps;
 
+// Row stride of Z's phi stage (below): K rounded up to odd, so a warp's 32
+// word slots of one topic hit 32 distinct banks.
+__host__ __device__ inline int fin_stage_ld(int K) { return K | 1; }
+
 // Shared-memory layout of B1, in floats; the ring holds `stages` slabs of
-// beta_doc elements of beta_bytes (4 or 2) each.
+// beta_doc elements of beta_bytes (4 or 2) each.  `final` adds the
+// finalize's buffers (Z, below) in place of the per-lane q partials: 1
+// its mixture coefficients and partial sums, 2 those and the phi stage of
+// a slab; 0 none.
 struct FghLayout {
-  size_t ring, part, qpart, e, diff, sdiff, q, red, op, floats;
+  size_t ring, part, qpart, te, tpart, stage, e, diff, sdiff, q, red, op, floats;
 };
 
 __host__ __device__ inline FghLayout fgh_layout(int K, int W, int stages, int bf16,
-                                                int beta_bytes) {
+                                                int beta_bytes, int final = 0) {
   const int Km1 = K - 1, Kp = round16(Km1);
   FghLayout o;
   size_t at = 0;
   o.ring = at;   at += beta_floats((size_t)stages * K * W, beta_bytes);  // the slabs
   o.part = at;   at += (size_t)kWarps * W;       // per-warp partial s_l
-  o.qpart = at;  at += (size_t)Km1 * 32;         // per-lane partial q_k
+  o.qpart = at;  at += final ? 0 : (size_t)Km1 * 32;  // per-lane partial q_k
+  o.te = at;     at += final ? K : 0;            // Z: θ_k e_k
+  o.tpart = at;  at += final ? (size_t)kWarps * W : 0;  // Z: per-warp partial t_l
+  o.stage = at;  at += final == 2 ? (size_t)W * fin_stage_ld(K) : 0;  // Z: a slab's phi
   o.e = at;      at += K;
   o.diff = at;   at += Km1;
   o.sdiff = at;  at += Km1;
@@ -312,27 +335,57 @@ struct HOut {
   int ld;
 };
 
+// Z, the E-step finalize (FINAL = true, float32 operand, stages.cu's
+// finalize_kernel): besides g and H at the converged eta, each document's
+// theta, phi = phi_hat·c_l·doc_w for all K topics, and the bound's terms
+// at theta (the reference's lower bound): loglik = Σ_l c_l (log t_l + m)
+// with the mixture t_l = Σ_k θ_k e_k β_kl, and quad = ½ dᵀΣ⁻¹d.  Nd is
+// read, as the plain version takes it.  phi goes to (B, L, K) memory, one
+// slot's K values contiguous: where the plan has room (stage), a slab's
+// phi is staged in shared memory and written as one contiguous run of
+// W·K floats, else stored element by element.  Group 0 alone writes
+// these.  Document d's are Nd[d], doc_w[d], theta[d·K ..], phi from
+// d·L·K and terms[2d], terms[2d + 1] (loglik, quad).
+struct FinOut {
+  const float* Nd;
+  const float* doc_w;
+  float* theta;
+  float* phi;
+  float* terms;
+  int stage;
+};
+
 // Document d's outputs are f_out[d], g_out[d·Km1 ..] and H's block d; its
 // mu is mu[d·Km1 ..].  They are addressed where they are used, so that no
 // pointer stays live in a register across the stream.  RESIDENT: the ring
 // holds all of the document's slabs already (the fused kernel loads them
 // once for the whole Newton loop), so nothing is streamed.  TB: beta_doc's
-// element type.
-template <int W, int STAGES, bool BF16, bool FUSED, bool RESIDENT = false, typename TB = float>
+// element type.  FINAL: Z (FinOut above; f is not written).
+template <int W, int STAGES, bool BF16, bool FUSED, bool RESIDENT = false, typename TB = float,
+          bool FINAL = false>
 __device__ __forceinline__ void fgh_body(
     const float* __restrict__ siginv, bool sig_shared, const float* eta_d, const float* mu,
     const TB* __restrict__ beta_d, const float* __restrict__ cnt_d, float* f_out,
-    float* g_out, const HOut& hout, size_t d, int K, int L, int vec16, int grp, float* smem) {
+    float* g_out, const HOut& hout, size_t d, int K, int L, int vec16, int grp, float* smem,
+    const FinOut& fin = FinOut{}) {
+  static_assert(!FINAL || (!BF16 && !FUSED && !RESIDENT && sizeof(TB) == 4),
+                "the finalize runs the float32 stage body");
   constexpr bool kPaired = sizeof(TB) == 2;  // bf16 slabs: the tiles in pairs
   constexpr int kOpStrideBf = op_stride_bf(W), kOpStrideF = op_stride_f(W);
   constexpr int kCols = W / 32;  // word slots of a lane in a slab
   const int Km1 = K - 1, Kp = round16(Km1);
   const int n_slabs = (L + W - 1) / W;
-  const FghLayout lay = fgh_layout(K, W, RESIDENT ? n_slabs : STAGES, BF16, sizeof(TB));
+  const FghLayout lay = fgh_layout(K, W, RESIDENT ? n_slabs : STAGES, BF16, sizeof(TB),
+                                   FINAL ? 1 + (fin.stage != 0) : 0);
   TB* ring = reinterpret_cast<TB*>(smem + lay.ring);
   float* sig_buf = reinterpret_cast<float*>(ring + K * W);  // the ring's buffers 1 ..
   float* part = smem + lay.part;
   float* qpart = smem + lay.qpart;
+  float* te = smem + lay.te;
+  float* tpart = smem + lay.tpart;
+  float* stage = smem + lay.stage;
+  const int sld = fin_stage_ld(K);
+  const bool fin_out = FINAL && grp == 0;  // this block writes Z's outputs
   float* e = smem + lay.e;
   float* diff = smem + lay.diff;
   float* sdiff = smem + lay.sdiff;
@@ -373,11 +426,19 @@ __device__ __forceinline__ void fgh_body(
     se += v;
   }
   const float sum_e = block_sum(se, red);
+  if constexpr (FINAL) {
+    // theta, and the mixture's coefficients θ_k·e_k rounded as theta * e
+    for (int k = tid; k < K; k += kThreads) {
+      const float th = e[k] / sum_e;
+      te[k] = __fmul_rn(th, e[k]);
+      if (fin_out) fin.theta[d * K + k] = th;
+    }
+  }
 
   float nd = 0.f;
   for (int l = tid; l < L; l += kThreads) nd += cnt_d[l];
   for (int i = tid; i < Km1; i += kThreads) diff[i] = eta_d[i] - mu[d * Km1 + i];
-  for (int i = tid; i < Km1 * 32; i += kThreads) qpart[i] = 0.f;
+  for (int i = tid; !FINAL && i < Km1 * 32; i += kThreads) qpart[i] = 0.f;
   // operand rows Km1 .. Kp-1 are zero for the whole stream
   if (BF16) {
     for (int i = Km1 * kOpStrideBf + tid; i < Kp * kOpStrideBf; i += kThreads)
@@ -385,7 +446,8 @@ __device__ __forceinline__ void fgh_body(
   } else {
     for (int i = Km1 * kOpStrideF + tid; i < Kp * kOpStrideF; i += kThreads) op_f[i] = 0.f;
   }
-  const float Nd = block_sum(nd, red);  // its barriers publish the above
+  float Nd = block_sum(nd, red);  // its barriers publish the above
+  if constexpr (FINAL) Nd = fin.Nd[d];  // the finalize's Nd, as the plain version's
 
   // prior term (group 0 writes f and g): sdiff_j = Σ_i diff_i siginv[i, j],
   // each column's two halves of i summed by two threads (the upper half
@@ -420,6 +482,9 @@ __device__ __forceinline__ void fgh_body(
     }
     quad = 0.5f * block_sum(qd, red);
   }
+  // Z: q is summed in place from here (its barriers and the stream's first
+  // publish the zeros)
+  for (int i = tid; FINAL && i < Km1; i += kThreads) q[i] = 0.f;
 
   // this warp's accumulator tiles: rows i0 .. i0+15, columns j0 .. j0+7;
   // bf16 slabs: pairs of tiles, pair warp + kWarps j of the group
@@ -451,6 +516,8 @@ __device__ __forceinline__ void fgh_body(
 
   const int g8 = lane >> 2, t4 = lane & 3;
   float llp = 0.f;  // warp 0: its lane's word slots' log-likelihood terms
+  float llt = 0.f;  // Z, warp 0: the same terms at the mixture t_l
+  const float w_d = FINAL ? fin.doc_w[d] : 0.f;
   for (int s = 0; s < n_slabs; ++s) {
     if (!RESIDENT) cp_async_wait<STAGES - 2>();
     __syncthreads();  // slab s has landed; slab s-1's buffer is free
@@ -463,16 +530,23 @@ __device__ __forceinline__ void fgh_body(
     const TB* slab = ring + (size_t)(RESIDENT ? s : s % STAGES) * K * W;
 
     // s_l: warp w sums the topics k ≡ w (mod kWarps) of its lane's slots
-    float ps[kCols];
+    // (Z: t_l beside it, in the same order)
+    float ps[kCols], pt[kCols];
 #pragma unroll
-    for (int u = 0; u < kCols; ++u) ps[u] = 0.f;
+    for (int u = 0; u < kCols; ++u) ps[u] = pt[u] = 0.f;
 #pragma unroll 4
     for (int k = warp; k < K; k += kWarps) {
 #pragma unroll
-      for (int u = 0; u < kCols; ++u) ps[u] += e[k] * ldf(slab + k * W + lane + 32 * u);
+      for (int u = 0; u < kCols; ++u) {
+        ps[u] += e[k] * ldf(slab + k * W + lane + 32 * u);
+        if constexpr (FINAL) pt[u] += te[k] * ldf(slab + k * W + lane + 32 * u);
+      }
     }
 #pragma unroll
-    for (int u = 0; u < kCols; ++u) part[warp * W + lane + 32 * u] = ps[u];
+    for (int u = 0; u < kCols; ++u) {
+      part[warp * W + lane + 32 * u] = ps[u];
+      if constexpr (FINAL) tpart[warp * W + lane + 32 * u] = pt[u];
+    }
     __syncthreads();
     float sl[kCols], cl[kCols], rc[kCols];
     bool live[kCols];
@@ -487,12 +561,22 @@ __device__ __forceinline__ void fgh_body(
       live[u] = cl[u] > 0.f;
       if (warp == 0 && live[u]) llp += cl[u] * (logf(sl[u]) + m);
       rc[u] = live[u] ? sqrtf(cl[u]) : 0.f;
+      if constexpr (FINAL) {
+        if (warp == 0 && live[u]) {
+          float t = 0.f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) t += tpart[w * W + lane + 32 * u];
+          llt += cl[u] * (logf(fmaxf(t, kTiny)) + m);
+        }
+      }
     }
 
-    // phi_hat, its q terms and the B·Bᵀ operand, rows k < Km1
+    // phi_hat, its q terms and the B·Bᵀ operand, rows k < Km1 (Z: and the
+    // phi of every topic, the last one's too)
 #pragma unroll 4
-    for (int k = warp; k < Km1; k += kWarps) {
-      float qv = qpart[k * 32 + lane];
+    for (int k = warp; k < (FINAL ? K : Km1); k += kWarps) {
+      const bool free_k = !FINAL || k < Km1;
+      float qv = FINAL ? 0.f : qpart[k * 32 + lane];
 #pragma unroll
       for (int u = 0; u < kCols; ++u) {
         const int col = lane + 32 * u;
@@ -501,13 +585,39 @@ __device__ __forceinline__ void fgh_body(
         const float v = ph * rc[u];
         if (BF16) {
           op_b[k * kOpStrideBf + col] = __float2bfloat16(v);
-        } else {
+        } else if (free_k) {
           op_f[k * kOpStrideF + col] = v;
         }
+        if constexpr (FINAL) {
+          if (fin_out) {  // phi_hat · c · doc_w, rounded as the plain version rounds it
+            const float p = __fmul_rn(__fmul_rn(ph, cl[u]), w_d);
+            if (fin.stage)
+              stage[col * sld + k] = p;
+            else if (s * W + col < L)
+              fin.phi[((size_t)d * L + s * W + col) * K + k] = p;
+          }
+        }
       }
-      qpart[k * 32 + lane] = qv;
+      if constexpr (FINAL) {
+        if (free_k) {  // this slab's q terms of topic k, added in slab order
+          const float v = warp_sum(qv);
+          if (lane == 0) q[k] += v;
+        }
+      } else {
+        qpart[k * 32 + lane] = qv;
+      }
     }
     __syncthreads();  // the operand is complete
+    if constexpr (FINAL) {
+      // the slab's phi: its slots' K values, one contiguous run (the next
+      // slab writes the stage after its first barrier)
+      if (fin_out && fin.stage) {
+        const int n = min(W, L - s * W);
+        float* out = fin.phi + ((size_t)d * L + s * W) * K;
+        for (int l = warp; l < n; l += kWarps)
+          for (int k = lane; k < K; k += 32) out[l * K + k] = stage[l * sld + k];
+      }
+    }
 
     if (BF16) {
 #pragma unroll
@@ -555,12 +665,13 @@ __device__ __forceinline__ void fgh_body(
     }
   }
 
-  // q_k: the per-lane partials, one warp per topic
-  for (int k = warp; k < Km1; k += kWarps) {
+  // q_k: the per-lane partials, one warp per topic (Z has summed it)
+  for (int k = warp; !FINAL && k < Km1; k += kWarps) {
     const float v = warp_sum(qpart[k * 32 + lane]);
     if (lane == 0) q[k] = v;
   }
   const float ll = warp_sum(llp);  // meaningful in warp 0
+  const float ll_t = FINAL ? warp_sum(llt) : 0.f;  // likewise
   cp_async_wait<0>();  // (only empty groups are pending)
   __syncthreads();  // publishes q; the ring, part and qpart are free
 
@@ -569,7 +680,14 @@ __device__ __forceinline__ void fgh_body(
       const float th = e[i] / sum_e;
       g_out[d * Km1 + i] = sdiff[i] + (Nd * th - q[i]);
     }
-    if (tid == 0) f_out[d] = quad - ll + Nd * (m + logf(sum_e));
+    if (tid == 0) {
+      if constexpr (FINAL) {
+        fin.terms[2 * d] = ll_t;
+        fin.terms[2 * d + 1] = quad;
+      } else {
+        f_out[d] = quad - ll + Nd * (m + logf(sum_e));
+      }
+    }
   }
 
   // H = B·Bᵀ - Nd θθᵀ + diag(Nd θ - q) + Σ⁻¹; each upper entry and its

@@ -16,6 +16,14 @@
 //            done/advance flags, the Newton counts and the chunk's
 //            "all done" flag
 //
+// and the E-step finalize around its factor (factor.cu), which the JAX
+// package leaves to XLA (strutopy_tpu/ops/estep.py::_finalize_chunk):
+//
+//   stm_finalize        Z: g, H, theta, phi and the bound's terms at the
+//            converged eta, B1's float32 body with the finalize's outputs
+//   stm_finalize_bound  after the factor: the det term, the weighted
+//            bound and nu
+//
 // Every entry point has a plain C interface (loaded with ctypes): it
 // launches on the stream it is given, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() so the caller sees a
@@ -68,6 +76,47 @@ fgh_kernel(const float* __restrict__ siginv, const float* __restrict__ eta,
   fgh_body<W, STAGES, BF16, false, false, TB>(siginv, false, eta + d * (K - 1), mu,
                                               beta_doc + d * K * L, counts + d * L, f_out, g_out,
                                               hout, d, K, L, vec16, blockIdx.y, smem);
+}
+
+// Z, the E-step finalize: B1's float32 body with the finalize's outputs
+// (newton_doc.cuh, FINAL), one block per document and tile group.
+template <int W, int STAGES>
+__global__ void __launch_bounds__(kThreads, 2)
+finalize_kernel(const float* __restrict__ siginv, const float* __restrict__ eta,
+                const float* __restrict__ mu, const float* __restrict__ beta_doc,
+                const float* __restrict__ counts, const float* __restrict__ Nd,
+                const float* __restrict__ doc_w, float* __restrict__ g_out,
+                float* __restrict__ H_out, float* __restrict__ theta, float* __restrict__ phi,
+                float* __restrict__ terms, int K, int L, int vec16, int stage) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t d = blockIdx.x;
+  HOut hout{};
+  hout.glob = H_out;
+  const FinOut fin{Nd, doc_w, theta, phi, terms, stage};
+  fgh_body<W, STAGES, false, false, false, float, true>(
+      siginv, false, eta + d * (K - 1), mu, beta_doc + d * K * L, counts + d * L, nullptr,
+      g_out, hout, d, K, L, vec16, blockIdx.y, smem, fin);
+}
+
+// The finalize's epilogue after F (factor.cu), one block per document:
+// bound_d = w·(((loglik + det) - quad) - sigmaentropy) with det = -Σ_i log
+// L_ii, the plain version's order of operations, and nu_d ·= w in place.
+// Lt is F's Lᵀ (its diagonal is L's).
+__global__ void __launch_bounds__(kThreads)
+finalize_bound_kernel(const float* __restrict__ Lt, float* __restrict__ nu,
+                      const float* __restrict__ terms, const float* __restrict__ sigmaentropy,
+                      const float* __restrict__ doc_w, float* __restrict__ bound, int P) {
+  __shared__ float red[kWarps];
+  const size_t d = blockIdx.x, PP = (size_t)P * P;
+  const float w = doc_w[d];
+  float part = 0.f;
+  for (int i = threadIdx.x; i < P; i += kThreads) part += logf(Lt[d * PP + (size_t)i * (P + 1)]);
+  const float det = -block_sum(part, red);
+  if (threadIdx.x == 0)
+    bound[d] = __fmul_rn(w, __fsub_rn(__fsub_rn(__fadd_rn(terms[2 * d], det), terms[2 * d + 1]),
+                                      *sigmaentropy));
+  float* nu_d = nu + d * PP;
+  for (size_t i = threadIdx.x; i < PP; i += kThreads) nu_d[i] = __fmul_rn(w, nu_d[i]);
 }
 
 // B3: one block per document.
@@ -261,6 +310,25 @@ inline StagePlan fgh_plan(int K, int bf16, int beta_bytes) {
   });
 }
 
+// Z's plan: B1's float32 candidates with the finalize's buffers and the
+// phi stage (stage = 1) where one of them holds it, else without the stage
+// (phi stored element by element; K above ~428), up to K ~561: past the
+// largest K of B1's default mode (~481), the E-step's Newton limit.
+struct FinPlan {
+  StagePlan plan;
+  int stage;
+};
+
+inline FinPlan fin_plan(int K) {
+  for (const int final : {2, 1}) {
+    const StagePlan plan = first_fit(kFghPlans, [&](int W, int stages) {
+      return sizeof(float) * fgh_layout(K, W, stages, 0, sizeof(float), final).floats;
+    });
+    if (plan.W) return {plan, final == 2 ? 1 : 0};
+  }
+  return {{0, 0, 0, 0}, 0};
+}
+
 // B3's ring, float32 slabs: 64 slots by three slabs where two blocks fit
 // an SM, then 64 by two, 32 by three and 32 by two; the first that fits
 // is taken.  bf16 slabs: kBetaLs.
@@ -344,6 +412,20 @@ cudaError_t launch_ls(const StagePlan& plan, int B, void* stream, const void* si
       return args(ls_kernel<decltype(w)::value, decltype(st)::value, TB>);
     });
   }
+}
+
+cudaError_t launch_finalize(const FinPlan& fp, dim3 grid, void* stream, const void* siginv,
+                            const void* eta, const void* mu, const void* beta_doc,
+                            const void* counts, const void* Nd, const void* doc_w, void* g,
+                            void* H, void* theta, void* phi, void* terms, int K, int L) {
+  const int vec16 = beta_vec16(beta_doc, L, sizeof(float));
+  return plan_shapes<kFghPlans, kNFghPlans>(fp.plan, [&](auto w, auto st) {
+    return launch(finalize_kernel<decltype(w)::value, decltype(st)::value>, grid, fp.plan.bytes,
+                  stream, (const float*)siginv, (const float*)eta, (const float*)mu,
+                  (const float*)beta_doc, (const float*)counts, (const float*)Nd,
+                  (const float*)doc_w, (float*)g, (float*)H, (float*)theta, (float*)phi,
+                  (float*)terms, K, L, vec16, fp.stage);
+  });
 }
 
 }  // namespace
@@ -459,6 +541,44 @@ int stm_newton_accept(const void* eta, const void* p, const void* fs, const void
       (const float*)ts, (const uint8_t*)done, (const uint8_t*)conv, (float*)eta_out,
       (uint8_t*)done_out, (uint8_t*)adv_out, (uint8_t*)any_ok, (int*)n_iters,
       (uint8_t*)all_done, B, Km1, T);
+  return (int)cudaGetLastError();
+}
+
+// Z's plan at K into out[5]: bytes a block, W, ring depth, blocks an SM, 1
+// where a slab's phi is staged in shared memory; -1 where no plan fits.
+int stm_finalize_plan(int K, int* out) {
+  if (K < 2) return -1;
+  const FinPlan fp = fin_plan(K);
+  if (!fp.plan.W) return -1;
+  const int v[5] = {(int)fp.plan.bytes, fp.plan.W, fp.plan.stages, fp.plan.blocks_per_sm,
+                    fp.stage};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
+// Z: siginv (Km1, Km1), eta/mu (B, Km1), beta_doc (B, K, L), counts (B, L),
+// Nd/doc_w (B,) -> g (B, Km1), H (B, Km1, Km1), theta (B, K), phi (B, L,
+// K), terms (B, 2) = (loglik, quad).
+int stm_finalize(const void* siginv, const void* eta, const void* mu, const void* beta_doc,
+                 const void* counts, const void* Nd, const void* doc_w, void* g, void* H,
+                 void* theta, void* phi, void* terms, int B, int K, int L, void* stream) {
+  if (B == 0) return 0;
+  const FinPlan fp = K >= 2 ? fin_plan(K) : FinPlan{{0, 0, 0, 0}, 0};
+  if (!fp.plan.W || L < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_finalize(fp, dim3(B, fgh_groups(K)), stream, siginv, eta, mu, beta_doc,
+                              counts, Nd, doc_w, g, H, theta, phi, terms, K, L);
+}
+
+// The finalize's epilogue: Lt (B, P, P) from stm_chol_pd_inverse, nu (B,
+// P, P) weighted in place, terms (B, 2) from stm_finalize, sigmaentropy a
+// scalar, doc_w (B,) -> bound (B,).
+int stm_finalize_bound(const void* Lt, void* nu, const void* terms, const void* sigmaentropy,
+                       const void* doc_w, void* bound, int B, int P, void* stream) {
+  if (B == 0) return 0;
+  if (P < 1) return (int)cudaErrorInvalidValue;
+  finalize_bound_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)Lt, (float*)nu, (const float*)terms, (const float*)sigmaentropy,
+      (const float*)doc_w, (float*)bound, P);
   return (int)cudaGetLastError();
 }
 

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "stm_scatter_phi": [_P] * 4 + [_I] * 3 + [_P],
     "stm_newton_direction": [_P] * 5 + [_I] * 2 + [_F, _P],
     "stm_newton_accept": [_P] * 14 + [_I] * 3 + [_P],
+    "stm_finalize_plan": [_I, _P],
+    "stm_finalize": [_P] * 12 + [_I] * 3 + [_P],
+    "stm_finalize_bound": [_P] * 6 + [_I] * 2 + [_P],
     "stm_factor_plan": [_I, _P],
     "stm_chol_pd_inverse": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
 }

@@ -18,9 +18,9 @@ kernels of ``ops/stages.py``:
     chunk (single pass only);
 
 then finalize at the converged eta: float32 Hessian, PD-repair Cholesky
-and ``nu = H⁻¹`` (``stages.chol_pd_inverse``, one kernel a chunk on the
-card), the per-document ELBO and the token-topic statistics phi,
-accumulated as
+and ``nu = H⁻¹``, the per-document ELBO and the token-topic statistics
+phi (``stages.finalize_terms``, ``chol_pd_inverse``, ``finalize_bound``:
+three kernels a chunk on the card), accumulated as
 
     sigma_ss += nu        beta_ss[(a_d,) :, w_d] += phi_d      bound += bound_d
 
@@ -197,12 +197,14 @@ def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd,
                     grad_tol: Optional[float] = None):
     """Per-document theta, nu, bound and phi at the converged eta, all
     float32 (reference lower_bound / optimize_nu).  phi is (B, K, L) with
-    (B, L, K) memory, the layout :func:`_scatter_phi` reads.  Inside
-    ``trace.recording()`` it times the factor on the device and counts the
-    weighted documents by the rung of their factor and, given ``grad_tol``,
-    those whose gradient here exceeds it."""
-    _f, g, H, theta, phi_hat = stages.f_g_H_batched(
-        eta, beta_doc, counts, mu, siginv, Nd, bf16=False)
+    (B, L, K) memory, the layout :func:`_scatter_phi` reads.  On the card
+    three launches and no host read: the terms (``stages.finalize_terms``),
+    the factor, the bound (``stages.finalize_bound``); on CPU tensors their
+    plain versions.  Inside ``trace.recording()`` it times the factor on
+    the device and counts the weighted documents by the rung of their
+    factor and, given ``grad_tol``, those whose gradient here exceeds it."""
+    g, H, theta, phi, terms = stages.finalize_terms(eta, beta_doc, counts, mu, doc_w, siginv,
+                                                    Nd)
     full = trace.full()
     with trace.span("finalize.factor", H.device if full else None):
         L, nu, rung = stages.chol_pd_inverse(H)
@@ -213,27 +215,7 @@ def _finalize_chunk(eta, beta_doc, counts, mu, doc_w, siginv, sigmaentropy, Nd,
             trace.count("finalize.unconverged",
                         torch.linalg.vector_norm(g, float("inf"), dim=1), doc_w,
                         op=functools.partial(_over_tol, grad_tol))
-
-    eta_full = stages.pad_eta(eta)
-    m = torch.amax(eta_full, dim=1, keepdim=True)
-    e = torch.exp(eta_full - m)
-    t_l = torch.bmm((theta * e)[:, None, :], beta_doc)[:, 0]
-    t_l = torch.clamp_min(t_l, 1e-35)
-    cmask = counts > 0
-    loglik = torch.sum(torch.where(cmask, counts * (torch.log(t_l) + m), 0.0), dim=1)
-    detTerm = -torch.sum(torch.log(torch.diagonal(L, dim1=1, dim2=2)), dim=1)
-    diff = eta - mu
-    quad = 0.5 * torch.sum((diff @ siginv) * diff, dim=1)
-    bound = loglik + detTerm - quad - sigmaentropy
-
-    # phi (B, K, L) laid out entry-major, (B, L, K) in memory: the rows the
-    # ordered scatter reads (one slot's K values contiguous)
-    B, K, L = phi_hat.shape
-    phi = torch.empty(B, L, K, dtype=phi_hat.dtype, device=phi_hat.device).transpose(1, 2)
-    torch.mul(phi_hat, counts[:, None, :], out=phi)
-    nu = doc_w[:, None, None] * nu
-    bound = doc_w * bound
-    phi.mul_(doc_w[:, None, None])
+    nu, bound = stages.finalize_bound(L, nu, terms, sigmaentropy, doc_w)
     return theta, nu, bound, phi
 
 

@@ -1,5 +1,5 @@
 """The damped-Newton iteration of the E-step, the beta row gather, the
-ordered phi scatter and the finalize's factor.
+ordered phi scatter and the finalize.
 
 Each function has a plain PyTorch version and a CUDA kernel
 (``csrc/stages.cu``, ``csrc/newton.cu``, ``csrc/scatter.cu``,
@@ -18,6 +18,8 @@ Each function has a plain PyTorch version and a CUDA kernel
   row gather   :func:`gather_rows_plain`       :func:`gather_rows` (``"gather"``)
   phi scatter  :func:`scatter_phi_plain`       :func:`scatter_phi` (``"scatter"``)
   factor, nu   :func:`chol_pd_inverse_plain`   :func:`chol_pd_inverse` (``"factor"``)
+  finalize     :func:`finalize_terms_plain`    :func:`finalize_terms` (``"finalize"``)
+  its bound    :func:`finalize_bound_plain`    :func:`finalize_bound` (``"finalize_bound"``)
   ===========  ==============================  ==========================================
 
 :func:`stage_step` is the default Newton iteration: the three stage
@@ -41,8 +43,10 @@ mode computes the float32 function of the rounded beta_doc.
 
 The plain versions carry the math of ``strutopy_tpu/ops/estep.py``'s
 ``_f_g_H_batched``, ``_f_multi`` and of the Pallas ``_cg_kernel``; the
-finalize pass reuses :func:`f_g_H_batched` at float32 for the model
-quantities.
+finalize's plain version reuses :func:`f_g_H_batched` at float32 for the
+model quantities, and its kernel B1's body in float32 (``_finalize_chunk``
+runs :func:`finalize_terms`, :func:`chol_pd_inverse` and
+:func:`finalize_bound`, three launches a chunk on the card).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ from strutopy_tpu_torch.utils import trace
 
 LAUNCHES = {"fgh": 0, "cg": 0, "ls": 0, "iter": 0, "newton": 0, "gather": 0, "scatter": 0,
             "fgh_bf16_beta": 0, "ls_bf16_beta": 0, "iter_bf16_beta": 0, "direction": 0,
-            "accept": 0, "factor": 0}
+            "accept": 0, "factor": 0, "finalize": 0, "finalize_bound": 0}
 BETA_DTYPES = (torch.float32, torch.bfloat16)  # the beta_doc fgh, ls and iter take
 
 
@@ -387,6 +391,42 @@ def chol_pd_inverse_plain(H, inverse: bool = True, jitter: float = 1e-5,
 def _repaired(top_rung):
     """The chunks whose highest rung is above 1 (``finalize.repair_chunks``)."""
     return top_rung > 1
+
+
+def finalize_terms_plain(eta, beta_doc, counts, mu, doc_w, siginv, Nd):
+    """Plain version of :func:`finalize_terms`: :func:`f_g_H_batched` in
+    float32, then the bound's terms at theta and the weighted phi (the
+    reference's lower_bound; twin of ``strutopy_tpu/ops/estep.py::
+    _finalize_chunk`` up to its factor).  Returns (g (B, K-1), H (B, K-1,
+    K-1), theta (B, K), phi (B, K, L) with (B, L, K) memory, terms (B, 2)):
+    phi = phi_hat · counts · doc_w, terms = (loglik, quad) with loglik =
+    Σ_l c_l (log t_l + m) at the mixture t_l = Σ_k θ_k e_k β_kl and quad =
+    ½ (eta-mu)ᵀ Σ⁻¹ (eta-mu)."""
+    _f, g, H, theta, phi_hat = f_g_H_batched(eta, beta_doc, counts, mu, siginv, Nd, bf16=False)
+    eta_full = pad_eta(eta)
+    m = torch.amax(eta_full, dim=1, keepdim=True)
+    e = torch.exp(eta_full - m)
+    t_l = torch.bmm((theta * e)[:, None, :], beta_doc)[:, 0]
+    t_l = torch.clamp_min(t_l, 1e-35)
+    cmask = counts > 0
+    loglik = torch.sum(torch.where(cmask, counts * (torch.log(t_l) + m), 0.0), dim=1)
+    diff = eta - mu
+    quad = 0.5 * torch.sum((diff @ siginv) * diff, dim=1)
+    # phi (B, K, L) laid out entry-major, (B, L, K) in memory: the rows the
+    # ordered scatter reads (one slot's K values contiguous)
+    B, K, L = phi_hat.shape
+    phi = torch.empty(B, L, K, dtype=phi_hat.dtype, device=phi_hat.device).transpose(1, 2)
+    torch.mul(phi_hat, counts[:, None, :], out=phi)
+    phi.mul_(doc_w[:, None, None])
+    return g, H, theta, phi, torch.stack((loglik, quad), dim=1)
+
+
+def finalize_bound_plain(L, nu, terms, sigmaentropy, doc_w):
+    """Plain version of :func:`finalize_bound`: (doc_w · nu, doc_w · bound)
+    with bound = loglik + det - quad - sigmaentropy, det = -Σ log diag L."""
+    det = -torch.sum(torch.log(torch.diagonal(L, dim1=1, dim2=2)), dim=1)
+    bound = terms[:, 0] + det - terms[:, 1] - sigmaentropy
+    return doc_w[:, None, None] * nu, doc_w * bound
 
 
 # ---------------------------------------------------------------------------
@@ -827,3 +867,86 @@ def chol_pd_inverse(H, inverse: bool = True, jitter: float = 1e-5, rel_jitter: f
     if trace.full() and B:
         trace.count("finalize.repair_chunks", torch.amax(rung).reshape(1), op=_repaired)
     return Lt.transpose(1, 2), nu, rung
+
+
+_FINALIZE_PLAN_FIELDS = ("bytes", "W", "stages", "blocks_per_sm", "stage")
+
+
+@functools.lru_cache(maxsize=None)
+def finalize_plan(K: int, device_index: int = 0):
+    """The plan of :func:`finalize_terms` at K on a card: bytes a block, slab
+    width W, ring depth, blocks an SM and whether a slab's phi is staged in
+    shared memory (else stored element by element); None where no plan
+    fits (K above ~561, past B1's default mode's ~481)."""
+    out = (ctypes.c_int * len(_FINALIZE_PLAN_FIELDS))()
+    with _on(device_index):
+        if build.load().stm_finalize_plan(int(K), out) != 0:
+            return None
+    plan = dict(zip(_FINALIZE_PLAN_FIELDS, out))
+    plan["stage"] = bool(plan["stage"])
+    return plan
+
+
+def finalize_terms(eta, beta_doc, counts, mu, doc_w, siginv, Nd):
+    """The E-step finalize's per-document terms at the converged eta, all
+    float32: (g, H, theta, phi, terms) as :func:`finalize_terms_plain`, phi
+    (B, K, L) with (B, L, K) memory, terms (B, 2) = (loglik, quad).
+
+    Replaces no TPU kernel: its JAX twin is the math of
+    ``strutopy_tpu/ops/estep.py::_finalize_chunk`` around the factor, which
+    XLA fuses; on the card it takes the place of ~75 PyTorch launches a
+    chunk.  Bound by bytes: it reads beta_doc once and writes phi and H,
+    ~89 MB at B=256, K=100, L=384 (~27 µs); H's float32 B·Bᵀ is ~1 GFLOP
+    (~15 µs at 67 TFLOP/s).  Design (Z, ``csrc/stages.cu::finalize_kernel``
+    on ``newton_doc.cuh::fgh_body``'s float32 mode): one block a document
+    streams beta_doc once through B1's cp.async ring; each slab gives s_l
+    and, from the same loads, the mixture t_l, their log-likelihood terms,
+    phi_hat and B·Bᵀ's float32 operand, and each slab's phi for all K topics
+    is staged in shared memory and written as one contiguous run while the
+    product runs.  q is summed a slab at a time, so Z holds none of B1's
+    per-lane partials.  Every sum has a fixed order, no atomics: the
+    outputs are a function of the inputs.  B1's tile groups past K ~115;
+    the phi stage up to K ~428; K up to ~561 (:func:`finalize_plan`).
+    """
+    if _use_plain("finalize", eta, counts, mu, doc_w, siginv, Nd):
+        return finalize_terms_plain(eta, beta_doc, counts, mu, doc_w, siginv, Nd)
+    beta_doc = beta_doc.contiguous()  # any layout, as the plain version takes (the E-step's are)
+    _use_plain("finalize", eta, beta_doc)
+    B, K, L = beta_doc.shape
+    _expect("finalize", eta=(eta, (B, K - 1)), mu=(mu, (B, K - 1)), counts=(counts, (B, L)),
+            doc_w=(doc_w, (B,)), siginv=(siginv, (K - 1, K - 1)), Nd=(Nd, (B,)))
+    if finalize_plan(K, eta.device.index) is None:
+        raise ValueError(f"finalize: K={K} exceeds a block's shared memory")
+    dev = eta.device
+    g = torch.empty(B, K - 1, dtype=torch.float32, device=dev)
+    H = torch.empty(B, K - 1, K - 1, dtype=torch.float32, device=dev)
+    theta = torch.empty(B, K, dtype=torch.float32, device=dev)
+    phi = torch.empty(B, L, K, dtype=torch.float32, device=dev)
+    terms = torch.empty(B, 2, dtype=torch.float32, device=dev)
+    _launch("finalize", "finalize", dev, siginv, eta, mu, beta_doc, counts, Nd, doc_w, g, H,
+            theta, phi, terms, B, K, L)
+    return g, H, theta, phi.transpose(1, 2), terms
+
+
+def finalize_bound(L, nu, terms, sigmaentropy, doc_w):
+    """The finalize after its factor: (doc_w · nu, doc_w · bound) as
+    :func:`finalize_bound_plain`, from :func:`chol_pd_inverse`'s L and nu,
+    :func:`finalize_terms`' terms and a 0-dim sigmaentropy.  On the card nu
+    is weighted in place and returned.
+
+    Replaces no TPU kernel (the JAX twin's XLA epilogue).  Bound by its
+    launch and by nu, read and written once (20 MB at B=256, P=99).
+    Design (``csrc/stages.cu::finalize_bound_kernel``): one block a
+    document sums its log L_ii in the block's fixed order, forms the bound
+    in the plain version's order of operations and scales nu.
+    """
+    Lt = L if L.is_contiguous() else L.transpose(1, 2)  # the diagonal either way
+    if _use_plain("finalize_bound", Lt, nu, terms, sigmaentropy, doc_w):
+        return finalize_bound_plain(L, nu, terms, sigmaentropy, doc_w)
+    B, P, _ = nu.shape
+    _expect("finalize_bound", L=(Lt, (B, P, P)), terms=(terms, (B, 2)),
+            sigmaentropy=(sigmaentropy, ()), doc_w=(doc_w, (B,)))
+    bound = torch.empty(B, dtype=torch.float32, device=nu.device)
+    _launch("finalize_bound", "finalize_bound", nu.device, Lt, nu, terms, sigmaentropy, doc_w,
+            bound, B, P)
+    return nu, bound
