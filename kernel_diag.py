@@ -23,11 +23,14 @@ kernels at B = 132, 264 and 528.
 ``compare`` builds the CUDA sources of the checkout at DIR (under
 ``build/diag/``) and times its ``stm_fgh``, ``stm_cg``, ``stm_ls``,
 ``stm_iter`` and ``stm_newton`` (B1-B5; B1, B3 and B4 with a float32 and
-with a bf16 beta_doc, B1, B4 and B5 with the float32 Hessian too)
-against this checkout's, in turns (theirs, ours, ours, theirs, ...), on
-the same chunk (B4 and B5 on the recipe's documents), and says whether
-each one's outputs equal theirs bit for bit; their C interfaces must be
-this checkout's.
+with a bf16 beta_doc, B1, B4 and B5 with the float32 Hessian too), the
+finalize's ``stm_chol_pd_inverse`` (F) and ``stm_finalize`` (Z) against
+this checkout's, in turns (theirs, ours, ours, theirs, ...), on the same
+chunk (B4 and B5 on the recipe's documents), and says whether each one's
+outputs equal theirs bit for bit; their C interfaces must be this
+checkout's.  Then B1-B3, F and Z again on random chunks at K=20 (the
+content cell's width) and K=400 (the kernels' large-K plans: B1's tile
+groups, B2's H in L2, F's global scratch).
 
 ``plans`` builds the library twice, once with B5's streaming plans only
 and once with its resident plan only (beta_doc held in shared memory for
@@ -253,7 +256,78 @@ def bench_chunk(torch, B=256):
         "iter": it(0), "iter bf16 beta": it(1), "iter float32": it(0, bf16=0),
         "newton": newton(), "newton float32": newton(bf16=0),
     }
+    doc_w = torch.ones(B, device="cuda")
+    calls.update(finalize_calls(torch, aux["H"], (eta, bd, c, mu, doc_w, siginv, c.sum(1))))
     return (B, K, L, T), calls
+
+
+def _stream(torch):
+    """The current stream's handle (a graph capture runs on its own)."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ptrs(*ts):
+    return (t.data_ptr() for t in ts)
+
+
+def finalize_calls(torch, H, args):
+    """The finalize's kernels as compare's calls: F (``stm_chol_pd_inverse``,
+    with nu) on the Hessians H, and Z (``stm_finalize``) on ``args`` =
+    (eta, beta_doc, counts, mu, doc_w, siginv, Nd)."""
+    eta, bd, c, mu, w, siginv, Nd = args
+    B, K, L = bd.shape
+    P = K - 1
+
+    def factor(lib):
+        plan = (ctypes.c_int * 3)()
+        assert lib.stm_factor_plan(P, plan) == 0
+        Lt, nu = torch.empty_like(H), torch.empty_like(H)
+        rung = torch.empty(B, dtype=torch.int8, device="cuda")
+        scratch = None if plan[2] else torch.empty(B, P * (P + 1), device="cuda")
+        return (lambda: lib.stm_chol_pd_inverse(
+            *_ptrs(H, Lt, nu, rung), None if scratch is None else scratch.data_ptr(), B, P, 1,
+            1e-5, 1e-3, _stream(torch))), (Lt, nu, rung)
+
+    def finalize(lib):
+        out = (torch.empty(B, P, device="cuda"), torch.empty(B, P, P, device="cuda"),
+               torch.empty(B, K, device="cuda"), torch.empty(B, L, K, device="cuda"),
+               torch.empty(B, 2, device="cuda"))
+        ins = (siginv, eta, mu, bd, c, Nd, w)
+        return (lambda: lib.stm_finalize(*_ptrs(*ins, *out), B, K, L, _stream(torch))), out
+
+    return {"factor": factor, "finalize": finalize}
+
+
+def chunk_calls(torch, B, K, L, seed):
+    """B1-B3, F and Z as compare's calls on a random chunk
+    (chip_smoke.finalize_inputs) of B documents at K, L distinct words
+    each: B2 and F on the plain Hessian and gradient, B3 on the direction
+    they give."""
+    from strutopy_tpu_torch.ops import stages
+
+    eta, bd, c, mu, w, siginv, _se, Nd = cs.finalize_inputs(torch, B, K, L, seed)
+    _want, aux = cs.plain_outputs(torch, stages, (eta, bd, c, mu, siginv), True)
+    T = aux["ts"].shape[0]
+
+    def fgh(lib):
+        f, g = torch.empty(B, device="cuda"), torch.empty(B, K - 1, device="cuda")
+        H = torch.empty(B, K - 1, K - 1, device="cuda")
+        return (lambda: lib.stm_fgh(*_ptrs(siginv, eta, mu, bd, c, f, g, H), B, K, L, 1, 0,
+                                    _stream(torch))), (f, g, H)
+
+    def cg(lib):
+        x = torch.empty(B, K - 1, device="cuda")
+        return (lambda: lib.stm_cg(*_ptrs(aux["H"], aux["g"], x), B, K - 1, aux["iters"], 1,
+                                   _stream(torch))), (x,)
+
+    def ls(lib):
+        fs = torch.empty(B, T, device="cuda")
+        return (lambda: lib.stm_ls(*_ptrs(siginv, aux["ts"], eta, aux["p"], mu, bd, c, fs), B,
+                                   K, L, T, 0, _stream(torch))), (fs,)
+
+    calls = {"fgh": fgh, "cg": cg, "ls": ls}
+    calls.update(finalize_calls(torch, aux["H"], (eta, bd, c, mu, w, siginv, Nd)))
+    return calls
 
 
 def time_turns(torch, fn_a, fn_b, reps=50, rounds=4):
@@ -374,6 +448,15 @@ def compare(torch, root):
           f"and newton on the recipe's documents from eta = mu; ms a call, median "
           f"[least-most] of 4 rounds of a CUDA graph of 50 calls (newton 5), in turns with "
           f"{root}'s [{cs.card_line()}]")
+    in_turns(torch, calls, ours, other, root)
+    for B, K, L in ((256, 20, 160), (256, 400, 300)):
+        print(f"compare: a random chunk, B={B} K={K} L={L}, bf16 on, float32 beta_doc, "
+              f"{min(6, K - 1)} CG steps, F and Z on the plain H")
+        in_turns(torch, chunk_calls(torch, B, K, L, seed=K), ours, other, root)
+
+
+def in_turns(torch, calls, ours, other, root):
+    """Each call's kernel from both libraries: bit-equality and times."""
     for name, call in calls.items():
         (fn, out), (fn_o, out_o) = call(ours), call(other)
         assert fn() == 0 and fn_o() == 0, name

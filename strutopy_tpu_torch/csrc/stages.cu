@@ -428,6 +428,21 @@ cudaError_t launch_finalize(const FinPlan& fp, dim3 grid, void* stream, const vo
   });
 }
 
+// B2's plan: its bytes a block, and whether H sits in shared memory beside
+// the scratch (else the matvecs read it from L2).
+struct CgPlan {
+  size_t bytes;
+  bool h_smem;
+};
+
+inline CgPlan cg_plan(int Km1, int bf16) {
+  const size_t base = sizeof(float) * cg_h_offset(Km1);
+  const size_t with_h =
+      base + (size_t)Km1 * cg_ld(Km1) * (bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  const bool h_smem = with_h <= (size_t)max_optin_smem();
+  return {h_smem ? with_h : base, h_smem};
+}
+
 }  // namespace
 
 extern "C" {
@@ -469,23 +484,30 @@ int stm_fgh(const void* siginv, const void* eta, const void* mu, const void* bet
   return (int)err;
 }
 
+// B2's plan at K-1 into out[2]: shared-memory bytes a block, 1 where H sits
+// in shared memory (else the matvecs read it from L2); -1 for K-1 outside
+// 1..512.
+int stm_cg_plan(int Km1, int bf16, int* out) {
+  if (Km1 < 1 || Km1 > 512) return -1;
+  const CgPlan plan = cg_plan(Km1, bf16);
+  out[0] = (int)plan.bytes;
+  out[1] = plan.h_smem;
+  return 0;
+}
+
 // B2: H in shared memory where it fits beside the scratch; K-1 up to 512.
 int stm_cg(const void* H, const void* g, void* x, int B, int Km1, int iters, int bf16,
            void* stream) {
   if (B == 0) return 0;
   if (Km1 < 1 || Km1 > 512) return (int)cudaErrorInvalidValue;
-  const size_t base = sizeof(float) * cg_h_offset(Km1);
-  const size_t with_h =
-      base + (size_t)Km1 * cg_ld(Km1) * (bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
-  const bool h_smem = with_h <= (size_t)max_optin_smem();
-  const size_t bytes = h_smem ? with_h : base;
+  const CgPlan plan = cg_plan(Km1, bf16);
   auto args = [&](auto kernel) {
-    return launch(kernel, dim3(B), bytes, stream, (const float*)H, (const float*)g, (float*)x,
-                  Km1, iters);
+    return launch(kernel, dim3(B), plan.bytes, stream, (const float*)H, (const float*)g,
+                  (float*)x, Km1, iters);
   };
   auto pick = [&](auto np) {
     constexpr int NP = decltype(np)::value;
-    if (h_smem)
+    if (plan.h_smem)
       return bf16 ? args(cg_kernel<NP, true, true>) : args(cg_kernel<NP, false, true>);
     return bf16 ? args(cg_kernel<NP, true, false>) : args(cg_kernel<NP, false, false>);
   };

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "stm_fgh_smem": [_I] * 3,
     "stm_fgh": [_P] * 8 + [_I] * 5 + [_P],
     "stm_cg": [_P] * 3 + [_I] * 4 + [_P],
+    "stm_cg_plan": [_I] * 2 + [_P],
     "stm_ls_smem": [_I] * 2,
     "stm_stage_plan": [_I] * 4 + [_P],
     "stm_ls": [_P] * 8 + [_I] * 5 + [_P],

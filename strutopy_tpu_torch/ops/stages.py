@@ -31,7 +31,11 @@ A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.  There is no fallback from one to the
 other.  Every wrapper launches through :func:`_launch`, on the stream
 current at the call; each launch adds one to its counter, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  Where a kernel has two
+plans by size, its wrapper counts the documents of each launch under the
+plan the C side chose, in the open trace record (``plan.cg.*``,
+``plan.factor.*``, ``plan.finalize.*``; nothing on CPU tensors or while
+recording is off).
 
 :func:`fgh`, :func:`linesearch` and :func:`newton_iter` take beta_doc as
 float32 or bfloat16 (the Newton search under ``STMConfig.newton_bf16_beta``;
@@ -530,6 +534,23 @@ def fgh(eta, beta_doc, counts, mu, siginv, bf16: bool = True):
     return f, g, H
 
 
+_CG_PLAN_FIELDS = ("bytes", "h_smem")
+
+
+@functools.lru_cache(maxsize=None)
+def cg_plan(Km1: int, bf16: bool = True, device_index: int = 0):
+    """The plan of :func:`cg` at K-1 on a card: shared-memory bytes a block
+    and whether H sits in shared memory (else the matvecs read it from L2);
+    None outside K-1 = 1..512."""
+    out = (ctypes.c_int * len(_CG_PLAN_FIELDS))()
+    with _on(device_index):
+        if build.load().stm_cg_plan(int(Km1), int(bool(bf16)), out) != 0:
+            return None
+    plan = dict(zip(_CG_PLAN_FIELDS, out))
+    plan["h_smem"] = bool(plan["h_smem"])
+    return plan
+
+
 def cg(H, g, iters: int, bf16: bool = True):
     """Newton direction x ≈ -H⁻¹g by ``iters`` steps of Steihaug CG.
 
@@ -539,12 +560,12 @@ def cg(H, g, iters: int, bf16: bool = True):
     Design (``csrc/newton_doc.cuh::cg_body``): one block per document
     brings H in with 16-byte loads and keeps it in shared memory as the
     values the matvec uses (bf16 when ``bf16``, else float32; read from L2
-    and rounded on the fly where it does not fit, K above ~330), with the
-    unrounded diagonal apart for the preconditioner.  Each matvec spreads
-    the rows of H over all eight warps and adds their partial rows in warp
-    order; every warp then runs the recurrences in registers, so a step
-    takes one barrier.  p stays float32, as in the TPU kernel.  K-1 is at
-    most 512.
+    and rounded on the fly where it does not fit, K above ~330, as
+    :func:`cg_plan` says), with the unrounded diagonal apart for the
+    preconditioner.  Each matvec spreads the rows of H over all eight
+    warps and adds their partial rows in warp order; every warp then runs
+    the recurrences in registers, so a step takes one barrier.  p stays
+    float32, as in the TPU kernel.  K-1 is at most 512.
     """
     if _use_plain("cg", H, g):
         return cg_plain(H, g, iters, bf16)
@@ -552,6 +573,9 @@ def cg(H, g, iters: int, bf16: bool = True):
     _expect("cg", H=(H, (B, Km1, Km1)))
     x = torch.empty(B, Km1, dtype=torch.float32, device=g.device)
     _launch("cg", "cg", g.device, H, g, x, B, Km1, int(iters), int(bool(bf16)))
+    if trace.active() is not None:
+        in_smem = cg_plan(Km1, bool(bf16), g.device.index)["h_smem"]
+        trace.count("plan.cg.h_smem" if in_smem else "plan.cg.h_l2", B)
     return x
 
 
@@ -864,6 +888,8 @@ def chol_pd_inverse(H, inverse: bool = True, jitter: float = 1e-5, rel_jitter: f
                else torch.empty(B, P * (P + 1), dtype=torch.float32, device=H.device))
     _launch("chol_pd_inverse", "factor", H.device, H, Lt, nu, rung, scratch, B, P,
             int(bool(inverse)), float(jitter), float(rel_jitter))
+    if trace.active() is not None:
+        trace.count("plan.factor.smem" if plan["in_smem"] else "plan.factor.global", B)
     if trace.full() and B:
         trace.count("finalize.repair_chunks", torch.amax(rung).reshape(1), op=_repaired)
     return Lt.transpose(1, 2), nu, rung
@@ -915,7 +941,8 @@ def finalize_terms(eta, beta_doc, counts, mu, doc_w, siginv, Nd):
     B, K, L = beta_doc.shape
     _expect("finalize", eta=(eta, (B, K - 1)), mu=(mu, (B, K - 1)), counts=(counts, (B, L)),
             doc_w=(doc_w, (B,)), siginv=(siginv, (K - 1, K - 1)), Nd=(Nd, (B,)))
-    if finalize_plan(K, eta.device.index) is None:
+    plan = finalize_plan(K, eta.device.index)
+    if plan is None:
         raise ValueError(f"finalize: K={K} exceeds a block's shared memory")
     dev = eta.device
     g = torch.empty(B, K - 1, dtype=torch.float32, device=dev)
@@ -925,6 +952,8 @@ def finalize_terms(eta, beta_doc, counts, mu, doc_w, siginv, Nd):
     terms = torch.empty(B, 2, dtype=torch.float32, device=dev)
     _launch("finalize", "finalize", dev, siginv, eta, mu, beta_doc, counts, Nd, doc_w, g, H,
             theta, phi, terms, B, K, L)
+    if trace.active() is not None:
+        trace.count("plan.finalize.staged" if plan["stage"] else "plan.finalize.unstaged", B)
     return g, H, theta, phi.transpose(1, 2), terms
 
 

@@ -29,15 +29,18 @@ holds its spans and its counters:
 * the Newton, straggler, finalize and kappa-regression counts
   (``newton.*``, ``estep.*``, ``finalize.*``, ``kappa.*``); a count that
   a path cannot give is None;
+* ``plan.<kernel>.<plan>``: the documents the kernel wrappers launched on
+  each of their size-dependent plans (``ops/stages.py``);
 * ``syncs``: site -> (blocking device-to-host reads there, host seconds
   they blocked).
 
 A record made inside :func:`recording` is ``full``.  Under a profiler
 alone a record keeps only what the benchmark's readers of it need, so
 that a traced run times the program rather than its tracer: the spans,
-the syncs, the host's counts, the Newton loops' document steps, the
-kappa regression's counts, and the CUDA events of the iteration, the
-Newton passes, the finalize and the kappa regression.
+the syncs, the host's counts (the plan counts among them), the Newton
+loops' document steps, the kappa regression's counts, and the CUDA events
+of the iteration, the Newton passes, the finalize and the kappa
+regression.
 Callers make every other device-side count, and the events of other
 spans, only under :func:`full`.  Device-side counts stay on the device,
 as the tensors they are counted from, until the record is resolved: then
