@@ -47,14 +47,17 @@ end, without the final result line):
      (factor: the PD-repair ladder, L and nu = (L Lᵀ)⁻¹ in one launch)
      against its plain version (the cholesky_ex ladder, its host read and
      cholesky_inverse) on one chunk's Hessians from phase 4's state (K=100,
-     P=99) and on a chunk shaped like the content cell's (K=20, P=19) at
-     its Newton optimum: rungs equal, L and nu within float32 rounding,
-     nu's error against float64 at most twice plain's, two calls and the
-     factor-only mode bit-equal; a planted batch taking rungs 1-4 and the
-     all-fail NaN at both widths; the kernel's time (a CUDA graph of 20
-     calls, at most FACTOR_MS_MAX at P=99) beside its bound, plain's and
-     the library pair's (cholesky_ex, cholesky_inverse) call by call, the
-     wrapper's host time a call and the rungs;
+     P=99), on a chunk shaped like the content cell's (K=20, P=19) at its
+     Newton optimum and, on the blocked plan (P=399), on a random K=400
+     chunk and a k400_fit-shaped one at its Newton optimum: rungs equal, L
+     and nu within float32 rounding, nu's error against float64 at most
+     twice plain's, two calls and the factor-only mode bit-equal; a
+     planted batch taking rungs 1-4 and the all-fail NaN at each width;
+     the kernel's time (a CUDA graph of 20 calls, at most FACTOR_MS_MAX at
+     P=99 and FACTOR_MS_MAX_BLOCKED at P=399) beside its bound and share,
+     plain's and the library pair's (cholesky_ex, cholesky_inverse) call
+     by call, nu's float64 error beside the library pair's, the wrapper's
+     host time a call and the rungs;
      2f. (likewise) the finalize's route (Z: g, H, theta, phi and the
      bound's terms in one kernel; F; the epilogue: three launches a
      chunk) against the plain finalize on the same two chunks: every
@@ -1450,6 +1453,7 @@ def phase_glue(torch, stages, fails, words, counts, beta_true):
 
 
 FACTOR_MS_MAX = 0.25  # ms a chunk at B=256, P=99 (the kernel's target)
+FACTOR_MS_MAX_BLOCKED = 6.0  # ... at B=256, P=399, the blocked plan (its predicted most)
 FACTOR_L_RTOL = 1e-4  # L: |kernel - plain| <= this x the document's max|L|
 FACTOR_NU_RTOL = 2e-3  # nu: likewise, x max|nu| (cond(H) x float32 rounding)
 FACTOR_NU_VS_PLAIN = 2.0  # nu's error against float64, at most this x plain's
@@ -1557,24 +1561,37 @@ def factor_verdict(torch, stages, H):
     return checks, out
 
 
+def k400_random_hessians(torch, stages, B=256, L=384, seed=400):
+    """Z's Hessians (P=399) of a random K=400 chunk (finalize_inputs)."""
+    eta, bd, c, mu, w, siginv, _se, Nd = finalize_inputs(torch, B, 400, L, seed)
+    return stages.finalize_terms(eta, bd, c, mu, w, siginv, Nd)[1]
+
+
 def phase_factor(torch, stages, fails, st):
     """Phase 2e (run once phase 4 has a fitted state ``st``, its
     oracle_inputs): the finalize's factor kernel against its plain version
-    on the fit's chunk (P=99) and a content-shaped chunk (P=19), a planted
-    batch at both widths, then its times beside its bound, plain's and the
-    library pair's, and the wrapper's host time."""
+    on the fit's chunk (P=99), a content-shaped chunk (P=19) and, on the
+    blocked plan, a random K=400 chunk and a K=400 chunk at its Newton
+    optimum (k400_fit's shape: V=50,000, 300 tokens a document), a planted
+    batch at each width, then its times beside its bound, plain's and the
+    library pair's, nu's float64 error beside the library pair's, and the
+    wrapper's host time."""
     chunks = {"k100 fit chunk (phase 4's state)": chunk_hessians(
                   torch, stages, st["docs"], st["beta"], st["mu"], st["eta"], st["sigma"]),
-              "content-shaped chunk (K=20)": content_shaped_hessians(torch, stages)}
+              "content-shaped chunk (K=20)": content_shaped_hessians(torch, stages),
+              "random K=400 chunk (L=384)": k400_random_hessians(torch, stages),
+              "k400-shaped chunk at its Newton optimum (V=50,000, 300 tokens)":
+                  content_shaped_hessians(torch, stages, K=400, V=50_000, words=300, seed=400)}
     result = {"max_abs_err": 0.0}
     for label, H in chunks.items():
         B, P, _ = H.shape
         print(f"phase 2e: the finalize's factor vs plain, {label}: B={B} P={P}, plan "
               f"{stages.factor_plan(P)}")
-        rungs = None
+        rungs = errs = None
         for case, Hc in (("chunk", H), ("planted", factor_planted(torch, P))):
             checks, out = factor_verdict(torch, stages, Hc)
             rungs = rungs or out["rungs"]
+            errs = errs or (out.get("nu err vs f64"), out.get("plain nu err vs f64"))
             if case == "planted":
                 checks["planted rungs"] = out["rungs"] == [
                     FACTOR_PLANTED_RUNGS.count(r) for r in (1, 2, 3, 4)]
@@ -1596,8 +1613,16 @@ def phase_factor(torch, stages, fails, st):
         print(f"  factor at P={P}: kernel {ms:.4f} ms (CUDA graph of 20 calls), bound "
               f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}; plain (the ladder, "
               f"its read, cholesky_inverse) {plain_ms:.4f} ms, library pair (cholesky_ex, "
-              f"cholesky_inverse) {library_ms:.4f} ms, call by call; wrapper host "
-              f"{host_us:.1f} us a call; the chunk's rungs 1-4 {rungs} [{CARD}]")
+              f"cholesky_inverse) {library_ms:.4f} ms, call by call; nu's error vs float64 "
+              f"{errs[0]}, the library pair's {errs[1]}; wrapper host "
+              f"{host_us:.1f} us a call; the chunk's rungs 1-4 {rungs}; plan "
+              f"{'smem' if stages.factor_plan(P)['in_smem'] else 'blocked'} [{CARD}]")
+        if not stages.factor_plan(P)["in_smem"]:
+            fails.check(ms <= FACTOR_MS_MAX_BLOCKED, f"factor at B={B}, P={P}: {ms:.4f} ms a "
+                        f"chunk (at most {FACTOR_MS_MAX_BLOCKED})")
+            result.setdefault("blocked", {})[label] = {
+                "ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms, "library_ms": library_ms,
+                "nu_err": errs[0], "library_nu_err": errs[1]}
         if P == K_BENCH - 1:
             fails.check(ms <= FACTOR_MS_MAX, f"factor at B={B}, P={P}: {ms:.4f} ms a chunk "
                         f"(at most {FACTOR_MS_MAX})")

@@ -27,10 +27,10 @@ with a bf16 beta_doc, B1, B4 and B5 with the float32 Hessian too), the
 finalize's ``stm_chol_pd_inverse`` (F) and ``stm_finalize`` (Z) against
 this checkout's, in turns (theirs, ours, ours, theirs, ...), on the same
 chunk (B4 and B5 on the recipe's documents), and says whether each one's
-outputs equal theirs bit for bit; their C interfaces must be this
-checkout's.  Then B1-B3, F and Z again on random chunks at K=20 (the
-content cell's width) and K=400 (the kernels' large-K plans: B1's tile
-groups, B2's H in L2, F's global scratch).
+outputs equal theirs bit for bit, and for F each tree's L and nu against
+float64; their C interfaces must be this checkout's.  Then B1-B3, F and Z
+again on random chunks at K=20 (the content cell's width) and K=400 (the
+kernels' large-K plans: B1's tile groups, B2's H in L2, F's blocked plan).
 
 ``plans`` builds the library twice, once with B5's streaming plans only
 and once with its resident plan only (beta_doc held in shared memory for
@@ -295,7 +295,23 @@ def finalize_calls(torch, H, args):
         ins = (siginv, eta, mu, bd, c, Nd, w)
         return (lambda: lib.stm_finalize(*_ptrs(*ins, *out), B, K, L, _stream(torch))), out
 
+    factor.H = H  # for factor_errors
     return {"factor": factor, "finalize": finalize}
+
+
+def factor_errors(torch, H, Lt, nu, rung):
+    """L's and nu's relative Frobenius errors against the float64 factor and
+    inverse of the same H, over the documents that took rung 1."""
+    ok = rung == 1
+    if not bool(ok.any()):
+        return float("nan"), float("nan")
+    H64 = H[ok].double()
+
+    def rel(x, want):
+        return float(torch.linalg.norm(x.double() - want) / torch.linalg.norm(want))
+
+    return rel(Lt.transpose(1, 2)[ok], torch.linalg.cholesky(H64)), rel(nu[ok],
+                                                                        torch.linalg.inv(H64))
 
 
 def chunk_calls(torch, B, K, L, seed):
@@ -463,8 +479,13 @@ def in_turns(torch, calls, ours, other, root):
         torch.cuda.synchronize()
         same = all(bool(torch.equal(a, b)) for a, b in zip(out, out_o))
         a, b = time_turns(torch, fn, fn_o, reps=5 if name.startswith("newton") else 50)
+        errs = ""
+        if name == "factor":
+            e, e_o = factor_errors(torch, call.H, *out), factor_errors(torch, call.H, *out_o)
+            errs = (f"; L, nu error vs float64: this checkout {e[0]:.3e}, {e[1]:.3e}, {root} "
+                    f"{e_o[0]:.3e}, {e_o[1]:.3e}")
         print(f"  {name}: this checkout {spread(a)} ms, {root} {spread(b)} ms; outputs "
-              f"bit-equal {same}")
+              f"bit-equal {same}{errs}")
 
 
 def plans(torch):

@@ -836,8 +836,9 @@ _FACTOR_PLAN_FIELDS = ("threads", "bytes", "in_smem")
 def factor_plan(P: int, device_index: int = 0):
     """The plan of :func:`chol_pd_inverse` at P on a card: threads a block,
     shared-memory bytes a block, and whether the two packed triangles sit in
-    shared memory (else in a global scratch the wrapper allocates); None
-    outside P = 1..512."""
+    shared memory (the smem plan; else the blocked plan, with a scratch of
+    P(P+1) floats a document the wrapper allocates); None outside P =
+    1..512."""
     out = (ctypes.c_int * len(_FACTOR_PLAN_FIELDS))()
     with _on(device_index):
         if build.load().stm_factor_plan(int(P), out) != 0:
@@ -859,19 +860,33 @@ def chol_pd_inverse(H, inverse: bool = True, jitter: float = 1e-5, rel_jitter: f
     ``strutopy_tpu/ops/estep.py::_finalize_chunk`` (``_chol_pd_batched``,
     then ``cho_inverse``), which XLA lowers; on the card it takes the place
     of ``cholesky_ex`` rung by rung and ``cholesky_inverse``, two host syncs
-    a chunk.  Bound by latency: at B=256, P=99 it moves ~30 MB and does ~P³/2
-    multiply-adds a document, but each document's P pivots form a chain.
-    Design (``csrc/factor.cu``): one block a document holds two packed lower
-    triangles in shared memory, the rung's matrix and the running sums (39.6
-    KB at P=99: the whole chunk resident in one wave); every step reads its
-    pivot after a barrier, so a failed rung reloads H and retries on the
-    device with no host read; one right-looking pass factors and inverts in
-    place (a rank-1 update a step, each sum started from 0), then one thread
-    sums each entry of nu = L⁻ᵀL⁻¹ in ascending order and writes it to both
-    triangles, so nu is symmetric and every output is a function of H alone.
-    L comes back as the transposed view of the kernel's coalesced Lᵀ, the
-    column-major layout ``cholesky_ex`` returns.  Above P ~240 the triangles
-    live in a global scratch (:func:`factor_plan`); P is at most 512.
+    a chunk.  Design (``csrc/factor.cu``), two plans chosen by P
+    (:func:`factor_plan`), one block a document, one launch a chunk; every
+    pivot is read by every thread of the block (or lane of the warp) that
+    tests it, so a failed rung reloads H and retries on the device with no
+    host read; every sum starts from 0, not from H, and takes its terms in
+    ascending order (the blocked plan sums each chunk of 16 from 0 and adds
+    the chunks' sums in order), with no atomics, so every output is a
+    function of H alone and nu (written to both triangles from one sum) is
+    symmetric.
+    The smem plan (P up to ~240): bound by latency (at B=256, P=99 ~30 MB
+    and ~P³/2 multiply-adds a document, but each document's P pivots form a
+    chain); the two packed lower triangles, the rung's matrix and the
+    running sums, sit in shared memory (39.6 KB at P=99: the chunk resident
+    in one wave); one right-looking pass factors and inverts in place (a
+    rank-1 update a step), then one thread sums each entry of nu = L⁻ᵀL⁻¹.
+    The blocked plan (P above ~240, up to 512): bound by operations (at
+    B=256, P=399 16.3 GFLOP, 0.243 ms, against 490 MB, 0.15 ms); panels of
+    32, left-looking: the factor takes a panel's columns as register tiles
+    of 32 rows by 32 columns (4 x 8 a lane, the rows above staged a chunk
+    of 16 by cp.async), warp 0 factors the diagonal block by shuffles and
+    the rows below solve against it in registers; then X = L⁻¹ a panel of
+    32 rows and nu = XᵀX a 32 x 32 tile at a time, each warp taking its
+    own tiles, the longest first.  Each panel reads the rows above it once
+    (~4 MB a document at P=399, X in the scratch the wrapper allocates, L
+    in Lᵀ), so nothing streams the triangles a step at a time.  L comes
+    back as the transposed view of the kernel's coalesced Lᵀ, the
+    column-major layout ``cholesky_ex`` returns.
     """
     if _use_plain("factor", H):
         return chol_pd_inverse_plain(H, inverse, jitter, rel_jitter)

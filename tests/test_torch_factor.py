@@ -179,7 +179,8 @@ def _check_against_plain(H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,P", [(256, 99), (256, 19), (16, 1), (16, 2), (16, 31), (16, 32),
                                  (16, 33), (16, 199), (16, 511), (16, "boundary"),
-                                 (16, "boundary+1")])
+                                 (16, "boundary+1"), (256, 399), (16, 241), (16, 300),
+                                 (64, 511)])
 def test_cuda_factor_matches_plain(card, B, P):
     if isinstance(P, str):
         P = _smem_boundary() + (P == "boundary+1")
@@ -199,8 +200,11 @@ def test_cuda_factor_takes_the_planted_rungs(card, P):
 
 
 @pytest.mark.cuda
-def test_cuda_factor_is_bit_equal_run_to_run(card):
-    H = torch.tensor(np.concatenate([_spd(np.random.default_rng(3), 251, 99), _planted(99)]),
+@pytest.mark.parametrize("P", [99, 399])
+def test_cuda_factor_is_bit_equal_run_to_run(card, P):
+    """Two launches give the same bits: the smem plan (P=99) and the blocked
+    plan (P=399), whose sums have a fixed order and no atomics."""
+    H = torch.tensor(np.concatenate([_spd(np.random.default_rng(3), 251, P), _planted(P)]),
                      device=card)
     a = stages.chol_pd_inverse(H)
     b = stages.chol_pd_inverse(H)
@@ -208,12 +212,18 @@ def test_cuda_factor_is_bit_equal_run_to_run(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [19, 99])
+@pytest.mark.parametrize("P", [19, 99, 399, "k400 optimum"])
 def test_cuda_nu_error_at_most_twice_plain(card, P):
     """nu against the float64 inverse of the same float32 H, in relative
     Frobenius norm over the chunk: the kernel's error is at most twice the
-    library pair's."""
-    H = torch.tensor(_spd(np.random.default_rng(5), 256, P), device=card)
+    library pair's.  "k400 optimum": the Hessians of a K=400 chunk at its
+    Newton optimum (V=50,000, 300 tokens), where summing each entry of nu
+    one term at a time over ~400 terms reads ~2.6x the pair's."""
+    if P == "k400 optimum":
+        H = cs.content_shaped_hessians(torch, stages, B=64, K=400, V=50_000, words=300,
+                                       seed=400, device=card)
+    else:
+        H = torch.tensor(_spd(np.random.default_rng(5), 256, P), device=card)
     want = torch.linalg.inv(H.double())
     err = {}
     for name, nu in (("kernel", stages.chol_pd_inverse(H)[1]),
@@ -223,8 +233,9 @@ def test_cuda_nu_error_at_most_twice_plain(card, P):
 
 
 @pytest.mark.cuda
-def test_cuda_factor_only_mode(card):
-    H = torch.tensor(np.concatenate([_spd(np.random.default_rng(7), 27, 99), _planted(99)]),
+@pytest.mark.parametrize("P", [99, 399])
+def test_cuda_factor_only_mode(card, P):
+    H = torch.tensor(np.concatenate([_spd(np.random.default_rng(7), 27, P), _planted(P)]),
                      device=card)
     L, nu, rung = stages.chol_pd_inverse(H, inverse=False)
     Lp, rungp = stages.chol_pd_plain(H)
